@@ -3,33 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds the hand kernels from the sources in this checkout, holds each one
-against its plain PyTorch version at the flagship cc12m_64x64 shapes (and
-times both with CUDA events), then drives the port's main path: text-
-conditioned DDIM sampling of the full-width cc12m_64x64 U-Net with random
-weights from a seed, through ``Diffusion.sample``:
+Builds the hand kernels from the sources in this checkout (K2 with nvcc
+in a background thread while Triton compiles K1), then drives each of the
+port's sampling paths with random weights from a seed:
 
-  - batch 4, 4 DDIM steps, kernel path against plain path (same weights
-    and noise);
-  - two requests of batch 64, DDIM-50, eta 0 (the bench preset), counting
-    the kernels' launches;
-  - one request of batch 8 with classifier-free guidance 5.
+  1. cc12m_64x64 (``Diffusion.sample``): every kernel launch shape of a
+     batch-64 forward held against its plain version and timed beside its
+     bound and the library call (the shortcut's shapes also without the
+     stats); batch 4, 4 DDIM steps, kernel path against
+     plain path; two batch-64 DDIM-50 requests (the bench preset); one
+     batch-8 request with classifier-free guidance 5; one profiled forward.
+  2. cc12m_256x256 (``NestedDiffusion.sample``, a 256px shell around the
+     64px core): every kernel launch shape of the request's forward
+     (8 rows) checked and timed; batch 2 kernel path against plain path
+     (one forward, DDIM-4); two requests of the web demo's defaults
+     (batch 4, guidance 7.5, DDIM-50, eta 0); one profiled forward.
+  3. cc12m_1024x1024 (nested2: 1024px and 256px shells around the core):
+     every kernel launch shape of a batch-4 forward checked and timed; one
+     untimed forward, then one request of ``bench.py`` ``sample_1024``'s
+     preset (batch 4, DDIM-250, eta 1; DDIM-50 if that forward took over
+     400 ms); one ``output_inner`` call; one profiled forward.
 
-Every phase that fails raises, and the script exits non-zero. It needs a
-CUDA device and never falls back to the CPU. The last line of its output is
-one JSON object with "ok" and the device; the line before it names every
-kernel with its launches, error and times.
+Before each request phase every launch count is set to 0 and read just
+after it; a kernel of the path that never launched fails the run. Every
+phase that fails raises, and the script exits non-zero. It needs a CUDA
+device and never falls back to the CPU. The card's name and power limit
+are printed near the top; the line before the last names every kernel
+with its launches during the nested requests, its error and its times;
+the last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
-SIDE = 64
 LM_LEN = 32
 
 # tolerances (bf16 working type), each relative to max|plain|:
@@ -39,9 +52,23 @@ UNET_TOL = 5e-2  # those flips carried through the full U-Net (one forward)
 SAMPLE_MEAN_TOL = 1e-2  # 4-step sample, mean |kernel - plain| over pixels in [-1, 1]
 SAMPLE_MAX_TOL = 0.25   # 4-step sample, max |kernel - plain|
 
+# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
+PEAK_BF16_TENSOR = 989e12  # FLOP/s
+PEAK_F32 = 67e12           # FLOP/s outside the tensor cores
+PEAK_HBM = 3.35e12         # bytes/s
+FORWARD_MS_FOR_250_STEPS = 400.0  # above it the 1024 request runs DDIM-50
+
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    log(f"== {name}")
+    yield
+    log(f"== {name}: {time.perf_counter() - t0:.3f} s wall")
 
 
 def nvidia_smi_line() -> str:
@@ -61,14 +88,21 @@ def abs_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
-def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
-    """Median milliseconds of fn() over reps, from CUDA events."""
+_FLUSH = []
+
+
+def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
+    """Median milliseconds of fn() over reps, from CUDA events, with the
+    50 MB L2 cache overwritten before each timed run."""
     import torch
 
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 * 2**20, dtype=torch.int32, device="cuda"))
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        _FLUSH[0].zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -79,102 +113,214 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def flagship_shapes(unet, side: int):
-    """Distinct (C, Cout, side, residual) of the ResNet convs and (C, side)
-    of the 4-D GroupNorms that the flagship U-Net runs."""
-    convs, norms = set(), set()
-    n = len(unet.down_blocks)
-
-    def stage(block, s):
-        for r in block.resnets:
-            cin, cout = r.config.num_channels, r.config.output_channels
-            convs.add((cin, cout, s, False))
-            convs.add((cout, cout, s, True))
-            norms.add((cin, s))
-        for a in getattr(block, "attn", []):
-            c = a.qkv.in_channels
-            norms.add((c, s))
-
-    for i, blk in enumerate(unet.down_blocks):
-        stage(blk, side >> i)
-    for blk in unet.mid_blocks:
-        stage(blk, side >> (n - 1))
-    for i, blk in enumerate(unet.up_blocks):
-        stage(blk, side >> (n - 1 - i))
-    norms.add((unet.norm_out.weight.shape[0], side))
-    return sorted(convs), sorted(norms)
+# -- kernel launch shapes of a path ---------------------------------------
 
 
-def check_kernels(unet, dev, batch: int):
-    """Each kernel against its plain version at the flagship shapes."""
+def record_launch_shapes(run):
+    """Run ``run()`` with the kernel wrappers wrapped, and return the
+    distinct launch shapes it gave them: K2 keys (B, H, W, operand
+    channels, Cout, residual, stats, shortcut, silu) and K1 keys (B, H, W, C)."""
     import torch
-    import torch.nn.functional as F
 
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 
-    convs, norms = flagship_shapes(unet, SIDE)
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    k2, k1 = set(), set()
+    conv, sums = fused_resnet.affine_silu_conv3x3, gn_stats.spatial_sums
+
+    def conv_rec(x, a, b, w, bias, residual=None, **kw):
+        xs = x if isinstance(x, (tuple, list)) else (x,)
+        k2.add((*xs[0].shape[:3], tuple(xi.shape[-1] for xi in xs),
+                (w[0] if isinstance(w, (tuple, list)) else w).shape[-1],
+                residual is not None, bool(kw.get("emit_stats")),
+                kw.get("proj_kernel") is not None, kw.get("apply_silu", True)))
+        return conv(x, a, b, w, bias, residual, **kw)
+
+    def sums_rec(x):
+        k1.add(tuple(x.shape))
+        return sums(x)
+
+    fused_resnet.affine_silu_conv3x3, gn_stats.spatial_sums = conv_rec, sums_rec
+    try:
+        with torch.no_grad():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        fused_resnet.affine_silu_conv3x3, gn_stats.spatial_sums = conv, sums
+    return sorted(k2), sorted(k1)
+
+
+def k2_bound(key):
+    """(least ms, what bounds it) for one K2 launch on the H100: each input
+    read once and each output written once over HBM, the convolution and
+    shortcut products over the dense bf16 tensor-core peak."""
+    bsz, h, w, cs, cout, residual, stats, proj, _ = key
+    ct, px = sum(cs), bsz * h * w
+    flops = 2 * px * ct * cout * (9 + proj)
+    nbytes = (2 * px * ct + 2 * 4 * bsz * ct + 2 * 9 * ct * cout + 4 * cout
+              + 2 * px * cout * (1 + residual + proj)
+              + (2 * 4 * bsz * cout if stats else 0)
+              + ((2 * ct + 4) * cout if proj else 0))
+    t_ops, t_bytes = flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def k1_bound(key):
+    bsz, h, w, c = key
+    t_bytes = (2 * bsz * h * w * c + 2 * 4 * bsz * c) / PEAK_HBM
+    t_ops = 3 * bsz * h * w * c / PEAK_F32
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _conv_inputs(key, dev, g):
+    import torch
+
+    bsz, h, w, cs, cout, residual, _, proj, _ = key
+    ct = sum(cs)
     bf = torch.bfloat16
-    k1 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for c, s in norms:
-        x = (torch.randn((batch, s, s, c), generator=g, device=dev) + 0.25).to(bf)
+    xs = tuple(torch.randn((bsz, h, w, c), generator=g, device=dev).to(bf) for c in cs)
+    a = tuple(torch.randn((bsz, c), generator=g, device=dev) * 0.2 + 1.0 for c in cs)
+    b = tuple(torch.randn((bsz, c), generator=g, device=dev) * 0.3 for c in cs)
+    wk = tuple((torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * ct) ** 0.5).to(bf)
+               for c in cs)
+    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+    res = torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf) if residual else None
+    kw = {}
+    if proj:
+        kw["proj_kernel"] = tuple((torch.randn((c, cout), generator=g, device=dev)
+                                   / ct ** 0.5).to(bf) for c in cs)
+        kw["proj_bias"] = torch.randn((cout,), generator=g, device=dev) * 0.1
+    return xs, a, b, wk, bias, res, kw
+
+
+def library_conv(xs, a, b, wk, bias, res, stats, proj_kernel=None, proj_bias=None):
+    """The same function from PyTorch's own calls, for timing only:
+    elementwise affine + SiLU per operand, torch.cat, cuDNN's bf16 3x3 conv,
+    the residual add, the stats sums and cuDNN's bf16 1x1 conv."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    v = torch.cat([F.silu(x.float() * ak[:, None, None, :] + bk[:, None, None, :]).to(bf)
+                   for x, ak, bk in zip(xs, a, b)], dim=-1).permute(0, 3, 1, 2)
+    w = torch.cat(wk, dim=2).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(v, w, bias.to(bf), padding=1)
+    if res is not None:
+        y = y + res.permute(0, 3, 1, 2)
+    out = [y]
+    if stats:
+        yf = y.float()
+        out += [yf.sum(dim=(2, 3)), yf.square().sum(dim=(2, 3))]
+    if proj_kernel is not None:
+        raw = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
+        pw = torch.cat(proj_kernel, dim=0).t()[:, :, None, None].contiguous(
+            memory_format=torch.channels_last)
+        out.append(F.conv2d(raw, pw, proj_bias.to(bf)))
+    return out
+
+
+def _new_totals():
+    return {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "shapes": 0}
+
+
+def _add(tot, err, ms, pms, lms, bound, by):
+    tot["err"] = max(tot["err"], err)
+    tot["ms"] += ms
+    tot["plain_ms"] += pms
+    tot["library_ms"] += lms if lms is not None else 0.0
+    tot["bound_ms"] += bound
+    tot["ops_ms" if by == "operations" else "bytes_ms"] += bound
+    tot["shapes"] += 1
+
+
+def check_kernels(k2_keys, k1_keys, dev, label: str):
+    """Each launch shape: kernel against plain version (tolerance), then
+    kernel, plain and library times and the bound. Returns per-mode
+    totals: K1, K2 (every shape), K2·N (shapes with several operands),
+    K2·proj (shapes with the shortcut)."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tot = {m: _new_totals() for m in ("K1", "K2", "K2·N", "K2·proj")}
+    for key in k1_keys:
+        x = (torch.randn(key, generator=g, device=dev) + 0.25).to(torch.bfloat16)
         s1, s2 = gn_stats.spatial_sums(x)
         p1, p2 = gn_stats.spatial_sums_plain(x)
         err = max(rel_err(s1, p1), rel_err(s2, p2))
         if not err <= K1_TOL:
-            raise AssertionError(f"K1 spatial_sums C={c} side={s}: rel err {err} > {K1_TOL}")
+            raise AssertionError(f"K1 spatial_sums {key}: rel err {err} > {K1_TOL}")
         ms = cuda_ms(lambda: gn_stats.spatial_sums(x))
-        pms = cuda_ms(lambda: gn_stats.spatial_sums_plain(x))
-        gbs = x.numel() * 2 / ms / 1e6
-        log(f"K1 spatial_sums B={batch} {s}x{s} C={c}: rel_err {err:.3e} "
-            f"abs_err {max(abs_err(s1, p1), abs_err(s2, p2)):.3e} kernel {ms:.4f} ms "
-            f"({gbs:.0f} GB/s) plain {pms:.4f} ms")
-        k1["err"] = max(k1["err"], max(abs_err(s1, p1), abs_err(s2, p2)))
-        k1["ms"] += ms
-        k1["plain_ms"] += pms
+        pms = cuda_ms(lambda: gn_stats.spatial_sums_plain(x), reps=3)
+        bound, by = k1_bound(key)
+        log(f"{label} K1 spatial_sums {key}: rel_err {err:.3e} kernel {ms:.4f} ms "
+            f"({x.numel() * 2 / ms / 1e6:.0f} GB/s) plain {pms:.4f} ms bound {bound:.4f} ms ({by})")
+        _add(tot["K1"], max(abs_err(s1, p1), abs_err(s2, p2)), ms, pms, None, bound, by)
+    for key in k2_keys:
+        xs, a, b, wk, bias, res, kw = _conv_inputs(key, dev, g)
+        stats, silu = key[6], key[8]
 
-    k2 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for c, cout, s, residual in convs:
-        x = torch.randn((batch, s, s, c), generator=g, device=dev).to(bf)
-        a = torch.randn((batch, c), generator=g, device=dev) * 0.2 + 1.0
-        b = torch.randn((batch, c), generator=g, device=dev) * 0.3
-        w = (torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5).to(bf)
-        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
-        res = (torch.randn((batch, s, s, cout), generator=g, device=dev).to(bf)
-               if residual else None)
-        stats = not residual  # conv1 emits stats, conv2 adds the residual
-        out = fused_resnet.affine_silu_conv3x3(x, a, b, w, bias, res, emit_stats=stats)
-        ref = fused_resnet.affine_silu_conv3x3_plain(x, a, b, w, bias, res, emit_stats=stats)
-        out, ref = (out, ref) if stats else ((out,), (ref,))
+        def kernel():
+            return fused_resnet.affine_silu_conv3x3(xs, a, b, wk, bias, res, emit_stats=stats,
+                                                    apply_silu=silu, **kw)
+
+        def plain():
+            return fused_resnet.affine_silu_conv3x3_plain(xs, a, b, wk, bias, res,
+                                                          emit_stats=stats, apply_silu=silu, **kw)
+
+        out, ref = kernel(), plain()
+        out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
         errs = [rel_err(o, r) for o, r in zip(out, ref)]
         if not max(errs) <= K2_TOL:
-            raise AssertionError(
-                f"K2 affine_silu_conv3x3 {c}->{cout} side={s}: rel errs {errs} > {K2_TOL}")
-        ms = cuda_ms(lambda: fused_resnet.affine_silu_conv3x3(
-            x, a, b, w, bias, res, emit_stats=stats))
-        pms = cuda_ms(lambda: fused_resnet.affine_silu_conv3x3_plain(
-            x, a, b, w, bias, res, emit_stats=stats), reps=3)
-        # for reference only: cuDNN's bf16 conv with the same elementwise ops
-        xc = x.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            raise AssertionError(f"K2 {key}: rel errs {errs} > {K2_TOL}")
+        ms = cuda_ms(kernel)
+        pms = cuda_ms(plain, warmup=1, reps=3)
+        lms = (cuda_ms(lambda: library_conv(xs, a, b, wk, bias, res, stats, **kw))
+               if silu else None)
+        bound, by = k2_bound(key)
+        bsz, h, w, cs, cout = key[:5]
+        tflops = 2 * bsz * h * w * sum(cs) * cout * (9 + key[7]) / ms / 1e9
+        log(f"{label} K2 B={bsz} {h}x{w} {'+'.join(map(str, cs))}->{cout}"
+            f"{' residual' if key[5] else ''}{' stats' if stats else ''}"
+            f"{' shortcut' if key[7] else ''}: rel_errs {', '.join(f'{e:.3e}' for e in errs)} "
+            f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {pms:.4f} ms "
+            f"library {lms if lms is None else f'{lms:.4f}'} ms bound {bound:.4f} ms ({by})")
+        err = max(abs_err(o, r) for o, r in zip(out, ref))
+        modes = ["K2"] + (["K2·N"] if len(cs) > 1 else []) + (["K2·proj"] if key[7] else [])
+        for m in modes:
+            _add(tot[m], err, ms, pms, lms, bound, by)
+    # the path runs the shortcut only beside the stats (conv1): hold its
+    # shapes without them too, untimed and outside the totals
+    for key in k2_keys:
+        if not (key[6] and key[7]):
+            continue
+        xs, a, b, wk, bias, res, kw = _conv_inputs(key, dev, g)
+        out = fused_resnet.affine_silu_conv3x3(xs, a, b, wk, bias, res, **kw)
+        ref = fused_resnet.affine_silu_conv3x3_plain(xs, a, b, wk, bias, res, **kw)
+        errs = [rel_err(o, r) for o, r in zip(out, ref)]
+        if not max(errs) <= K2_TOL:
+            raise AssertionError(f"K2 {key} without stats: rel errs {errs} > {K2_TOL}")
+        log(f"{label} K2 {key[:5]} shortcut without stats: rel_errs "
+            f"{', '.join(f'{e:.3e}' for e in errs)}")
+    for m, t in tot.items():
+        log(f"{label} {m} over {t['shapes']} shapes: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    return tot
 
-        def cudnn():
-            v = F.silu(xc.float() * a[:, :, None, None] + b[:, :, None, None]).to(bf)
-            y = F.conv2d(v, wc, bias.to(bf), padding=1)
-            return y if res is None else y + res.permute(0, 3, 1, 2)
 
-        cms = cuda_ms(cudnn)
-        tflops = 2 * batch * s * s * 9 * c * cout / ms / 1e9
-        log(f"K2 affine_silu_conv3x3 B={batch} {s}x{s} {c}->{cout} "
-            f"{'residual' if residual else 'stats'}: rel_errs "
-            f"{', '.join(f'{e:.3e}' for e in errs)} kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) "
-            f"plain(f32 conv) {pms:.4f} ms cudnn-bf16 {cms:.4f} ms")
-        k2["err"] = max(k2["err"], max(abs_err(o, r) for o, r in zip(out, ref)))
-        k2["ms"] += ms
-        k2["plain_ms"] += pms
-    log(f"summed over {len(norms)} K1 shapes: kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms")
-    log(f"summed over {len(convs)} K2 shapes: kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms")
-    return k1, k2
+def merge_totals(*parts):
+    out = {m: _new_totals() for m in parts[0]}
+    for p in parts:
+        for m, t in p.items():
+            o = out[m]
+            o["err"] = max(o["err"], t["err"])
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms", "shapes"):
+                o[k] += t[k]
+    return out
+
+
+# -- requests -------------------------------------------------------------
 
 
 def text_conditioning(dev, rows: int, lm_dim: int, gen):
@@ -185,11 +331,11 @@ def text_conditioning(dev, rows: int, lm_dim: int, gen):
     return {"lm_outputs": lm, "lm_mask": mask}
 
 
-def check_images(out, batch: int, what: str):
+def check_images(out, shape, what: str):
     import torch
 
-    if out.shape != (batch, SIDE, SIDE, 3):
-        raise AssertionError(f"{what}: shape {tuple(out.shape)}")
+    if tuple(out.shape) != tuple(shape):
+        raise AssertionError(f"{what}: shape {tuple(out.shape)}, expected {tuple(shape)}")
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{what}: non-finite values")
     lo, hi = float(out.min()), float(out.max())
@@ -200,33 +346,117 @@ def check_images(out, batch: int, what: str):
         f"share of pixels inside (-1, 1): {inner:.4f}")
 
 
-def profile_forward(pipe, dev, batch: int, lm_dim: int):
-    """Wall time of one batch-`batch` U-Net forward, then its device time
-    by kernel and the device's idle share from a profiler trace."""
+def reset_counts():
+    from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+
+    gn_stats.launch_count = 0
+    fused_resnet.reset_launch_counts()
+
+
+def read_counts(what: str):
+    """The launch counts since reset_counts(); fails if a kernel of the path
+    never launched."""
+    from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+
+    counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts}
+    log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels of the path never launched: {missing}")
+    return counts
+
+
+def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen, **kw):
+    """n timed sampling requests between a count reset and a count read;
+    returns (counts, outputs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    outs = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(pipe.sample(batch, cond, side, gen, **kw))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"{what} request {i}: batch {batch}: {dt:.4f} s, {batch / dt:.4f} samples/s")
+    counts = read_counts(what)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"{what}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    return counts, outs
+
+
+def kernel_vs_plain(pipe, dev, lm_dim: int, side: int, what: str, batch: int = 4):
+    """One forward and a DDIM-4 sample through the kernels and through the
+    plain versions, with the same weights and noise."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cond = text_conditioning(dev, batch, lm_dim, gen)
+    noise = pipe.get_noise(batch, side, gen)
+    t = torch.linspace(999, 100, batch, device=dev).long()
+    kw = dict(num_inference_steps=4, resample_steps=True, ddim_eta=0.0)
+    unet = pipe.vision_module
+    with torch.no_grad():
+        f_k = pipe.model(noise, t, cond["lm_outputs"], cond["lm_mask"], {})
+        s_k = pipe.sample(batch, cond, side, noise=noise, **kw)
+        unet.use_kernels(False)
+        f_p = pipe.model(noise, t, cond["lm_outputs"], cond["lm_mask"], {})
+        s_p = pipe.sample(batch, cond, side, noise=noise, **kw)
+        unet.use_kernels(True)
+    f_k = f_k if isinstance(f_k, list) else [f_k]
+    f_p = f_p if isinstance(f_p, list) else [f_p]
+    f_err = max(rel_err(a, b) for a, b in zip(f_k, f_p))
+    s_mean = float((s_k - s_p).abs().mean())
+    s_max = float((s_k - s_p).abs().max())
+    log(f"{what} kernel vs plain path, one forward B={batch}: rel err {f_err:.4e} "
+        f"(tol {UNET_TOL}) over {len(f_k)} outputs")
+    log(f"{what} kernel vs plain path, DDIM-4 sample B={batch}: mean abs {s_mean:.4e} "
+        f"(tol {SAMPLE_MEAN_TOL}), max abs {s_max:.4e} (tol {SAMPLE_MAX_TOL})")
+    if not (f_err <= UNET_TOL and s_mean <= SAMPLE_MEAN_TOL and s_max <= SAMPLE_MAX_TOL):
+        raise AssertionError(f"{what}: kernel path disagrees with plain path")
+    check_images(s_k, (batch, side, side, 3), f"{what} DDIM-4 kernel path")
+
+
+def forward_inputs(pipe, dev, batch: int, side: int, lm_dim: int):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = pipe.get_noise(batch, side, gen)
+    t = torch.full((batch,), 500, device=dev)
+    cond = text_conditioning(dev, batch, lm_dim, gen)
+    return lambda: pipe.model(x, t, cond["lm_outputs"], cond["lm_mask"], {})
+
+
+def profile_forward(forward, what: str):
+    """Time of one forward (CUDA events) and the host's time to enqueue it,
+    then its device time by kernel and the device's idle share from a
+    profiler trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    x = torch.randn((batch, SIDE, SIDE, 3), generator=gen, device=dev)
-    t = torch.full((batch,), 500, device=dev)
-    cond = text_conditioning(dev, batch, lm_dim, gen)
-    unet = pipe.vision_module
-
-    def forward():
-        unet(x, t, cond["lm_outputs"], cond["lm_mask"], {})
-
     with torch.no_grad():
-        ms = cuda_ms(forward, warmup=1, reps=5)
-        log(f"one U-Net forward B={batch}: {ms:.3f} ms (CUDA events, median of 5)")
+        ms = cuda_ms(forward, warmup=1, reps=3)
+        enqueue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        log(f"{what}: one forward {ms:.3f} ms (CUDA events, median of 3); the host "
+            f"enqueues it in {statistics.median(enqueue):.3f} ms (median of 3)")
         for _ in range(2):  # the first profiled run pays the tracer's set-up
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 forward()
                 torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log("profile: the profiler recorded no device time")
-        return
+        log(f"{what} profile: the profiler recorded no device time")
+        return ms
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -238,14 +468,119 @@ def profile_forward(pipe, dev, batch: int, lm_dim: int):
     busy += cur_e - cur_s
     start = min(e.time_range.start for e in prof.events())
     window = spans[-1][1] - start
-    log(f"profile: one U-Net forward B={batch}: device busy {busy / 1e3:.3f} ms of a "
-        f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}")
+    log(f"{what} profile: device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window, "
+        f"idle share {1 - busy / window:.4f}")
     by_name = {}
     for e in kernels:
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
-    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {tot / 1e3:9.3f} ms {100 * tot / busy:5.1f}%  x{n:<5d} {name[:88]}")
+    return ms
+
+
+# -- the paths --------------------------------------------------------------
+
+
+def path_64(dev):
+    import torch
+
+    from ml_mdm_tpu_torch.presets import flagship_64px
+
+    with phase("64px: build and kernel shapes"):
+        pipe, lm_dim, side = flagship_64px(dev, seed=SEED)
+        n_params = sum(p.numel() for p in pipe.vision_module.parameters())
+        log(f"cc12m_64x64 built on {dev}: {n_params} parameters (bf16)")
+        k2_keys, k1_keys = record_launch_shapes(forward_inputs(pipe, dev, 64, side, lm_dim))
+        check_kernels(k2_keys, k1_keys, dev, "64px")
+    with phase("64px: kernel path vs plain path"):
+        kernel_vs_plain(pipe, dev, lm_dim, side, "64px")
+    with phase("64px: two batch-64 DDIM-50 requests"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        cond = text_conditioning(dev, 64, lm_dim, gen)
+        _, outs = run_requests(pipe, dev, "64px", 2, 64, side, cond, gen,
+                               num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
+        for i, out in enumerate(outs):
+            check_images(out, (64, side, side, 3), f"64px request {i}")
+    with phase("64px: CFG request"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        cond = text_conditioning(dev, 16, lm_dim, gen)
+        _, outs = run_requests(pipe, dev, "64px CFG", 1, 8, side, cond, gen,
+                               num_inference_steps=50, resample_steps=True, ddim_eta=0.0,
+                               guidance_scale=5.0)
+        check_images(outs[0], (8, side, side, 3), "64px CFG request")
+    with phase("64px: profile"):
+        profile_forward(forward_inputs(pipe, dev, 64, side, lm_dim), "64px B=64")
+
+
+def path_256(dev):
+    import torch
+
+    from ml_mdm_tpu_torch.presets import cc12m_256x256
+
+    batch, guidance = 4, 7.5  # the web demo's defaults
+    with phase("256px: build and kernel shapes"):
+        pipe, lm_dim, side = cc12m_256x256(dev, seed=SEED)
+        n_params = sum(p.numel() for p in pipe.vision_module.parameters())
+        log(f"cc12m_256x256 built on {dev}: {n_params} parameters (bf16), scales {pipe.scales}")
+        k2_keys, k1_keys = record_launch_shapes(
+            forward_inputs(pipe, dev, 2 * batch, side, lm_dim))
+        totals = check_kernels(k2_keys, k1_keys, dev, "256px")
+    with phase("256px: kernel path vs plain path"):
+        kernel_vs_plain(pipe, dev, lm_dim, side, "256px", batch=2)
+    with phase("256px: two requests, batch 4, guidance 7.5, DDIM-50"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        cond = text_conditioning(dev, 2 * batch, lm_dim, gen)
+        counts, outs = run_requests(pipe, dev, "256px", 2, batch, side, cond, gen,
+                                    num_inference_steps=50, resample_steps=True,
+                                    ddim_eta=0.0, guidance_scale=guidance)
+        for i, out in enumerate(outs):
+            check_images(out, (batch, side, side, 3), f"256px request {i}")
+    with phase("256px: profile"):
+        profile_forward(forward_inputs(pipe, dev, 2 * batch, side, lm_dim), "256px B=8")
+    return totals, counts
+
+
+def path_1024(dev):
+    import torch
+
+    from ml_mdm_tpu_torch.presets import cc12m_1024x1024
+
+    batch = 4
+    with phase("1024px: build and kernel shapes"):
+        pipe, lm_dim, side = cc12m_1024x1024(dev, seed=SEED)
+        n_params = sum(p.numel() for p in pipe.vision_module.parameters())
+        log(f"cc12m_1024x1024 built on {dev}: {n_params} parameters (bf16), scales {pipe.scales}")
+        forward = forward_inputs(pipe, dev, batch, side, lm_dim)
+        k2_keys, k1_keys = record_launch_shapes(forward)
+        if not any(k[2] == 1024 for k in k2_keys):
+            raise AssertionError("K2 never launched at W = 1024")
+        totals = check_kernels(k2_keys, k1_keys, dev, "1024px")
+    with phase("1024px: one untimed forward, then the sample_1024 request"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            forward()
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        steps = 250 if fwd_ms <= FORWARD_MS_FOR_250_STEPS else 50
+        log(f"1024px untimed forward B={batch}: {fwd_ms:.3f} ms -> DDIM-{steps}"
+            + ("" if steps == 250 else f" (over {FORWARD_MS_FOR_250_STEPS} ms)"))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        cond = text_conditioning(dev, batch, lm_dim, gen)
+        counts, outs = run_requests(pipe, dev, f"1024px DDIM-{steps}", 1, batch, side, cond,
+                                    gen, num_inference_steps=steps, resample_steps=True,
+                                    ddim_eta=1.0)
+        check_images(outs[0], (batch, side, side, 3), "1024px request")
+    with phase("1024px: output_inner"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        cond = text_conditioning(dev, 2, lm_dim, gen)
+        out = pipe.sample(2, cond, side, gen, num_inference_steps=4, resample_steps=True,
+                          ddim_eta=1.0, output_inner=True)
+        check_images(out, (2, side, len(pipe.scales) * side, 3), "1024px output_inner DDIM-4")
+    with phase("1024px: profile"):
+        profile_forward(forward, "1024px B=4")
+    return totals, counts
 
 
 def main() -> int:
@@ -254,123 +589,73 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's check runs only on a GPU")
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
-    from ml_mdm_tpu_torch.presets import flagship_64px
 
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = nvidia_smi_line()
-    log(f"card: {smi}")
+    log(nvidia_smi_line())
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # 1. build the kernels from the sources in this checkout
-    t0 = time.perf_counter()
-    lib_path = fused_resnet.build_library()
-    fused_resnet.load_library()
-    log(f"K2 build (nvcc, sm_90a) + load: {time.perf_counter() - t0:.3f} s -> {lib_path.name}")
-    build_log = lib_path.with_name(lib_path.name + ".log")
-    if build_log.exists():
-        for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "built in" in line:
-                log(f"  nvcc: {line.strip()}")
-    t0 = time.perf_counter()
-    probe = torch.ones((1, 8, 8, 64), device=dev, dtype=torch.bfloat16)
-    gn_stats.spatial_sums(probe)
-    torch.cuda.synchronize()
-    log(f"K1 first launch (Triton compile): {time.perf_counter() - t0:.3f} s")
+    with phase("build the kernels (nvcc for K2 beside Triton's K1 compile)"):
+        built = {}
 
-    # 2. the flagship pipeline, and each kernel against its plain version
-    t0 = time.perf_counter()
-    pipe, lm_dim, side = flagship_64px(dev, seed=SEED)
-    if side != SIDE:
-        raise AssertionError(f"flagship side {side}")
-    unet = pipe.vision_module
-    n_params = sum(p.numel() for p in unet.parameters())
-    log(f"flagship cc12m_64x64 built on {dev}: {n_params} parameters (bf16), "
-        f"{time.perf_counter() - t0:.3f} s")
-    k1, k2 = check_kernels(unet, dev, batch=64)
+        def build():
+            try:
+                built["path"] = fused_resnet.build_library()
+            except Exception as e:  # re-raised below, in the main thread
+                built["error"] = e
 
-    # 3a. kernel path against plain path, same weights and noise
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    cond4 = text_conditioning(dev, 4, lm_dim, gen)
-    noise4 = torch.randn((4, SIDE, SIDE, 3), generator=gen, device=dev)
-    t4 = torch.tensor([999, 700, 400, 100], device=dev)
-    kw4 = dict(num_inference_steps=4, resample_steps=True, ddim_eta=0.0)
-    with torch.no_grad():
-        f_k = unet(noise4, t4, cond4["lm_outputs"], cond4["lm_mask"], {})
-        s_k = pipe.sample(4, cond4, SIDE, noise=noise4, **kw4)
-        unet.use_kernels(False)
-        f_p = unet(noise4, t4, cond4["lm_outputs"], cond4["lm_mask"], {})
-        s_p = pipe.sample(4, cond4, SIDE, noise=noise4, **kw4)
-        unet.use_kernels(True)
-    f_err = rel_err(f_k, f_p)
-    s_mean = float((s_k - s_p).abs().mean())
-    s_max = float((s_k - s_p).abs().max())
-    log(f"kernel vs plain path, one U-Net forward B=4: rel err {f_err:.4e} (tol {UNET_TOL}), "
-        f"max|plain| {float(f_p.float().abs().max()):.4f}")
-    log(f"kernel vs plain path, DDIM-4 sample B=4: mean abs {s_mean:.4e} (tol {SAMPLE_MEAN_TOL}), "
-        f"max abs {s_max:.4e} (tol {SAMPLE_MAX_TOL})")
-    if not (f_err <= UNET_TOL and s_mean <= SAMPLE_MEAN_TOL and s_max <= SAMPLE_MAX_TOL):
-        raise AssertionError("kernel path disagrees with plain path")
-    check_images(s_k, 4, "DDIM-4 kernel path")
-
-    # 3b. the main path: two batch-64 DDIM-50 requests at the bench preset
-    batch, steps = 64, 50
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    cond = text_conditioning(dev, batch, lm_dim, gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    gn_stats.launch_count = 0
-    fused_resnet.launch_count = 0
-    outs, times = [], []
-    for _ in range(2):
-        torch.cuda.synchronize()
+        thread = threading.Thread(target=build)
         t0 = time.perf_counter()
-        out = pipe.sample(batch, cond, SIDE, gen, num_inference_steps=steps,
-                          resample_steps=True, ddim_eta=0.0)
+        thread.start()
+        probe = torch.ones((1, 8, 8, 64), device=dev, dtype=torch.bfloat16)
+        gn_stats.spatial_sums(probe)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        outs.append(out)
-    launches = {"K1": gn_stats.launch_count, "K2": fused_resnet.launch_count}
-    peak = torch.cuda.max_memory_allocated(dev)
-    for i, dt in enumerate(times):
-        log(f"request {i}: batch {batch} DDIM-{steps}: {dt:.4f} s, {batch / dt:.4f} samples/s")
-    log(f"peak device memory over the two requests: {peak} bytes ({peak / 2**30:.3f} GiB)")
-    log(f"launches during the two requests: K1 {launches['K1']}, K2 {launches['K2']}")
-    if not (launches["K1"] > 0 and launches["K2"] > 0):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    for i, out in enumerate(outs):
-        check_images(out, batch, f"request {i}")
+        log(f"K1 first launch (Triton compile): {time.perf_counter() - t0:.3f} s")
+        thread.join()
+        if "error" in built:
+            raise built["error"]
+        fused_resnet.load_library()
+        lib_path = built["path"]
+        log(f"K2 build (nvcc, sm_90a) + load: {time.perf_counter() - t0:.3f} s -> {lib_path.name}")
+        build_log = lib_path.with_name(lib_path.name + ".log")
+        if build_log.exists():
+            for line in build_log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "built in" in line:
+                    log(f"  nvcc: {line.strip()}")
 
-    # 3c. classifier-free guidance: batch 8, 2B text rows
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    cond_cfg = text_conditioning(dev, 16, lm_dim, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = pipe.sample(8, cond_cfg, SIDE, gen, num_inference_steps=steps,
-                      resample_steps=True, ddim_eta=0.0, guidance_scale=5.0)
-    torch.cuda.synchronize()
-    log(f"CFG request: batch 8 guidance 5 DDIM-{steps}: {time.perf_counter() - t0:.4f} s")
-    check_images(out, 8, "CFG request")
+    path_64(dev)
+    torch.cuda.empty_cache()
+    tot_256, counts_256 = path_256(dev)
+    torch.cuda.empty_cache()
+    tot_1024, counts_1024 = path_1024(dev)
 
-    # 4. where one forward's device time goes
-    profile_forward(pipe, dev, batch, lm_dim)
+    totals = merge_totals(tot_256, tot_1024)
+    launches = {k: counts_256[k] + counts_1024[k] for k in counts_256}
+    log(f"launches during the nested requests (256px and 1024px): {launches}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
 
+    def entry(name, mode, route, source, replaces, library=True):
+        t = totals[mode]
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches[mode], "max_abs_err": t["err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
+                "library_ms": t["library_ms"] if library else None}
+
+    cu = "ml_mdm_tpu_torch/csrc/fused_resnet.cu"
     kernels = [
-        {"name": "spatial_sums", "route": "triton",
-         "source": "ml_mdm_tpu_torch/ops/gn_stats.py",
-         "replaces": "ml_mdm_tpu/ops/gn_stats.py:62",
-         "launches": launches["K1"], "max_abs_err": k1["err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "affine_silu_conv3x3", "route": "cuda",
-         "source": "ml_mdm_tpu_torch/csrc/fused_resnet.cu",
-         "replaces": "ml_mdm_tpu/ops/fused_resnet.py:481",
-         "launches": launches["K2"], "max_abs_err": k2["err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        entry("spatial_sums", "K1", "triton", "ml_mdm_tpu_torch/ops/gn_stats.py",
+              "ml_mdm_tpu/ops/gn_stats.py:62", library=False),
+        entry("affine_silu_conv3x3", "K2", "cuda", cu, "ml_mdm_tpu/ops/fused_resnet.py:481"),
+        entry("affine_silu_conv3x3 (N operands)", "K2·N", "cuda", cu,
+              "ml_mdm_tpu/ops/fused_resnet.py:515"),
+        entry("affine_silu_conv3x3 (shortcut)", "K2·proj", "cuda", cu,
+              "ml_mdm_tpu/ops/fused_resnet.py:284"),
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(nvidia_smi_line())
+    print(json.dumps({"kernels": kernels}, ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

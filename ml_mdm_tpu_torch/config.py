@@ -2,9 +2,10 @@
 
 Field names and defaults are those of the JAX package's dataclasses
 (``ml_mdm_tpu/models/unet.py`` ``UNetConfig``, ``ml_mdm_tpu/models/layers.py``
-``ResNetConfig``, ``ml_mdm_tpu/samplers.py`` ``SamplerConfig`` and its enums,
-``ml_mdm_tpu/diffusion.py`` ``DiffusionConfig``), so the shipped YAML files
-load into either package unchanged.
+``ResNetConfig``, ``ml_mdm_tpu/models/nested_unet.py`` ``NestedUNetConfig``,
+``ml_mdm_tpu/samplers.py`` ``SamplerConfig`` and its enums,
+``ml_mdm_tpu/diffusion.py`` ``DiffusionConfig`` and ``NestedDiffusionConfig``),
+so the shipped YAML files load into either package unchanged.
 """
 from __future__ import annotations
 
@@ -96,6 +97,18 @@ class DiffusionConfig:
 
 
 @dataclass
+class NestedDiffusionConfig(DiffusionConfig):
+    use_double_loss: bool = False
+    multi_res_weights: Optional[str] = None
+    no_use_residual: bool = False
+    use_random_interp: bool = False
+    mixed_ratio: Optional[str] = None
+    random_downsample: bool = False
+    average_downsample: bool = False
+    mid_downsample: bool = False
+
+
+@dataclass
 class ResNetConfig:
     num_channels: int = -1
     output_channels: int = -1
@@ -160,10 +173,33 @@ class UNetConfig:
             self.resnet_config = ResNetConfig(**self.resnet_config)
 
 
+@dataclass
+class NestedUNetConfig(UNetConfig):
+    """A shell around an inner U-Net: ``inner_config`` is a UNetConfig (the
+    innermost level) or, recursively, a NestedUNetConfig."""
+
+    inner_config: UNetConfig = field(default_factory=lambda: UNetConfig(nesting=True))
+    skip_mid_blocks: bool = True
+    skip_cond_emb: bool = True
+    skip_inner_unet_input: bool = False
+    skip_normalization: bool = False
+    initialize_inner_with_pretrained: Optional[str] = None
+    freeze_inner_unet: bool = False
+    interp_conditioning: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if isinstance(self.inner_config, dict):
+            cls = NestedUNetConfig if "inner_config" in self.inner_config else UNetConfig
+            self.inner_config = _from_dict(cls, self.inner_config)
+
+
 def _from_dict(cls, data: Optional[Dict[str, Any]]):
     """Build dataclass ``cls`` from a YAML mapping, recursing into dataclass
     fields; keys the dataclass does not have are ignored, and the strings
-    "None"/"null" mean None (as the JAX loader reads them)."""
+    "None"/"null" mean None (as the JAX loader reads them). An
+    ``inner_config`` mapping is left to ``NestedUNetConfig``, which picks
+    its class by whether it nests again."""
     if data is None:
         return cls()
     known = {f.name: f for f in fields(cls)}
@@ -174,7 +210,7 @@ def _from_dict(cls, data: Optional[Dict[str, Any]]):
         if isinstance(value, str) and value in ("None", "null"):
             value = None
         default = known[key].default_factory  # type: ignore[misc]
-        if isinstance(value, dict) and callable(default):
+        if isinstance(value, dict) and callable(default) and key != "inner_config":
             sub = default()
             if is_dataclass(sub):
                 value = _from_dict(type(sub), value)
@@ -182,17 +218,37 @@ def _from_dict(cls, data: Optional[Dict[str, Any]]):
     return cls(**kwargs)
 
 
+# model names of the YAML files -> (U-Net config class, diffusion config class)
+_MODELS = {
+    "unet": (UNetConfig, DiffusionConfig),
+    "nested_unet": (NestedUNetConfig, NestedDiffusionConfig),
+    "nested2_unet": (NestedUNetConfig, NestedDiffusionConfig),
+}
+
+
 def load_model_config(path: str) -> Tuple[UNetConfig, DiffusionConfig]:
-    """Read a single-UNet model YAML (e.g. configs/models/cc12m_64x64.yaml)
-    into (UNetConfig, DiffusionConfig)."""
+    """Read a model YAML (e.g. configs/models/cc12m_64x64.yaml or the nested
+    cc12m_256x256.yaml / cc12m_1024x1024.yaml) into (U-Net config,
+    diffusion config). As in the JAX loader, a top-level key that names a
+    field of the diffusion config, its sampler config or the U-Net config
+    (``mixed_ratio``, ``multi_res_weights``) lands there."""
     import yaml
 
     with open(path) as f:
         cfg = yaml.safe_load(f) or {}
     model = cfg.get("model") or cfg.get("vision_model")
-    if model != "unet":
-        raise ValueError(f"{path}: model {model!r} is not ported (only 'unet')")
-    return (
-        _from_dict(UNetConfig, cfg.get("unet_config")),
-        _from_dict(DiffusionConfig, cfg.get("diffusion_config")),
-    )
+    if model not in _MODELS:
+        raise ValueError(f"{path}: model {model!r} is not ported (only {sorted(_MODELS)})")
+    ucls, dcls = _MODELS[model]
+    ucfg = _from_dict(ucls, cfg.get("unet_config"))
+    dcfg = _from_dict(dcls, cfg.get("diffusion_config"))
+    for key, value in cfg.items():
+        if key in ("unet_config", "diffusion_config", "reader_config"):
+            continue
+        if isinstance(value, str) and value in ("None", "null"):
+            value = None
+        for target in (dcfg, dcfg.sampler_config, ucfg):
+            if hasattr(target, key):
+                setattr(target, key, value)
+                break
+    return ucfg, dcfg

@@ -16,6 +16,7 @@ card.
 """
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence
 
 import torch
@@ -88,18 +89,33 @@ def group_norm_coeffs(x, scale, bias, g: int, eps: float = 1e-5,
     bf16: one-pass E[x^2] - mean^2 from the spatial sums (kernel K1 on a
     4-D CUDA tensor when ``kernels``). f32: the centred two-pass form, where
     the cancellation of the one-pass form would lose real precision."""
-    bsz, c = x.shape[0], x.shape[-1]
     if x.dtype == torch.bfloat16:
-        if x.dim() == 4 and kernels:
-            s1, s2 = gn_stats.spatial_sums(x)
-        else:
-            s1, s2 = gn_stats.spatial_sums_plain(x.reshape(bsz, -1, 1, c))
-        n_spatial = x[0, ..., 0].numel()
-        return group_norm_coeffs_from_sums(s1, s2, n_spatial, scale, bias, g, eps)
+        return group_norm_coeffs_concat((x,), scale, bias, g, eps, kernels)
+    bsz, c = x.shape[0], x.shape[-1]
     xg = x.float().reshape(bsz, -1, g, c // g)
     mean = xg.mean(dim=(1, 3))
     var = (xg - mean[:, None, :, None]).square().mean(dim=(1, 3))
     return _gn_affine_from_moments(mean, var, scale, bias, g, eps)
+
+
+def group_norm_coeffs_concat(xs, scale, bias, g: int, eps: float = 1e-5,
+                             kernels: bool = True):
+    """GroupNorm coefficients of the channel concatenation of ``xs``
+    without building it (``group_norm_coeffs_concat`` of the JAX package):
+    per-operand spatial sums (kernel K1 on 4-D bf16 CUDA tensors when
+    ``kernels``), concatenated along channels, then the one-pass
+    E[x^2] - mean^2 form in every dtype, as the JAX function computes it."""
+    s1s, s2s = [], []
+    for x in xs:
+        if x.dtype == torch.bfloat16 and x.dim() == 4 and kernels:
+            s1, s2 = gn_stats.spatial_sums(x)
+        else:
+            s1, s2 = gn_stats.spatial_sums_plain(x.reshape(x.shape[0], -1, 1, x.shape[-1]))
+        s1s.append(s1)
+        s2s.append(s2)
+    n_spatial = xs[0][0, ..., 0].numel()
+    return group_norm_coeffs_from_sums(torch.cat(s1s, dim=-1), torch.cat(s2s, dim=-1),
+                                       n_spatial, scale, bias, g, eps)
 
 
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -151,9 +167,15 @@ class LayerNormF32(nn.Module):
 class ResNet(nn.Module):
     """GroupNorm + SiLU + 3x3 conv ResNet block with FiLM time injection
     (``ml_mdm_tpu/models/layers.py`` ``ResNet``), in the structure of its
-    fused path ``_forward``: conv1 through K2 with its output's sums,
-    norm2 from those sums, FiLM folded into norm2's affine, and conv2
-    through K2 with the residual added in the kernel."""
+    fused path ``_forward`` with ``fused_proj`` on: conv1 through K2 with
+    its output's sums and, when the channel count changes, the 1x1
+    shortcut from the same pass (K2·proj); norm2 from those sums, FiLM
+    folded into norm2's affine, and conv2 through K2 with the shortcut (or
+    x) added in the kernel as the residual.
+
+    x is one (B, H, W, C) tensor or, on the up path, the tuple (x, skip)
+    of the skip concat, which is never built: norm1 takes its statistics
+    per operand and conv1 runs the operands through K2·N."""
 
     def __init__(self, config: ResNetConfig, temporal_dim: int):
         super().__init__()
@@ -168,27 +190,49 @@ class ResNet(nn.Module):
             self.conv3 = nn.Conv2d(cin, cout, 1)
         self.kernels = True
 
-    def _conv(self, conv, h, a, b, residual=None, emit_stats=False):
+    def _conv(self, *args, **kw):
         fn = (fused_resnet.affine_silu_conv3x3 if self.kernels
               else fused_resnet.affine_silu_conv3x3_plain)
-        return fn(h, a, b, conv.weight.permute(2, 3, 1, 0), conv.bias, residual,
-                  emit_stats=emit_stats)
+        return fn(*args, **kw)
 
     def forward(self, x, temb):
         cfg = self.config
-        a1, b1 = group_norm_coeffs(x, self.norm1.weight, self.norm1.bias,
-                                   cfg.num_groups_norm, kernels=self.kernels)
-        h, hs1, hs2 = self._conv(self.conv1, x, a1, b1, emit_stats=True)
+        g = cfg.num_groups_norm
+        xs = x if isinstance(x, tuple) else (x,)
+        if len(xs) > 1:
+            a1, b1 = group_norm_coeffs_concat(xs, self.norm1.weight, self.norm1.bias,
+                                              g, kernels=self.kernels)
+        else:
+            a1, b1 = group_norm_coeffs(xs[0], self.norm1.weight, self.norm1.bias,
+                                       g, kernels=self.kernels)
+        # per-operand slices of the coefficients and of conv1's (and the
+        # shortcut's) input channels
+        bounds = list(itertools.accumulate([xi.shape[-1] for xi in xs], initial=0))
+        cuts = list(zip(bounds, bounds[1:]))
+        w1 = self.conv1.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        kw = {"emit_stats": True}
+        if hasattr(self, "conv3"):
+            p = self.conv3.weight[:, :, 0, 0].t()  # (Cin, Cout)
+            kw["proj_kernel"] = tuple(p[lo:hi] for lo, hi in cuts)
+            kw["proj_bias"] = self.conv3.bias
+        out = self._conv(
+            xs, tuple(a1[:, lo:hi] for lo, hi in cuts),
+            tuple(b1[:, lo:hi] for lo, hi in cuts),
+            tuple(w1[:, :, lo:hi] for lo, hi in cuts), self.conv1.bias, **kw)
+        h, hs1, hs2 = out[:3]
+        if hasattr(self, "conv3"):
+            res = out[3]
+        else:
+            res = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
         t = self.time_layer(F.silu(temb)).float()
         ta, tb = t.chunk(2, dim=-1)
         a2, b2 = group_norm_coeffs_from_sums(
-            hs1, hs2, h.shape[1] * h.shape[2], self.norm2.weight,
-            self.norm2.bias, cfg.num_groups_norm,
+            hs1, hs2, h.shape[1] * h.shape[2], self.norm2.weight, self.norm2.bias, g,
         )
         a2 = a2 * (1.0 + ta)
         b2 = b2 * (1.0 + ta) + tb
-        res = conv2d_nhwc(x, self.conv3) if hasattr(self, "conv3") else x
-        return self._conv(self.conv2, h, a2, b2, res)
+        return self._conv(h, a2, b2, self.conv2.weight.permute(2, 3, 1, 0),
+                          self.conv2.bias, res)
 
 
 class SelfAttention(nn.Module):
@@ -288,8 +332,8 @@ class ResNetBlockStage(nn.Module):
         activations = []
         skips = list(skip_activations) if skip_activations is not None else None
         for i in range(self.num_residual_blocks):
-            if skips is not None:
-                x = torch.cat([x, skips.pop(0)], dim=-1)
+            if skips is not None:  # the skip concat, as operands of K2·N
+                x = (x, skips.pop(0))
             x = self.resnets[i](x, temb)
             n_attn = self.num_attention_layers
             for j in range(n_attn):

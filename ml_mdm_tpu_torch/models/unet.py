@@ -1,14 +1,20 @@
 """Text-conditioned diffusion U-Net of the port (NHWC, PyTorch).
 
 Counterpart of ``ml_mdm_tpu/models/unet.py`` ``UNet`` without packing,
-nesting, temporal mode or the learned lm_head: sinusoidal time embedding
-and its 2-layer MLP, pooled-text conditioning added to the time embedding,
+temporal mode or the learned lm_head: sinusoidal time embedding and its
+2-layer MLP, pooled-text conditioning added to the time embedding,
 micro-conditioning (``scale:64``), the down path, two mid blocks, the up
-path with skip concats, and ``norm_out`` / ``conv_out``.
+path with skip concats, and ``norm_out`` / ``conv_out``. The forward comes
+in the JAX package's pieces (input layer, down path, up path, output
+layer), which ``models/nested_unet.py`` reuses for its shells. With
+``nesting`` the U-Net is the inner level of a nested one: it takes
+``(x_t, x_feat)``, adds the shell's features after its input layer, and
+returns ``(x_out, x)``, its output and its last features.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from typing import Dict, Optional
 
@@ -40,22 +46,37 @@ def sinusoidal_frequencies(temporal_dim: int) -> np.ndarray:
     return np.exp(np.arange(half_dim, dtype=np.float64) * -emb).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies_on(temporal_dim: int, device: torch.device) -> torch.Tensor:
+    """The frequency table on ``device``, copied there once (a copy from host
+    memory synchronises the stream)."""
+    return torch.from_numpy(sinusoidal_frequencies(temporal_dim)).to(device)
+
+
 def sinusoidal_embedding(times: torch.Tensor, temporal_dim: int) -> torch.Tensor:
-    freqs = torch.from_numpy(sinusoidal_frequencies(temporal_dim)).to(times.device)
+    freqs = _frequencies_on(temporal_dim, times.device)
     temb = times.float().reshape(-1, 1) * freqs[None, :]
     return torch.cat([torch.sin(temb), torch.cos(temb)], dim=1)
 
 
 class UNet(nn.Module):
     def __init__(self, input_channels: int, output_channels: int,
-                 config: UNetConfig):
+                 config: UNetConfig, cond_dim_override: Optional[int] = None,
+                 text_dim: Optional[int] = None):
+        """``cond_dim_override``: the conditioning width an outer nested
+        shell hands down (its effective width), in place of the config's.
+        ``text_dim``: the width of the text features themselves, which
+        ``lm_proj`` takes (Flax infers it from the data); by default the
+        input conditioning width."""
         super().__init__()
         cfg = config
-        if cfg.nesting or cfg.temporal_mode or cfg.num_temporal_attention_layers:
-            raise NotImplementedError("nested and temporal U-Nets are not ported yet")
+        if cfg.temporal_mode or any(cfg.num_temporal_attention_layers or []):
+            raise NotImplementedError("temporal U-Nets are not ported yet")
         if cfg.num_lm_head_layers:
             raise NotImplementedError("the learned lm_head is not ported yet")
         self.config = cfg
+        self.cond_dim_override = cond_dim_override
+        self.text_dim = self.input_conditioning_feature_dim if text_dim is None else text_dim
         self.input_channels = input_channels
         self.output_channels = output_channels
         tdim = self.temporal_dim
@@ -131,7 +152,7 @@ class UNet(nn.Module):
         self.norm_out = GroupNormF32(cfg.resnet_config.num_groups_norm, channels)
         self.conv_out = nn.Conv2d(channels, output_channels, 3, padding=1)
         if self.has_cond and cfg.conditioning_feature_proj_dim > 0:
-            self.lm_proj = nn.Linear(cfg.conditioning_feature_dim, cond_dim)
+            self.lm_proj = nn.Linear(self.text_dim, cond_dim)
 
     def _n_attn(self, level: int) -> int:
         cfg = self.config
@@ -143,10 +164,16 @@ class UNet(nn.Module):
         return cfg.resolution_channels[0] * 4 if cfg.temporal_dim is None else cfg.temporal_dim
 
     @property
+    def input_conditioning_feature_dim(self) -> int:
+        if self.cond_dim_override is not None:
+            return self.cond_dim_override
+        return self.config.conditioning_feature_dim
+
+    @property
     def effective_cond_dim(self) -> int:
         """conditioning_feature_dim after the optional projection."""
         cfg = self.config
-        in_dim = cfg.conditioning_feature_dim
+        in_dim = self.input_conditioning_feature_dim
         if in_dim > 0 and cfg.conditioning_feature_proj_dim > 0:
             return cfg.conditioning_feature_proj_dim
         return in_dim
@@ -199,24 +226,37 @@ class UNet(nn.Module):
                 micro, ff_layers=tuple(self.cond_layers[key]))
         return temb
 
-    def forward_denoising(self, x_t, times, cond_emb=None, conditioning=None,
-                          cond_mask=None, micros=None):
-        micros = micros or {}
+    def time_embedding(self, times, cond_emb=None, micros=None):
+        """The time embedding plus the pooled text (``cond_emb``) and the
+        micro-conditioning embeddings."""
         temb = self.create_temporal_embedding(times)
         if cond_emb is not None:
             temb = temb + cond_emb
         if self.conditions is not None:
-            temb = temb + self.forward_micro_conditioning(times, micros)
+            temb = temb + self.forward_micro_conditioning(times, micros or {})
+        return temb
 
-        x = conv2d_nhwc(x_t, self.conv_in)
+    def forward_input_layer(self, x_t, normalize: bool = False):
+        """conv_in, after dividing each image by its standard deviation
+        (over H, W, C, ddof 1, in f32) when ``normalize``."""
+        if isinstance(x_t, (list, tuple)) and len(x_t) == 1:
+            x_t = x_t[0]
+        if normalize:
+            std = x_t.float().std(dim=(1, 2, 3), keepdim=True, correction=1)
+            x_t = x_t / std.to(x_t.dtype)
+        return conv2d_nhwc(x_t, self.conv_in)
+
+    def forward_downsample(self, x, temb, conditioning=None, cond_mask=None):
+        """The down path; returns (x, the skip activations)."""
         skips = [x]
         for block in self.down_blocks:
             x, acts = block(x, temb, conditioning=conditioning, cond_mask=cond_mask)
             skips.extend(acts)
-        if not self.config.skip_mid_blocks:
-            x, _ = self.mid_blocks[0](x, temb, conditioning=conditioning,
-                                      cond_mask=cond_mask)
-            x, _ = self.mid_blocks[1](x, temb)
+        return x, skips
+
+    def forward_upsample(self, x, temb, conditioning, cond_mask, skip_activations):
+        """The up path, each stage taking its skips in reverse order."""
+        skips = list(skip_activations)
         num_res = len(self.config.resolution_channels)
         for i, block in enumerate(self.up_blocks):
             num_skip = self.config.num_resnets_per_resolution[num_res - 1 - i] + 1
@@ -224,11 +264,35 @@ class UNet(nn.Module):
             del skips[-num_skip:]
             x, _ = block(x, temb, skip_activations=skip_connections,
                          conditioning=conditioning, cond_mask=cond_mask)
+        return x
+
+    def forward_output_layer(self, x):
         return conv2d_nhwc(F.silu(self.norm_out(x)), self.conv_out)
+
+    def forward_denoising(self, x_t, times, cond_emb=None, conditioning=None,
+                          cond_mask=None, micros=None):
+        temb = self.time_embedding(times, cond_emb, micros)
+        x_feat = None
+        if self.config.nesting:
+            x_t, x_feat = x_t
+        x = self.forward_input_layer(x_t)
+        if x_feat is not None:
+            x = x + x_feat
+        x, skips = self.forward_downsample(x, temb, conditioning, cond_mask)
+        if not self.config.skip_mid_blocks:
+            x, _ = self.mid_blocks[0](x, temb, conditioning=conditioning,
+                                      cond_mask=cond_mask)
+            x, _ = self.mid_blocks[1](x, temb)
+        x = self.forward_upsample(x, temb, conditioning, cond_mask, skips)
+        x_out = self.forward_output_layer(x)
+        if self.config.nesting:
+            return x_out, x
+        return x_out
 
     def forward(self, x_t, times, conditioning=None, cond_mask=None, micros=None):
         """x_t (B, H, W, C_in), times (B,) int -> prediction (B, H, W, C_out)
-        in the weights' dtype."""
+        in the weights' dtype (a nested U-Net takes and returns one image
+        per resolution, highest first)."""
         cond_emb = None
         if self.effective_cond_dim > 0:
             cond_emb, conditioning, cond_mask = self.forward_conditioning(

@@ -1,15 +1,17 @@
-"""Diffusion sampler of the port: schedules and the DDPM/DDIM step.
+"""Diffusion samplers of the port: schedules, the DDPM/DDIM step, and the
+nested (multi-resolution) sampler.
 
-Counterpart of ``ml_mdm_tpu/samplers.py`` ``Sampler`` (single resolution).
-The gamma tables are the JAX package's numpy builders, copied here because
-importing them would import JAX. The denoise loop is a Python loop over the
-timestep table. Per-image gammas broadcast as (B, 1, 1, 1) against NHWC
-images; coefficients are computed in f32 and applied in the carry's dtype.
+Counterpart of ``ml_mdm_tpu/samplers.py`` ``Sampler`` and
+``NestedSampler``. The gamma tables are the JAX package's numpy builders,
+copied here because importing them would import JAX. The denoise loop is a
+Python loop over the timestep table. Per-image gammas broadcast as
+(B, 1, 1, 1) against NHWC images; coefficients are computed in f32 and
+applied in the carry's dtype.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +22,7 @@ from ml_mdm_tpu_torch.config import (
     ScheduleType,
     ThresholdType,
 )
+from ml_mdm_tpu_torch.utils.resize import resize_nhwc
 
 
 def schedule_cosine(timesteps: int, logsnr_min: float = -5.0,
@@ -82,7 +85,22 @@ def shift_gammas(gammas: np.ndarray, scale_factor: Optional[float],
     return gammas
 
 
+def shift_gammas_tensor(gammas: torch.Tensor, scale_factor: Optional[float],
+                        power: float = 1.0) -> torch.Tensor:
+    """``shift_gammas`` on a tensor of per-image gammas, in f32 with the
+    JAX package's operations (an explicit division by the SNR: torch's
+    ``scalar / tensor`` multiplies by the reciprocal, one rounding more)."""
+    if scale_factor is not None and scale_factor > 1:
+        snr = gammas / (1.0 - gammas)
+        sf = torch.full_like(snr, float(scale_factor) ** power)
+        return torch.reciprocal(1.0 + torch.div(sf, torch.clamp(snr, min=1e-20)))
+    return gammas
+
+
 ModelFn = Callable[..., torch.Tensor]
+# noise(step, level, x) -> a standard-normal tensor like x, for the step's
+# stochastic update at one resolution
+NoiseFn = Callable[[int, int, torch.Tensor], torch.Tensor]
 
 
 class Sampler:
@@ -95,10 +113,16 @@ class Sampler:
         gammas = shift_gammas(base, config.rescale_schedule,
                               config.schedule_shifted_power)
         self.gammas = torch.from_numpy(np.asarray(gammas, dtype=np.float32))
+        self._gammas_on = {}  # device -> copy of the table there
 
     def read_gamma(self, time: torch.Tensor) -> torch.Tensor:
-        """Gamma at integer timesteps (B,) -> (B, 1, 1, 1) f32."""
-        return self.gammas.to(time.device)[time].reshape(-1, 1, 1, 1)
+        """Gamma at integer timesteps (B,) -> (B, 1, 1, 1) f32. The table is
+        copied to each device once (a copy from host memory synchronises the
+        stream)."""
+        table = self._gammas_on.get(time.device)
+        if table is None:
+            table = self._gammas_on[time.device] = self.gammas.to(time.device)
+        return table[time].reshape(-1, 1, 1, 1)
 
     def get_x0_eps_from_pred(self, x_t, pred, g, prediction_type=None,
                              clip_fn=None, return_eps=True):
@@ -117,6 +141,15 @@ class Sampler:
         if not return_eps:
             return x0
         return x0, (x_t - x0 * sqg) / sq1mg
+
+    def get_pred_from_x0_xt(self, x_t, x0, g, prediction_type=None):
+        """The model prediction that gives x0 at x_t (gamma g, f32)."""
+        pt = prediction_type or self.config.prediction_type
+        if pt in (PredictionType.DDPM, PredictionType.DDIM):
+            return (x_t - x0 * torch.sqrt(g)) / torch.sqrt(1.0 - g)
+        if pt == PredictionType.V_PREDICTION:
+            return (torch.sqrt(g) * x_t - x0) / torch.sqrt(1.0 - g)
+        raise ValueError(f"Unsupported prediction type {pt}")
 
     @staticmethod
     def _threshold_sample(sample, ratio=0.995, max_value=100.0):
@@ -262,3 +295,119 @@ class Sampler:
         if clip:
             x_t = torch.clamp(x_t, -1.0, 1.0)
         return x_t
+
+
+class NestedSampler(Sampler):
+    """Multi-resolution sampler: every resolution steps in lockstep.
+    Images are lists [x_hi, ..., x_lo] of NHWC tensors; the model maps such
+    a list to a list of predictions."""
+
+    def get_schedule_shifted(self, gammas, scale_factor=None):
+        return shift_gammas_tensor(gammas, scale_factor,
+                                   self.config.schedule_shifted_power)
+
+    def get_gammas(self, gamma, scales) -> List[torch.Tensor]:
+        """Per-resolution gammas from a base (B, 1, 1, 1) gamma: the SNR
+        divided by scale**power with ``schedule_shifted``."""
+        if not self.config.schedule_shifted:
+            return [gamma for _ in scales]
+        return [self.get_schedule_shifted(gamma, s) for s in scales]
+
+    def forward_model(self, model_fn: ModelFn, x_t, t, lm_outputs, lm_mask,
+                      micros, guidance_scale=1.0):
+        """Model forward with classifier-free guidance on every resolution:
+        with guidance != 1 the text rows are [uncond; cond] (2B) and each
+        image is tiled 2x for one forward."""
+        if guidance_scale != 1.0:
+            b = x_t[0].shape[0]
+            if lm_outputs.shape[0] != 2 * b:
+                raise ValueError("guidance needs 2B rows of lm_outputs")
+            micros2 = {k: torch.cat([v, v]) for k, v in micros.items()}
+            preds = model_fn([torch.cat([x, x]) for x in x_t], torch.cat([t, t]),
+                             lm_outputs, lm_mask, micros2)
+            out = []
+            for p in preds:
+                pu, pc = p.chunk(2)
+                out.append(pu + guidance_scale * (pc - pu))
+            return out
+        return model_fn(x_t, t, lm_outputs, lm_mask, micros)
+
+    def step(self, model_fn: ModelFn, x_t: List[torch.Tensor], t: int, t_last: int,
+             lm_outputs, lm_mask, micros,
+             noise: Optional[Sequence[torch.Tensor]] = None,
+             guidance_scale=1.0, ddim_eta=None, scales: Sequence[float] = (1.0,)):
+        """One lockstep denoise step t -> t_last at every resolution; the
+        model sees time t - 1. ``noise`` holds one standard-normal tensor
+        per resolution for the stochastic update, or None when the step
+        adds none (the JAX step adds it whenever t != 1)."""
+        b = x_t[0].shape[0]
+        dev = x_t[0].device
+        tt = torch.full((b,), t, dtype=torch.long, device=dev)
+        ss = torch.full((b,), t_last, dtype=torch.long, device=dev)
+        g_t = self.get_gammas(self.read_gamma(tt), scales)
+        g_s = self.get_gammas(self.read_gamma(ss), scales)
+        p_t = self.forward_model(model_fn, x_t, tt - 1, lm_outputs, lm_mask,
+                                 micros, guidance_scale)
+        x0s, xss = [], []
+        for j, (x, p, g, g_last, s) in enumerate(zip(x_t, p_t, g_t, g_s, scales)):
+            x0, x_s, _ = self.get_prediction_xt_last(
+                x, p, g, g_last,
+                prediction_type=self.config.prediction_type,
+                clip_fn=self.clip_sample, need_noise=noise is not None,
+                ddim_eta=ddim_eta,
+                input_noise=noise[j] if noise is not None else None,
+                image_scale=1.0 if self.config.schedule_shifted else s,
+            )
+            x0s.append(x0)
+            xss.append(x_s)
+        return x0s, xss
+
+    def init_noise(self, batch: int, channels: int, image_side: int, scales,
+                   generator: Optional[torch.Generator] = None,
+                   dtype=torch.float32, device=None) -> List[torch.Tensor]:
+        """Fresh standard-normal x_T at every resolution."""
+        sides = [int(image_side * s / scales[0]) for s in scales]
+        return [torch.randn((batch, side, side, channels), generator=generator,
+                            dtype=dtype, device=device) for side in sides]
+
+    def sample(self, model_fn: ModelFn, x_t: List[torch.Tensor], lm_outputs,
+               lm_mask, micros: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None, *,
+               scales: Sequence[float], num_inference_steps: int = 2000,
+               ddim_eta=None, guidance_scale: float = 1.0,
+               resample_steps: bool = False, t_start: int = -1,
+               output_inner: bool = False,
+               step_noise: Optional[NoiseFn] = None):
+        """Full lockstep denoise loop. The stochastic update's noise comes
+        from ``step_noise(step, level, x)`` when given (a test feeds the
+        JAX package's draws through it), else from ``generator``. Returns
+        the highest resolution rescaled and clipped to [-1, 1], or with
+        ``output_inner`` every resolution side by side."""
+        ts = self._timestep_table(num_inference_steps, resample_steps, t_start)
+        xs = list(x_t)
+        stochastic = ddim_eta is None or ddim_eta != 0
+        for i, (t, t_last) in enumerate(zip(ts[:-1].tolist(), ts[1:].tolist())):
+            noise = None
+            if stochastic and t != 1:
+                if step_noise is not None:
+                    noise = [step_noise(i, j, x) for j, x in enumerate(xs)]
+                else:
+                    noise = [torch.randn(x.shape, generator=generator, device=x.device,
+                                         dtype=x.dtype) for x in xs]
+            _, xs = self.step(model_fn, xs, t, t_last, lm_outputs, lm_mask, micros,
+                              noise, guidance_scale, ddim_eta, scales)
+        return self._postprocess_nested(xs, clip=True, output_inner=output_inner)
+
+    def _postprocess_nested(self, x_t: List[torch.Tensor], clip=False,
+                            output_inner=False):
+        scales = [1.0 if self.config.schedule_shifted else x.shape[-2] / x_t[-1].shape[-2]
+                  for x in x_t]
+        out = self._postprocess(x_t[0], clip=clip, image_scale=scales[0])
+        if not output_inner:
+            return out
+        size = out.shape[-3]
+        panes = [out]
+        for x, s in zip(x_t[1:], scales[1:]):
+            oi = self._postprocess(x, clip=clip, image_scale=s)
+            panes.append(resize_nhwc(oi, size, size, "bilinear"))
+        return torch.cat(panes[::-1], dim=-2)  # side by side along the width

@@ -7,16 +7,17 @@ without this directory's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances, bf16 (the working type): K1 sums <= 1e-5 * max|ref| (f32 sums
-in another order); K2 output and stats <= 2e-2 * max|ref| (two bf16 ULPs:
-the kernel's SiLU uses the fast exponential and sums in another order, so
-a rounding can flip); the tiny U-Net kernel path against its plain path
-<= 5e-2 * max|ref| (those flips, carried through ~20 layers).
+in another order); K2 output, stats and shortcut <= 2e-2 * max|ref| (two
+bf16 ULPs: the kernel's SiLU uses the fast exponential and sums in another
+order, so a rounding can flip); the tiny U-Net and nested U-Net kernel
+paths against their plain paths <= 5e-2 * max|ref| (those flips, carried
+through ~20-40 layers).
 """
 import pytest
 import torch
 
 from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
-from ml_mdm_tpu_torch.presets import flagship_64px
+from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
 
 
 def _rel(got, ref) -> float:
@@ -33,11 +34,34 @@ def dev():
     return torch.device("cuda")
 
 
+def _conv_inputs(dev, bsz, h, w, cs, cout, residual, proj, seed=1):
+    """bf16 operands, f32 coefficients, bf16 weights (one tuple entry per
+    operand) and the optional residual and shortcut weights."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    ctot = sum(cs)
+    xs = tuple(torch.randn((bsz, h, w, c), generator=g, device=dev).to(bf) for c in cs)
+    a_s = tuple(torch.randn((bsz, c), generator=g, device=dev) * 0.2 + 1.0 for c in cs)
+    b_s = tuple(torch.randn((bsz, c), generator=g, device=dev) * 0.3 for c in cs)
+    ws = tuple((torch.randn((3, 3, c, cout), generator=g, device=dev)
+                / (9 * ctot) ** 0.5).to(bf) for c in cs)
+    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+    res = (torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf)
+           if residual else None)
+    kw = {}
+    if proj:
+        kw["proj_kernel"] = tuple((torch.randn((c, cout), generator=g, device=dev)
+                                   / ctot ** 0.5).to(bf) for c in cs)
+        kw["proj_bias"] = torch.randn((cout,), generator=g, device=dev) * 0.1
+    return xs, a_s, b_s, ws, bias, res, kw
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("side,c", [(64, 256), (32, 1280), (16, 1536), (12, 40)])
+@pytest.mark.parametrize("side,c", [(64, 256), (32, 1280), (16, 1536), (12, 40),
+                                    (1024, 32)])
 def test_spatial_sums_kernel(dev, side, c):
     g = torch.Generator(device=dev).manual_seed(0)
-    x = (torch.randn((4, side, side, c), generator=g, device=dev) + 0.3).to(torch.bfloat16)
+    x = (torch.randn((2, side, side, c), generator=g, device=dev) + 0.3).to(torch.bfloat16)
     n = gn_stats.launch_count
     s1, s2 = gn_stats.spatial_sums(x)
     assert gn_stats.launch_count == n + 1
@@ -53,25 +77,55 @@ def test_spatial_sums_kernel(dev, side, c):
     (20, 64, 128, True, False),
 ])
 def test_affine_silu_conv3x3_kernel(dev, side, c, cout, residual, silu):
-    g = torch.Generator(device=dev).manual_seed(1)
-    bf = torch.bfloat16
-    x = torch.randn((2, side, side, c), generator=g, device=dev).to(bf)
-    a = torch.randn((2, c), generator=g, device=dev) * 0.2 + 1.0
-    b = torch.randn((2, c), generator=g, device=dev) * 0.3
-    w = (torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5).to(bf)
-    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
-    res = (torch.randn((2, side, side, cout), generator=g, device=dev).to(bf)
-           if residual else None)
-    n = fused_resnet.launch_count
+    x, a, b, w, bias, res, _ = _conv_inputs(dev, 2, side, side, (c,), cout, residual, False)
+    n = fused_resnet.launch_counts["K2"]
     y, s1, s2 = fused_resnet.affine_silu_conv3x3(
-        x, a, b, w, bias, res, apply_silu=silu, emit_stats=True)
+        x[0], a[0], b[0], w[0], bias, res, apply_silu=silu, emit_stats=True)
     torch.cuda.synchronize()
-    assert fused_resnet.launch_count == n + 1
+    assert fused_resnet.launch_counts["K2"] == n + 1
     py, p1, p2 = fused_resnet.affine_silu_conv3x3_plain(
-        x, a, b, w, bias, res, apply_silu=silu, emit_stats=True)
+        x[0], a[0], b[0], w[0], bias, res, apply_silu=silu, emit_stats=True)
     assert _rel(y, py) <= 2e-2
     assert _rel(s1, p1) <= 2e-2
     assert _rel(s2, p2) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(8, 1024, 32), (4, 1536, 64), (6, 600, 16)])
+def test_affine_silu_conv3x3_kernel_wide_rows(dev, h, w, c):
+    """Rows wider than 580 pixels, which the first version could not stage."""
+    x, a, b, wk, bias, res, _ = _conv_inputs(dev, 2, h, w, (c,), c, True, False)
+    y = fused_resnet.affine_silu_conv3x3(x[0], a[0], b[0], wk[0], bias, res)
+    torch.cuda.synchronize()
+    py = fused_resnet.affine_silu_conv3x3_plain(x[0], a[0], b[0], wk[0], bias, res)
+    assert _rel(y, py) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cs,cout,proj,stats", [
+    (64, 64, (256, 256), 256, True, True),      # core up path: skip concat + shortcut
+    (128, 128, (64, 64), 64, True, True),       # 256 shell up path
+    (256, 256, (32, 32), 32, True, False),      # 1024 shell up path, smaller side
+    (16, 16, (768, 512), 512, False, True),     # two operands, no shortcut
+    (12, 20, (16, 24, 8), 16, True, True),      # three ragged operands, ragged tile
+    (32, 32, (256,), 512, True, True),          # down path: one operand + shortcut
+])
+def test_affine_silu_conv3x3_operands_and_shortcut(dev, h, w, cs, cout, proj, stats):
+    xs, a_s, b_s, ws, bias, _, kw = _conv_inputs(dev, 2, h, w, cs, cout, False, proj)
+    before = dict(fused_resnet.launch_counts)
+    out = fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, ws, bias, emit_stats=stats, **kw)
+    torch.cuda.synchronize()
+    ref = fused_resnet.affine_silu_conv3x3_plain(xs, a_s, b_s, ws, bias,
+                                                 emit_stats=stats, **kw)
+    out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    assert len(out) == len(ref) == 1 + 2 * stats + proj
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert _rel(o, r) <= 2e-2
+    after = fused_resnet.launch_counts
+    assert after["K2"] == before["K2"] + 1
+    assert after["K2·N"] == before["K2·N"] + (len(cs) > 1)
+    assert after["K2·proj"] == before["K2·proj"] + proj
 
 
 @pytest.mark.cuda
@@ -85,6 +139,11 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
         fused_resnet.affine_silu_conv3x3(
             x.float()[..., :8], ab[:, :8], ab[:, :8],
             torch.zeros((3, 3, 8, 8), device=dev), torch.zeros(8, device=dev))
+    x8 = x[..., :8].contiguous()
+    with pytest.raises(ValueError):  # more operands than the kernel takes
+        fused_resnet.affine_silu_conv3x3(
+            (x8,) * 5, (ab[:, :8],) * 5, (ab[:, :8],) * 5,
+            (torch.zeros((3, 3, 8, 8), device=dev),) * 5, torch.zeros(8, device=dev))
 
 
 @pytest.mark.cuda
@@ -96,11 +155,34 @@ def test_tiny_unet_kernel_path_matches_plain_path(dev):
     t = torch.tensor([10, 700], device=dev)
     lm = torch.randn((2, 8, lm_dim), generator=g, device=dev).to(torch.bfloat16)
     mask = torch.ones((2, 8), device=dev, dtype=torch.bfloat16)
-    counts = gn_stats.launch_count, fused_resnet.launch_count
+    counts = gn_stats.launch_count, dict(fused_resnet.launch_counts)
     with torch.no_grad():
         got = unet(x, t, lm, mask, {})
         assert gn_stats.launch_count > counts[0]
-        assert fused_resnet.launch_count > counts[1]
+        for mode, n in counts[1].items():
+            assert fused_resnet.launch_counts[mode] > n, mode
         ref = unet.use_kernels(False)(x, t, lm, mask, {})
     assert torch.isfinite(got).all()
     assert _rel(got, ref) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cc12m_256x256", "cc12m_1024x1024"])
+def test_tiny_nested_kernel_path_matches_plain_path(dev, name):
+    pipe, lm_dim, side = nested_preset(name, dev, seed=0, scaled=True)
+    unet = pipe.vision_module
+    g = torch.Generator(device=dev).manual_seed(3)
+    xs = pipe.get_noise(2, side, g)
+    t = torch.tensor([10, 700], device=dev)
+    lm = torch.randn((2, 8, lm_dim), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((2, 8), device=dev, dtype=torch.bfloat16)
+    counts = dict(fused_resnet.launch_counts)
+    with torch.no_grad():
+        got = unet(xs, t, lm, mask, {})
+        for mode, n in counts.items():
+            assert fused_resnet.launch_counts[mode] > n, mode
+        ref = unet.use_kernels(False)(xs, t, lm, mask, {})
+    assert len(got) == len(ref) == len(xs)
+    for o, r, x in zip(got, ref, xs):
+        assert o.shape == x.shape and torch.isfinite(o).all()
+        assert _rel(o, r) <= 5e-2

@@ -1,6 +1,8 @@
 """The port's ops against the JAX ops: spatial sums (K1) and the fused
-affine + SiLU + 3x3 conv (K2) against the Pallas kernels in interpret mode,
-and the plain attention against ``_einsum_attention``. On the CPU the port
+affine + SiLU + 3x3 conv (K2, with its operand tuples K2·N and shortcut
+K2·proj) against the Pallas kernels in interpret mode, the concatenated
+GroupNorm coefficients against ``group_norm_coeffs_concat``, and the plain
+attention against ``_einsum_attention``. On the CPU the port
 runs each kernel's plain version; tests/test_torch_cuda.py holds each kernel
 to its plain version on the card.
 
@@ -15,9 +17,11 @@ import torch
 
 import jax.numpy as jnp
 
+from ml_mdm_tpu.models.layers import group_norm_coeffs_concat as jax_gn_concat
 from ml_mdm_tpu.ops.attention import _einsum_attention
 from ml_mdm_tpu.ops.fused_resnet import affine_silu_conv3x3 as jax_fused
 from ml_mdm_tpu.ops.gn_stats import spatial_sums as jax_spatial_sums
+from ml_mdm_tpu_torch.models.layers import group_norm_coeffs_concat
 from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
 from torch_parity import rel_err, to_np
 
@@ -78,6 +82,57 @@ def test_affine_silu_conv3x3_matches_pallas(dtype, residual, apply_silu):
     # (trap 3 in ROADMAP.md queue 3): under bf16 the s2 gap is that rounding
     assert rel_err(to_np(s1), r1) <= TOL[dtype]
     assert rel_err(to_np(s2), r2) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cs,proj", [((16, 8), True), ((16, 8), False), ((24,), True),
+                                     ((8, 16, 8), True)])
+def test_affine_silu_conv3x3_operands_match_pallas(dtype, cs, proj):
+    """K2·N (a tuple of operands, the skip concat) and K2·proj (the 1x1
+    shortcut of the raw operands as a second output), with the stats."""
+    rng = np.random.default_rng(4)
+    b, h, w, cout = 2, 8, 8, 16
+    ctot = sum(cs)
+    f32 = lambda v: (jnp.asarray(v, jnp.float32),  # noqa: E731
+                     torch.from_numpy(np.asarray(v, np.float32)))
+    xs = [_pair(rng.standard_normal((b, h, w, c)) * 0.7, dtype) for c in cs]
+    a_s = [f32(rng.standard_normal((b, c)) * 0.2 + 1.0) for c in cs]
+    b_s = [f32(rng.standard_normal((b, c)) * 0.3) for c in cs]
+    ws = [f32(rng.standard_normal((3, 3, c, cout)) / np.sqrt(9 * ctot)) for c in cs]
+    bias = f32(rng.standard_normal((cout,)) * 0.1)
+    kw_j, kw_t = {}, {}
+    if proj:
+        pks = [f32(rng.standard_normal((c, cout)) / np.sqrt(ctot)) for c in cs]
+        pb = f32(rng.standard_normal((cout,)) * 0.1)
+        kw_j = dict(proj_kernel=tuple(p[0] for p in pks), proj_bias=pb[0])
+        kw_t = dict(proj_kernel=tuple(p[1] for p in pks), proj_bias=pb[1])
+    pick = lambda vs, i: tuple(v[i] for v in vs)  # noqa: E731
+    ref = jax_fused(pick(xs, 0), pick(a_s, 0), pick(b_s, 0), pick(ws, 0), bias[0],
+                    interpret=True, emit_stats=True, **kw_j)
+    got = fused_resnet.affine_silu_conv3x3(pick(xs, 1), pick(a_s, 1), pick(b_s, 1),
+                                           pick(ws, 1), bias[1], emit_stats=True, **kw_t)
+    assert len(got) == len(ref) == 3 + proj
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert rel_err(to_np(g), np.asarray(r.astype(jnp.float32))) <= TOL[dtype]
+    assert got[0].dtype == TDT[dtype] and (not proj or got[3].dtype == TDT[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_coeffs_concat_matches_jax(dtype):
+    rng = np.random.default_rng(6)
+    cs, g = (24, 8, 32), 8
+    xs = [_pair(rng.standard_normal((2, 6, 10, c)) * (1 + i) + 0.3 * i, dtype)
+          for i, c in enumerate(cs)]
+    scale = rng.standard_normal(sum(cs)).astype(np.float32) * 0.2 + 1.0
+    bias = rng.standard_normal(sum(cs)).astype(np.float32) * 0.1
+    ra, rb = jax_gn_concat(tuple(x[0] for x in xs), jnp.asarray(scale), jnp.asarray(bias), g)
+    ga, gb = group_norm_coeffs_concat(tuple(x[1] for x in xs), torch.from_numpy(scale),
+                                      torch.from_numpy(bias), g)
+    assert ga.shape == gb.shape == (2, sum(cs)) and ga.dtype == torch.float32
+    for got, ref in ((ga, ra), (gb, rb)):
+        ref = np.asarray(ref, np.float32).reshape(2, -1)
+        assert rel_err(to_np(got), ref) <= 1e-5
 
 
 def test_conv3x3_fast_is_a_plain_conv():

@@ -1,8 +1,10 @@
 """Package-level checks of the PyTorch port: it never imports JAX, its
 converter agrees with the JAX package's exporter, its config dataclasses
-mirror the JAX ones, the shipped cc12m_64x64.yaml loads, and the
-full-width flagship loads JAX weights strictly (slow)."""
+mirror the JAX ones, the shipped model YAMLs load as the JAX loader reads
+them and the presets built in code equal them, and the full-width
+flagship loads JAX weights strictly (slow)."""
 import dataclasses
+import enum
 import os
 import subprocess
 import sys
@@ -16,7 +18,7 @@ import jax.numpy as jnp
 
 from ml_mdm_tpu.utils.torch_compat import params_to_torch_state_dict
 from ml_mdm_tpu_torch import config as tcfg
-from ml_mdm_tpu_torch.presets import flagship_configs
+from ml_mdm_tpu_torch.presets import flagship_configs, nested_configs
 from ml_mdm_tpu_torch.utils.convert import params_from_jax
 from torch_parity import jax_config_of, tiny_pair
 
@@ -60,14 +62,17 @@ def test_converter_matches_jax_exporter():
 
 
 @pytest.mark.parametrize("name", ["UNetConfig", "ResNetConfig",
-                                  "SamplerConfig", "DiffusionConfig"])
+                                  "SamplerConfig", "DiffusionConfig",
+                                  "NestedUNetConfig", "NestedDiffusionConfig"])
 def test_config_dataclasses_mirror_jax(name):
     from ml_mdm_tpu import diffusion, samplers
-    from ml_mdm_tpu.models import layers, unet
+    from ml_mdm_tpu.models import layers, nested_unet, unet
 
     jax_cls = {"UNetConfig": unet.UNetConfig, "ResNetConfig": layers.ResNetConfig,
                "SamplerConfig": samplers.SamplerConfig,
-               "DiffusionConfig": diffusion.DiffusionConfig}[name]
+               "DiffusionConfig": diffusion.DiffusionConfig,
+               "NestedUNetConfig": nested_unet.NestedUNetConfig,
+               "NestedDiffusionConfig": diffusion.NestedDiffusionConfig}[name]
     port_cls = getattr(tcfg, name)
     jf = {f.name: f for f in dataclasses.fields(jax_cls)}
     pf = {f.name: f for f in dataclasses.fields(port_cls)}
@@ -105,6 +110,37 @@ def test_cc12m_64x64_yaml_loads():
     pre_u, pre_d, lm_dim, _ = flagship_configs()
     assert dataclasses.replace(ucfg, conditioning_feature_dim=lm_dim) == pre_u
     assert dcfg.sampler_config == pre_d.sampler_config
+
+
+def _plain(cfg):
+    """A config dataclass as nested dicts, enums as their names."""
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return str(v) if isinstance(v, enum.Enum) else v
+
+    return conv(dataclasses.asdict(cfg))
+
+
+@pytest.mark.parametrize("name", ["cc12m_256x256", "cc12m_1024x1024"])
+def test_nested_yaml_and_preset_match_jax_loader(name):
+    from ml_mdm_tpu.config import get_arguments
+
+    path = os.path.join(REPO, f"configs/models/{name}.yaml")
+    args = get_arguments(args=["--config_path", path], mode="sampler")
+    ucfg, dcfg = tcfg.load_model_config(path)
+    assert type(ucfg).__name__ == "NestedUNetConfig"
+    assert _plain(ucfg) == _plain(args.unet_config)
+    assert _plain(dcfg) == _plain(args.diffusion_config)
+    # the preset is the YAML with the T5-XL text width on the outer shell,
+    # as bench.py sets it
+    pre_u, pre_d, lm_dim, side = nested_configs(name)
+    args.unet_config.conditioning_feature_dim = lm_dim
+    assert (lm_dim, side) == (2048, int(name.split("x")[-1]))
+    assert _plain(pre_u) == _plain(args.unet_config)
+    assert _plain(pre_d) == _plain(args.diffusion_config)
 
 
 @pytest.mark.slow

@@ -1,5 +1,7 @@
 """Shared fixtures of the port's parity tests (tests/test_torch_*.py): the
-tiny flagship-structured U-Net in both packages, with the same weights.
+tiny flagship-structured U-Net and tiny nested U-Nets (the structure of
+tests/test_files/tiny_nested_train.yaml, one or two shells deep) in both
+packages, with the same weights.
 
 Weights are initialised by JAX, every all-zero leaf (biases and the
 zero-init output projections, which would make the U-Net output exactly 0)
@@ -8,6 +10,9 @@ is filled with seeded normals, and the tree is carried into the port by
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import numpy as np
 import torch
 
@@ -15,13 +20,24 @@ import jax
 import jax.numpy as jnp
 
 from ml_mdm_tpu.diffusion import Diffusion as JaxDiffusion
+from ml_mdm_tpu.diffusion import NestedDiffusion as JaxNestedDiffusion
+from ml_mdm_tpu.models.nested_unet import NestedUNet as JaxNestedUNet
 from ml_mdm_tpu.models.unet import UNet as JaxUNet
-from ml_mdm_tpu_torch.diffusion import Diffusion
+from ml_mdm_tpu_torch.config import (
+    NestedDiffusionConfig,
+    NestedUNetConfig,
+    ResNetConfig,
+    load_model_config,
+)
+from ml_mdm_tpu_torch.diffusion import Diffusion, NestedDiffusion
+from ml_mdm_tpu_torch.models.nested_unet import NestedUNet
 from ml_mdm_tpu_torch.models.unet import UNet
 from ml_mdm_tpu_torch.presets import flagship_configs
 from ml_mdm_tpu_torch.utils.convert import params_from_jax
 
 LM_LEN = 8
+NESTED_LM_DIM = 16
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def fill_zero_leaves(params, seed: int = 0, scale: float = 0.02):
@@ -40,22 +56,21 @@ def fill_zero_leaves(params, seed: int = 0, scale: float = 0.02):
 
 def jax_config_of(cfg):
     """The JAX package's dataclass with the same field values as the
-    port's ``cfg`` (UNetConfig with its ResNetConfig, or DiffusionConfig)."""
-    from dataclasses import asdict
-
+    port's ``cfg`` (a U-Net config, nested or not, or a diffusion config)."""
     from ml_mdm_tpu.diffusion import DiffusionConfig as JDC
-    from ml_mdm_tpu.models.layers import ResNetConfig as JRC
+    from ml_mdm_tpu.diffusion import NestedDiffusionConfig as JNDC
+    from ml_mdm_tpu.models.nested_unet import NestedUNetConfig as JNUC
     from ml_mdm_tpu.models.unet import UNetConfig as JUC
     from ml_mdm_tpu.samplers import SamplerConfig as JSC
 
-    d = asdict(cfg)
+    d = dataclasses.asdict(cfg)
     if "resnet_config" in d:
-        d["resnet_config"] = JRC(**d["resnet_config"])
-        return JUC(**d)
+        # the JAX __post_init__ builds the nested dataclasses from the dicts
+        return (JNUC if "inner_config" in d else JUC)(**d)
     sc = {k: (str(v) if hasattr(v, "name") else v)
           for k, v in d["sampler_config"].items()}
     d["sampler_config"] = JSC(**sc)
-    return JDC(**d)
+    return (JNDC if isinstance(cfg, NestedDiffusionConfig) else JDC)(**d)
 
 
 def tiny_pair(seed: int = 0):
@@ -70,6 +85,42 @@ def tiny_pair(seed: int = 0):
     unet = UNet(3, 3, ucfg)
     unet.load_state_dict(params_from_jax(params), strict=True)
     return jpipe, params, Diffusion(unet.eval(), dcfg), lm_dim, side
+
+
+def tiny_nested_configs(depth: int):
+    """(U-Net config, diffusion config, image side) of the tiny nested
+    model of tests/test_files/tiny_nested_train.yaml (depth 1: an 8/16
+    shell around a 16/32 core, sides 32 and 16), with text features of
+    width NESTED_LM_DIM; depth 2 wraps it in one more 8/16 shell (sides
+    32, 16, 8). The diffusion config keeps the YAML's defaults, so the
+    low-resolution residual is on."""
+    ucfg, dcfg = load_model_config(os.path.join(REPO, "tests/test_files/tiny_nested_train.yaml"))
+    ucfg.conditioning_feature_dim = NESTED_LM_DIM
+    if depth == 2:
+        middle = dataclasses.replace(ucfg, nesting=True, conditioning_feature_dim=-1)
+        ucfg = NestedUNetConfig(
+            resolution_channels=[8, 16], num_resnets_per_resolution=[1, 1],
+            attention_levels=[], num_attention_layers=[0, 0],
+            conditioning_feature_dim=NESTED_LM_DIM, masked_cross_attention=0,
+            temporal_dim=64, micro_conditioning="scale:64",
+            resnet_config=ResNetConfig(num_groups_norm=8), inner_config=middle,
+        )
+    return ucfg, dcfg, 32
+
+
+def tiny_nested_pair(depth: int, seed: int = 0):
+    """(jax pipeline, jax params as numpy, port pipeline, lm_dim, side) for
+    the tiny nested model of ``tiny_nested_configs(depth)`` in f32: JAX
+    init, all-zero leaves filled, ``params_from_jax``, strict load."""
+    ucfg, dcfg, side = tiny_nested_configs(depth)
+    jmod = JaxNestedUNet(3, 3, jax_config_of(ucfg), dtype=jnp.float32)
+    jpipe = JaxNestedDiffusion(jmod, jax_config_of(dcfg))
+    params = jpipe.init_params(jax.random.PRNGKey(seed), image_side=side,
+                               lm_dim=NESTED_LM_DIM, seq_len=LM_LEN)
+    params = fill_zero_leaves(params, seed)
+    unet = NestedUNet(3, 3, ucfg)
+    unet.load_state_dict(params_from_jax(params), strict=True)
+    return jpipe, params, NestedDiffusion(unet.eval(), dcfg), NESTED_LM_DIM, side
 
 
 def rel_err(got, ref) -> float:
