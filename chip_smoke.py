@@ -23,19 +23,31 @@ port's sampling paths with random weights from a seed:
      untimed forward, then one request of ``bench.py`` ``sample_1024``'s
      preset (batch 4, DDIM-250, eta 1; DDIM-50 if that forward took over
      400 ms); one ``output_inner`` call; one profiled forward.
+  4. Training (``NestedDiffusion.get_loss`` and ``trainer.make_train_step``
+     on cc12m_256x256 with f32 parameters and bf16 compute): every K3
+     launch shape of a batch-16 step, its backward held against autograd
+     of the plain version and timed beside the plain backward, the
+     library's (cuDNN's dgrad and wgrad with the same elementwise chain)
+     and the bound; one batch-4 step's loss and gradients, kernel path
+     against plain path; the ``train_256`` preset of ``bench.py`` (batch
+     16, lr 5e-5, warmup 10, clip 2.0, no remat): one untimed and five
+     timed steps; one profiled step; then cc12m_64x64 (``Diffusion.
+     get_loss``) at batch 32 for two steps.
 
-Before each request phase every launch count is set to 0 and read just
-after it; a kernel of the path that never launched fails the run. Every
-phase that fails raises, and the script exits non-zero. It needs a CUDA
-device and never falls back to the CPU. The card's name and power limit
-are printed near the top; the line before the last names every kernel
-with its launches during the nested requests, its error and its times;
-the last line is one JSON object with "ok" and the device.
+Before each request or training phase every launch count is set to 0 and
+read just after it; a kernel of the path that never launched fails the
+run. Every phase that fails raises, and the script exits non-zero. It
+needs a CUDA device and never falls back to the CPU. The card's name and
+power limit are printed near the top; the line before the last names
+every kernel with its launches (K1 and K2 during the nested requests, K3
+during the train_256 preset's timed steps), its error and its times; the
+last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -346,6 +358,10 @@ def check_images(out, shape, what: str):
         f"share of pixels inside (-1, 1): {inner:.4f}")
 
 
+SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj")
+TRAINING_KERNELS = ("K1", "K2", "K3")
+
+
 def reset_counts():
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 
@@ -353,14 +369,14 @@ def reset_counts():
     fused_resnet.reset_launch_counts()
 
 
-def read_counts(what: str):
+def read_counts(what: str, required=SAMPLING_KERNELS):
     """The launch counts since reset_counts(); fails if a kernel of the path
-    never launched."""
+    (``required``) never launched."""
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 
     counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts}
     log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels of the path never launched: {missing}")
     return counts
@@ -583,6 +599,360 @@ def path_1024(dev):
     return totals, counts
 
 
+# -- training ---------------------------------------------------------------
+
+
+def record_k3_shapes(run):
+    """Run ``run()`` (a forward and backward) with K3's wrapper wrapped, and
+    return its distinct launch shapes: (B, H, W, C, Cout, residual, stats)."""
+    from ml_mdm_tpu_torch.ops import fused_resnet
+
+    keys = set()
+    vjp = fused_resnet.affine_silu_conv3x3_vjp
+
+    def rec(x, a, b, w, bias, residual=None, **kw):
+        keys.add((*x.shape, w.shape[-1], residual is not None, bool(kw.get("emit_stats"))))
+        return vjp(x, a, b, w, bias, residual, **kw)
+
+    fused_resnet.affine_silu_conv3x3_vjp = rec
+    try:
+        run()
+        import torch
+
+        torch.cuda.synchronize()
+    finally:
+        fused_resnet.affine_silu_conv3x3_vjp = vjp
+    return sorted(keys)
+
+
+def k3_bound(key):
+    """(least ms, what bounds it) for one K3 backward on the H100: the data
+    and weight gradients' tensor-core FLOPs (2 x 2 B H W 9 C Cout) over the
+    dense bf16 peak, or the bytes over HBM: x, dy (and y with the stats)
+    read, dx written, the f32 weights read and their gradient written, and
+    the (B, C) vectors."""
+    bsz, h, w, c, cout, residual, stats = key
+    px = bsz * h * w
+    flops = 4 * px * 9 * c * cout
+    nbytes = (2 * px * c * 2 + 2 * px * cout * (1 + stats) + 2 * 4 * 9 * c * cout
+              + 4 * 4 * bsz * c + 4 * cout + (2 * 4 * bsz * cout if stats else 0))
+    t_ops, t_bytes = flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _k3_inputs(key, dev, g):
+    """bf16 x, residual and dy; f32 coefficients, weights (as training holds
+    them), bias and stats cotangents."""
+    import torch
+
+    bsz, h, w, c, cout, residual, stats = key
+    bf = torch.bfloat16
+    ins = [torch.randn((bsz, h, w, c), generator=g, device=dev).to(bf),
+           torch.randn((bsz, c), generator=g, device=dev) * 0.2 + 1.0,
+           torch.randn((bsz, c), generator=g, device=dev) * 0.3,
+           torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5,
+           torch.randn((cout,), generator=g, device=dev) * 0.1,
+           torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf) if residual else None]
+    cots = [torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf)]
+    if stats:
+        cots += [torch.randn((bsz, cout), generator=g, device=dev) * 1e-3,
+                 torch.randn((bsz, cout), generator=g, device=dev) * 1e-4]
+    return ins, cots
+
+
+def _backward_of(fn, ins, cots, stats):
+    """One forward through fn; returns a closure that runs its backward
+    (the graph is kept, so it can run again) and returns the gradients of
+    x, a, b, w, bias and the residual."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) if t is not None else None for t in ins]
+    out = fn(*leaves, emit_stats=stats)
+    outs = out if stats else (out,)
+    targets = [t for t in leaves if t is not None]
+    return lambda: torch.autograd.grad(outs, targets, cots, retain_graph=True), outs
+
+
+def library_k3_backward(x, a, b, w16, dy, y=None, ds1=None, ds2=None):
+    """K3's backward with cuDNN's bf16 dgrad in place of K2 (and cuDNN's
+    wgrad, as K3 has), for timing only."""
+    import torch
+
+    if y is not None:
+        dy = (dy.float() + ds1[:, None, None, :] + 2.0 * y.float() * ds2[:, None, None, :]).to(dy.dtype)
+    a_c, b_c = a[:, None, None, :], b[:, None, None, :]
+    v = x.float() * a_c + b_c
+    sig = torch.sigmoid(v)
+    dact = sig * (1.0 + v * (1.0 - sig))
+    w_oihw = w16.permute(3, 2, 0, 1)
+    dy_nchw = dy.permute(0, 3, 1, 2)
+    ds = torch.nn.grad.conv2d_input(x.permute(0, 3, 1, 2).shape, w_oihw, dy_nchw, padding=1)
+    dv = ds.permute(0, 2, 3, 1).float() * dact
+    dx = (dv * a_c).to(x.dtype)
+    dw = torch.nn.grad.conv2d_weight((v * sig).to(x.dtype).permute(0, 3, 1, 2), w_oihw.shape,
+                                     dy_nchw, padding=1)
+    return dx, (dv * x.float()).sum(dim=(1, 2)), dv.sum(dim=(1, 2)), dw, dy.float().sum(dim=(0, 1, 2))
+
+
+def check_k3(keys, dev):
+    """Each K3 launch shape: the Function's backward against autograd of the
+    plain version (K2_TOL), then the backward's time, the plain
+    backward's, the library's, the weight re-layout's and the bound.
+    Returns the totals."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import fused_resnet
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tot = _new_totals()
+    relayout_ms = 0.0
+    for key in keys:
+        bsz, h, w, c, cout, residual, stats = key
+        ins, cots = _k3_inputs(key, dev, g)
+        kernel, outs = _backward_of(fused_resnet.affine_silu_conv3x3_vjp, ins, cots, stats)
+        plain, _ = _backward_of(fused_resnet.affine_silu_conv3x3_plain, ins, cots, stats)
+        got, ref = kernel(), plain()
+        errs = [rel_err(o, r) for o, r in zip(got, ref)]
+        if not max(errs) <= K2_TOL:
+            raise AssertionError(f"K3 {key}: rel errs {errs} > {K2_TOL}")
+        ms = cuda_ms(kernel)
+        pms = cuda_ms(plain, warmup=1, reps=3)
+        w16 = ins[3].to(torch.bfloat16)
+        extra = (outs[0].detach(), *cots[1:]) if stats else ()
+        lms = cuda_ms(lambda: library_k3_backward(ins[0], ins[1], ins[2], w16, cots[0], *extra))
+        # the data gradient's weights as K2's wrapper lays them out per call
+        rms = cuda_ms(lambda: ins[3].flip(0, 1).transpose(2, 3).to(torch.bfloat16)
+                      .permute(3, 0, 1, 2).reshape(c, 9 * cout).contiguous())
+        relayout_ms += rms
+        bound, by = k3_bound(key)
+        log(f"K3 B={bsz} {h}x{w} {c}->{cout}{' residual' if residual else ''}"
+            f"{' stats' if stats else ''}: rel_errs (dx, da, db, dw, dbias"
+            f"{', dres' if residual else ''}) {', '.join(f'{e:.3e}' for e in errs)} "
+            f"backward {ms:.4f} ms ({4 * bsz * h * w * 9 * c * cout / ms / 1e9:.1f} TFLOP/s) "
+            f"plain {pms:.4f} ms library {lms:.4f} ms weight re-layout {rms:.4f} ms "
+            f"bound {bound:.4f} ms ({by})")
+        _add(tot, max(abs_err(o, r) for o, r in zip(got, ref)), ms, pms, lms, bound, by)
+    log(f"K3 over {tot['shapes']} shapes: backward {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms; the data gradient's weight re-layout {relayout_ms:.4f} ms")
+    return tot
+
+
+def train_batch(dev, rows: int, side: int, lm_dim: int, gen):
+    """Random images in [-1, 1] (f32, as a reader gives them) and text."""
+    import torch
+
+    images = torch.rand((rows, side, side, 3), generator=gen, device=dev) * 2.0 - 1.0
+    return {"images": images, **text_conditioning(dev, rows, lm_dim, gen)}
+
+
+def flat_grads(unet):
+    import torch
+
+    return torch.cat([p.grad.flatten() for p in unet.parameters() if p.grad is not None])
+
+
+def train_kernel_vs_plain(pipe, dev, lm_dim: int, side: int, batch: int = 4):
+    """One step's loss and gradients through the kernels and through the
+    plain versions, from the same f32 weights, timesteps and noise."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    data = {k: v.to(torch.bfloat16) for k, v in train_batch(dev, batch, side, lm_dim, gen).items()}
+    time_ = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+    eps = [n.to(torch.bfloat16) for n in pipe.get_noise(batch, side, gen)]
+    unet = pipe.vision_module
+    results = []
+    for kernels in (True, False):
+        unet.use_kernels(kernels).zero_grad(set_to_none=True)
+        loss = pipe.get_loss(data, time=time_, eps=eps)[0].mean()
+        loss.backward()
+        results.append((float(loss.detach()), flat_grads(unet)))
+        unet.zero_grad(set_to_none=True)
+    unet.use_kernels(True)
+    (lk, gk), (lp, gp) = results
+    l_err = abs(lk - lp) / abs(lp)
+    n_err = abs(float(gk.norm()) - float(gp.norm())) / float(gp.norm())
+    cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+    log(f"256px train, kernel vs plain path, one step B={batch}: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {l_err:.4e}, tol 1e-2); grad norm {float(gk.norm()):.6f} vs {float(gp.norm()):.6f} "
+        f"(rel {n_err:.4e}, tol 5e-2); cosine {cos:.6f} (>= 0.99)")
+    if not (l_err <= 1e-2 and n_err <= 5e-2 and cos >= 0.99 and torch.isfinite(gk).all()):
+        raise AssertionError("256px train: kernel path disagrees with plain path")
+
+
+def run_train_steps(step, state, pipe, dev, what: str, n: int, batch: int, side: int,
+                    lm_dim: int, gen, timed: bool = True):
+    """n training steps on fresh random batches, each timed on the host
+    clock around a synchronised step; fails on a non-finite or skipped
+    step. Returns the step times in seconds."""
+    import torch
+
+    times = []
+    for i in range(n):
+        data = train_batch(dev, batch, side, lm_dim, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        log(f"{what} step {state.step}{'' if timed else ' (untimed)'}: loss {m['loss']:.6f} "
+            f"grad norm {m['grad_norm']:.6f} skipped {m['skipped']}: {dt:.4f} s, "
+            f"{batch / dt:.4f} images/s")
+        if m["skipped"] or not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{what}: step {i} was not finite or was skipped: {m}")
+    return times
+
+
+def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: int, gen):
+    """One training step under the profiler: the device's busy and idle
+    share, the top device time by kernel, and the device time of K3's
+    backward split into its data gradient (K2 and the weights' re-layout),
+    its weight gradient and its elementwise chain, and of Adam and the
+    EMA."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    data = train_batch(dev, batch, side, lm_dim, gen)
+    for _ in range(2):  # the first profiled run pays the tracer's set-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, data, gen)
+            torch.cuda.synchronize()
+    events = prof.events()
+    # device events, without the device-side spans of the named ranges
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        log("256px train profile: the profiler recorded no device time")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - min(e.time_range.start for e in events)
+    log(f"256px train profile, one step B={batch}: device busy {busy / 1e3:.3f} ms of a "
+        f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}")
+    by_name = {}
+    for e in kernels:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        log(f"  {tot / 1e3:9.3f} ms {100 * tot / busy:5.1f}%  x{n:<5d} {name[:88]}")
+
+    def range_us(name):
+        """Device time of the kernels launched inside a named range."""
+        return sum(e.device_time_total for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU)
+
+    k2_us = sum(tot for name, (tot, _) in by_name.items() if "affine_silu_conv3x3" in name)
+    parts = {"K3 backward (all)": range_us("K3 backward"),
+             "K3 data gradient, ATen part (re-layout, ones/zeros)": range_us("K3 dx (K2)"),
+             "K3 weight gradient (cuDNN)": range_us("K3 dw (library)"),
+             "Adam": range_us("trainer: Adam"), "EMA": range_us("trainer: EMA"),
+             "K2 kernel, forward and backward (by name)": k2_us}
+    parts["K3 elementwise chain"] = (parts["K3 backward (all)"] - parts["K3 weight gradient (cuDNN)"]
+                                     - parts["K3 data gradient, ATen part (re-layout, ones/zeros)"])
+    for name, us in parts.items():
+        log(f"  {name}: {us / 1e3:.3f} ms device, {100 * us / busy:.1f}% of busy")
+
+
+def path_train(dev):
+    """Training: cc12m_256x256 (K3 shapes, kernel vs plain, the train_256
+    preset, one profiled step), then cc12m_64x64. Returns (K3 totals, the
+    launch counts of the train_256 preset's timed steps)."""
+    import gc
+
+    import torch
+
+    from ml_mdm_tpu_torch import trainer
+    from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
+
+    batch = 16
+    with phase("256px train: build and K3 shapes"):
+        pipe, lm_dim, side = nested_preset("cc12m_256x256", dev, seed=SEED, train=True)
+        unet = pipe.vision_module
+        n_params = sum(p.numel() for p in unet.parameters())
+        log(f"cc12m_256x256 built on {dev} for training: {n_params} parameters "
+            f"({next(unet.parameters()).dtype}), compute {unet.dtype}, mixed_ratio "
+            f"{pipe.mixed_ratio}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        data = {k: v.to(torch.bfloat16)
+                for k, v in train_batch(dev, batch, side, lm_dim, gen).items()}
+
+        def one_backward():
+            unet.zero_grad(set_to_none=True)
+            pipe.get_loss(data, gen)[0].mean().backward()
+
+        keys = record_k3_shapes(one_backward)
+        with_grad = {k for k, p in unet.named_parameters()
+                     if p.grad is not None and bool((p.grad != 0).any())}
+        log(f"{len(with_grad)} of {len(list(unet.parameters()))} parameter tensors get a "
+            f"nonzero gradient; {len(keys)} K3 launch shapes")
+        unet.zero_grad(set_to_none=True)
+        del data
+        tot_k3 = check_k3(keys, dev)
+    with phase("256px train: kernel path vs plain path"):
+        train_kernel_vs_plain(pipe, dev, lm_dim, side)
+    with phase("256px train: the train_256 preset, 1 untimed and 5 timed steps"):
+        cfg = trainer.TrainerConfig(lr=5e-5, warmup_steps=10, gradient_clip_norm=2.0)
+        state = trainer.TrainState.create(unet)
+        step = trainer.make_train_step(pipe, cfg)
+        start = {k: p.detach().clone() for k, p in state.params.items()}
+        run_train_steps(step, state, pipe, dev, "256px train", 1, batch, side, lm_dim, gen,
+                        timed=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        times = run_train_steps(step, state, pipe, dev, "256px train", 5, batch, side, lm_dim, gen)
+        counts = read_counts("the train_256 preset's timed steps", TRAINING_KERNELS)
+        dt = sum(times) / len(times)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"256px train (batch {batch}, 10 rows at 256px, {batch} at 64px): "
+            f"{1 / dt:.4f} steps/s, {batch / dt:.4f} images/s (mean of 5 steps); "
+            f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+        changed = {k for k, p in state.params.items() if not torch.equal(p.detach(), start[k])}
+        log(f"after {state.step} steps: {len(changed & with_grad)} of the {len(with_grad)} "
+            f"parameter tensors that get a gradient changed ({len(changed)} of "
+            f"{len(start)} in all)")
+        if not with_grad <= changed:
+            raise AssertionError(f"parameters that get a gradient did not change: "
+                                 f"{sorted(with_grad - changed)[:8]}")
+        ema_moved = sum(float((state.ema_params[k] - start[k]).abs().sum()) for k in start)
+        p_moved = sum(float((state.params[k].detach() - start[k]).abs().sum()) for k in start)
+        log(f"sum |EMA - start| {ema_moved:.6e}, sum |params - start| {p_moved:.6e}")
+        if not 0.0 < ema_moved < p_moved:
+            raise AssertionError("256px train: the EMA did not move, or moved past the params")
+        del start
+    with phase("256px train: profile one step"):
+        profile_train_step(step, state, pipe, dev, batch, side, lm_dim, gen)
+    del pipe, unet, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("64px train: Diffusion.get_loss, batch 32, 2 steps"):
+        pipe, lm_dim, side = flagship_64px(dev, seed=SEED, train=True)
+        cfg = trainer.TrainerConfig(lr=5e-5, warmup_steps=10, gradient_clip_norm=2.0)
+        state = trainer.TrainState.create(pipe.vision_module)
+        step = trainer.make_train_step(pipe, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        run_train_steps(step, state, pipe, dev, "64px train", 2, 32, side, lm_dim, gen)
+        read_counts("the 64px training steps", TRAINING_KERNELS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"64px train: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    del pipe, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tot_k3, counts
+
+
 def main() -> int:
     import torch
 
@@ -632,9 +1002,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     tot_1024, counts_1024 = path_1024(dev)
 
+    torch.cuda.empty_cache()
+    tot_k3, counts_train = path_train(dev)
+
     totals = merge_totals(tot_256, tot_1024)
+    totals["K3"] = tot_k3
     launches = {k: counts_256[k] + counts_1024[k] for k in counts_256}
-    log(f"launches during the nested requests (256px and 1024px): {launches}")
+    launches["K3"] = counts_train["K3"]
+    log(f"launches during the nested requests (256px and 1024px), K3's during the "
+        f"train_256 preset's timed steps: {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
 
     def entry(name, mode, route, source, replaces, library=True):
@@ -654,6 +1030,8 @@ def main() -> int:
               "ml_mdm_tpu/ops/fused_resnet.py:515"),
         entry("affine_silu_conv3x3 (shortcut)", "K2·proj", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:284"),
+        entry("affine_silu_conv3x3_vjp (backward)", "K3", "cuda", cu,
+              "ml_mdm_tpu/ops/fused_resnet.py:744"),
     ]
     print(json.dumps({"kernels": kernels}, ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {

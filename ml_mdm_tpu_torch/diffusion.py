@@ -1,19 +1,38 @@
-"""Diffusion pipelines of the port: the model wrappers and sampling entries.
+"""Diffusion pipelines of the port: the model wrappers, the training losses
+and the sampling entries.
 
 Counterpart of ``ml_mdm_tpu/diffusion.py`` ``Model``, ``Diffusion``,
-``NestedModel`` and ``NestedDiffusion`` (sampling only; the training loss
-is not ported yet). A pipeline owns its U-Net module, so there is no
-separate params argument.
+``NestedModel`` and ``NestedDiffusion``: ``get_loss`` of both pipelines
+(without the JAX package's packed loss boundary: the port does not pack)
+and ``sample``. A pipeline owns its U-Net module, so there is no separate
+params argument; ``vision_module.train()`` selects the training route of
+its ResNets. A loss takes its timesteps and noise from the caller or
+draws them from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ml_mdm_tpu_torch.config import DiffusionConfig, NestedDiffusionConfig
 from ml_mdm_tpu_torch.samplers import NestedSampler, Sampler
 from ml_mdm_tpu_torch.utils.resize import resize_nhwc
+
+
+def avg_pool_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
+    """r x r average pooling in NHWC."""
+    if r == 1:
+        return x
+    b, h, w, c = x.shape
+    return x.reshape(b, h // r, r, w // r, r, c).mean(dim=(2, 4))
+
+
+def _mse_per_image(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """Mean over all but the batch axis of the squared difference, squared
+    in the difference's dtype and accumulated in f32."""
+    return (pred - tgt).square().mean(dim=tuple(range(1, pred.dim())), dtype=torch.float32)
 
 
 class Model:
@@ -50,6 +69,33 @@ class Diffusion:
             return {}
         return {k: sample[k] for k in conditions if k in sample}
 
+    def get_pred_for_training(self, x_t, pred, g):
+        """The prediction converted to the loss target's type."""
+        sc = self.config.sampler_config
+        if sc.loss_target_type == sc.prediction_type:
+            return pred
+        x0, _ = self.sampler.get_x0_eps_from_pred(x_t, pred, g, sc.prediction_type)
+        return self.sampler.get_pred_from_x0_xt(x_t, x0, g, sc.loss_target_type)
+
+    def get_loss(self, sample: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                 *, time: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):
+        """Per-image training loss of ``sample`` (``images`` (B, H, W, C) in
+        [-1, 1], ``lm_outputs``, ``lm_mask``, micro-conditions). The
+        timesteps ``time`` (B,) and the noise ``eps`` are given or drawn
+        from ``generator``. Returns (losses (B,) f32, time, x_t, model
+        output, target, VDM weights or None)."""
+        images = sample["images"]
+        eps, g, g_last, weights, time = self.sampler.get_eps_time(images, generator, time, eps)
+        if not self.config.use_vdm_loss_weights:
+            weights = None
+        x_t = self.sampler.get_xt(self.sampler.get_image_rescaled(images), eps, g)
+        means = self.model(x_t, time, sample["lm_outputs"], sample["lm_mask"],
+                           self.get_micro_conditioning(sample))
+        tgt = self.sampler.get_prediction_targets(
+            images, eps, g, g_last, self.config.sampler_config.loss_target_type)
+        pred = self.get_pred_for_training(x_t, means, g)
+        return _mse_per_image(pred, tgt), time, x_t, means, tgt, weights
+
     def get_noise(self, num_examples: int, image_side: int,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """f32 normal noise (B, side, side, C) on the module's device."""
@@ -80,7 +126,10 @@ class NestedModel(Model):
     """model_fn([x_hi, ..., x_lo], t, lm_outputs, lm_mask, micros) around a
     ``NestedUNet``: one prediction per resolution, each with the optional
     tanh bound, and the low-resolution residual unless
-    ``no_use_residual``."""
+    ``no_use_residual``. With ``mixed_ratio`` (the cumulative share of rows
+    each resolution keeps, highest first) each resolution runs only on its
+    first rows, and its prediction is padded back to the batch with
+    zeros."""
 
     def __init__(self, vision_module: torch.nn.Module,
                  diffusion_config: NestedDiffusionConfig, sampler: NestedSampler):
@@ -109,11 +158,18 @@ class NestedModel(Model):
         pred = pred + smp.get_pred_from_x0_xt(x_hi, x0_up, g_list[0])
         return [pred, pred_low] + list(p_t[2:])
 
-    def __call__(self, x_t, times, lm_outputs, lm_mask, micros):
+    def __call__(self, x_t, times, lm_outputs, lm_mask, micros,
+                 mixed_ratio: Optional[Sequence[float]] = None):
+        batch = x_t[0].shape[0]
+        if mixed_ratio is not None:
+            x_t = [x[: int(m * x.shape[0])] for x, m in zip(x_t, mixed_ratio)]
         p_t = self.vision_module(x_t, times, lm_outputs, lm_mask, micros)
         if self._output_scale != 0:
             s = self._output_scale
             p_t = [torch.tanh(p / s) * s for p in p_t]
+        if mixed_ratio is not None:
+            p_t = [torch.cat([p, p.new_zeros((batch - p.shape[0],) + p.shape[1:])])
+                   if p.shape[0] < batch else p for p in p_t]
         if not self.diffusion_config.no_use_residual:
             p_t = self._low_res_residual(x_t, p_t, times)
         return p_t
@@ -128,12 +184,73 @@ class NestedDiffusion(Diffusion):
         self.sampler = NestedSampler(diffusion_config.sampler_config)
         self.model = NestedModel(vision_module, diffusion_config, self.sampler)
         self.config = diffusion_config
+        self.mixed_ratio = None
+        if diffusion_config.mixed_ratio:
+            mr = np.cumsum(np.asarray(
+                [float(v) for v in str(diffusion_config.mixed_ratio).split(":")]))
+            self.mixed_ratio = (mr / mr[-1]).tolist()
 
     @property
     def scales(self) -> List[int]:
         """Downsampling ratio of each resolution, highest first, e.g.
         [16, 4, 1]."""
         return list(self.vision_module.nest_ratio) + [1]
+
+    def get_loss(self, sample: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                 *, time: Optional[torch.Tensor] = None,
+                 eps: Optional[Sequence[torch.Tensor]] = None):
+        """Nested training loss: the images avg-pooled to every resolution,
+        each noised at its shifted gamma with its own normals, the loss of
+        the highest resolution (of every one with ``use_double_loss``,
+        weighted by ``multi_res_weights``), and with ``mixed_ratio`` each
+        resolution's loss divided by its row share and kept on its rows.
+        ``eps`` is one normal tensor per resolution, highest first (else
+        drawn from ``generator``). Returns (losses (B,) f32, time, x_t,
+        prediction and target at the highest resolution, VDM weights or
+        None)."""
+        images = sample["images"]
+        cfg = self.config
+        scales = self.scales
+        eps0, g, g_last, weights, time = self.sampler.get_eps_time(
+            images, generator, time, None if eps is None else eps[0])
+        if not cfg.use_vdm_loss_weights:
+            weights = None
+        images_list = [images]
+        for r_prev, r in zip(scales, scales[1:]):
+            images_list.append(avg_pool_nhwc(images_list[-1], int(r_prev // r)))
+        g_list = self.sampler.get_gammas(g, scales)
+        g_last_list = self.sampler.get_gammas(g_last, scales)
+        eps_list = [eps0]
+        for i, x in enumerate(images_list[1:], start=1):
+            eps_list.append(
+                torch.randn(x.shape, generator=generator, device=x.device, dtype=eps0.dtype)
+                if eps is None else eps[i].to(x.device, eps0.dtype))
+        x_t = self.sampler.get_xt(images_list, eps_list, g_list, scales)
+        p_t = self.model(x_t, time, sample["lm_outputs"], sample["lm_mask"],
+                         self.get_micro_conditioning(sample), mixed_ratio=self.mixed_ratio)
+        tgt = self.sampler.get_prediction_targets(
+            images_list, eps_list, g_list, g_last_list, scales,
+            cfg.sampler_config.loss_target_type)
+        pred = [self.get_pred_for_training(x, p, gi) for x, p, gi in zip(x_t, p_t, g_list)]
+        if cfg.multi_res_weights is not None:
+            if not cfg.use_double_loss:
+                raise ValueError("multi_res_weights needs use_double_loss")
+            w = [float(v) for v in str(cfg.multi_res_weights).split(":")]
+        else:
+            w = [1.0] * len(x_t)
+        loss = 0.0
+        for i in range(len(x_t)):
+            if i == 0 or cfg.use_double_loss:
+                loss_i = _mse_per_image(pred[i], tgt[i])
+                if self.mixed_ratio is not None:
+                    loss_i = loss_i / self.mixed_ratio[i]
+                    keep = int(self.mixed_ratio[i] * loss_i.shape[0])
+                    rows = torch.arange(loss_i.shape[0], device=loss_i.device)
+                    loss_i = loss_i * (rows < keep).to(loss_i.dtype)
+            else:
+                loss_i = pred[i].mean() * 0.0
+            loss = loss + loss_i * w[i]
+        return loss, time, x_t[0], pred[0], tgt[0], weights
 
     def get_noise(self, num_examples: int, image_side: int,
                   generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:

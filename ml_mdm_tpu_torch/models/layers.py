@@ -13,6 +13,17 @@ kernel wrappers, which launch the kernel on a CUDA tensor and run the
 plain version on a CPU tensor. ``UNet.use_kernels(False)`` makes them call
 the plain versions on any device, so the two paths can be compared on the
 card.
+
+Modules with conv or dense weights carry a ``compute_dtype`` (None: the
+weights' own dtype; ``UNet.set_compute_dtype`` sets it). As a Flax module
+with ``dtype=bfloat16`` does with its f32 parameters, each conv and dense
+layer casts its input, weight and bias to it at use, while the norms'
+scale and bias enter their f32 coefficient math uncast. So f32 parameters
+train with bf16 compute, and a bf16 model's casts are no-ops.
+
+In ``training`` mode the ResNet takes the JAX package's training
+structure (its ``custom_vjp`` route), not the sampling one; see
+``ResNet``.
 """
 from __future__ import annotations
 
@@ -46,16 +57,27 @@ class GELU(nn.Module):
         return gelu(x)
 
 
-def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Apply a torch Conv2d to an NHWC tensor, in x's dtype."""
-    y = conv(x.permute(0, 3, 1, 2).to(conv.weight.dtype))
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Apply a torch Conv2d to an NHWC tensor in ``dtype`` (default: the
+    weight's), casting x, weight and bias to it."""
+    dt = dtype or conv.weight.dtype
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), conv.weight.to(dt), _cast(conv.bias, dt),
+                 conv.stride, conv.padding)
     return y.permute(0, 2, 3, 1)
 
 
-def dense_1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """A 1x1 Conv2d applied as a dense layer over the last axis."""
-    w = conv.weight
-    return F.linear(x, w.reshape(w.shape[0], w.shape[1]), conv.bias)
+def dense(x: torch.Tensor, layer: nn.Module,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A Linear, or a 1x1 Conv2d as a dense layer over the last axis, in
+    ``dtype`` (default: the weight's), casting x, weight and bias to it."""
+    w = layer.weight
+    dt = dtype or w.dtype
+    return F.linear(x.to(dt), w.reshape(w.shape[0], -1).to(dt), _cast(layer.bias, dt))
 
 
 def _gn_affine_from_moments(mean, var, scale, bias, g, eps: float):
@@ -175,7 +197,18 @@ class ResNet(nn.Module):
 
     x is one (B, H, W, C) tensor or, on the up path, the tuple (x, skip)
     of the skip concat, which is never built: norm1 takes its statistics
-    per operand and conv1 runs the operands through K2·N."""
+    per operand and conv1 runs the operands through K2·N.
+
+    In ``training`` mode it follows the JAX package's training route
+    (``_forward`` with the ``custom_vjp`` convs; the JAX package takes it
+    at sides of 128 and up, the port at every side): the skip concat is
+    built, conv1 runs through K3 with its output's sums, norm2 comes from
+    those sums with FiLM folded in, the 1x1 shortcut is a separate dense
+    ``conv3``, and conv2 runs through K3 with the shortcut (or x) as the
+    residual. Dropout is not ported: a training ResNet with dropout > 0
+    raises."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, config: ResNetConfig, temporal_dim: int):
         super().__init__()
@@ -195,7 +228,35 @@ class ResNet(nn.Module):
               else fused_resnet.affine_silu_conv3x3_plain)
         return fn(*args, **kw)
 
+    def _norm2_film(self, h, hs1, hs2, temb):
+        """norm2's coefficients from conv1's output sums, with FiLM folded
+        in: norm2(h) * (1 + ta) + tb == h * a2 + b2."""
+        t = dense(F.silu(temb), self.time_layer, self.compute_dtype).float()
+        ta, tb = t.chunk(2, dim=-1)
+        a2, b2 = group_norm_coeffs_from_sums(
+            hs1, hs2, h.shape[1] * h.shape[2], self.norm2.weight, self.norm2.bias,
+            self.config.num_groups_norm,
+        )
+        return a2 * (1.0 + ta), b2 * (1.0 + ta) + tb
+
+    def _forward_train(self, x, temb):
+        if self.config.dropout > 0:
+            raise NotImplementedError("a training ResNet with dropout > 0 is not ported yet")
+        conv = (fused_resnet.affine_silu_conv3x3_vjp if self.kernels
+                else fused_resnet.affine_silu_conv3x3_plain)
+        if isinstance(x, tuple):
+            x = torch.cat(x, dim=-1)
+        a1, b1 = group_norm_coeffs(x, self.norm1.weight, self.norm1.bias,
+                                   self.config.num_groups_norm, kernels=self.kernels)
+        h, hs1, hs2 = conv(x, a1, b1, self.conv1.weight.permute(2, 3, 1, 0),
+                           self.conv1.bias, emit_stats=True)
+        a2, b2 = self._norm2_film(h, hs1, hs2, temb)
+        res = dense(x, self.conv3, self.compute_dtype) if hasattr(self, "conv3") else x
+        return conv(h, a2, b2, self.conv2.weight.permute(2, 3, 1, 0), self.conv2.bias, res)
+
     def forward(self, x, temb):
+        if self.training:
+            return self._forward_train(x, temb)
         cfg = self.config
         g = cfg.num_groups_norm
         xs = x if isinstance(x, tuple) else (x,)
@@ -224,13 +285,7 @@ class ResNet(nn.Module):
             res = out[3]
         else:
             res = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
-        t = self.time_layer(F.silu(temb)).float()
-        ta, tb = t.chunk(2, dim=-1)
-        a2, b2 = group_norm_coeffs_from_sums(
-            hs1, hs2, h.shape[1] * h.shape[2], self.norm2.weight, self.norm2.bias, g,
-        )
-        a2 = a2 * (1.0 + ta)
-        b2 = b2 * (1.0 + ta) + tb
+        a2, b2 = self._norm2_film(h, hs1, hs2, temb)
         return self._conv(h, a2, b2, self.conv2.weight.permute(2, 3, 1, 0),
                           self.conv2.bias, res)
 
@@ -240,6 +295,8 @@ class SelfAttention(nn.Module):
     (``ml_mdm_tpu/models/layers.py`` ``SelfAttention``): the cross branch
     shares q and is added before the shared zero-init ``proj_out``; the
     optional FFN is ``ffn.0-3`` (GroupNorm, 1x1 conv, GELU, 1x1 conv)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, channels: int, cond_dim: Optional[int] = None,
                  use_attention_ffn: bool = False, num_heads: int = 8):
@@ -274,17 +331,18 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, cond=None, cond_mask=None):
         b, h, w, c = x.shape
-        qkv = dense_1x1(self.norm(x), self.qkv).reshape(b, h * w, 3 * c)
+        dt = self.compute_dtype
+        qkv = dense(self.norm(x), self.qkv, dt).reshape(b, h * w, 3 * c)
         q, k, v = qkv.chunk(3, dim=-1)
         out = self._attention(q, k, v)
         if self.cond_dim:
-            kv = self.kv_cond(self.norm_cond(cond))
+            kv = dense(self.norm_cond(cond), self.kv_cond, dt)
             k_c, v_c = kv.chunk(2, dim=-1)
             out = out + self._attention(q, k_c, v_c, mask=cond_mask)
-        x = x + dense_1x1(out, self.proj_out).reshape(b, h, w, c)
+        x = x + dense(out, self.proj_out, dt).reshape(b, h, w, c)
         if self.use_attention_ffn:
             f = self.ffn
-            x = x + dense_1x1(f[2](dense_1x1(f[0](x), f[1])), f[3])
+            x = x + dense(f[2](dense(f[0](x), f[1], dt)), f[3], dt)
         return x
 
 
@@ -293,6 +351,8 @@ class ResNetBlockStage(nn.Module):
     layers) and an optional resample; ``ml_mdm_tpu/models/layers.py``
     ``ResNetBlockStage``, unpacked and non-temporal. Downsampling is a
     stride-2 3x3 conv; upsampling is nearest-2x followed by a 3x3 conv."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, temporal_dim: int, num_residual_blocks: int,
                  num_attention_layers: int, downsample_output: bool,
@@ -342,6 +402,6 @@ class ResNetBlockStage(nn.Module):
         if self.downsample_output or self.upsample_output:
             if self.upsample_output:
                 x = nearest_upsample_2x(x)
-            x = conv2d_nhwc(x, self.resample)
+            x = conv2d_nhwc(x, self.resample, self.compute_dtype)
             activations.append(x)
         return x, activations

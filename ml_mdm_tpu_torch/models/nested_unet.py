@@ -80,13 +80,15 @@ class NestedUNet(UNet):
         cond_hi = conditioning[:bh] if conditioning is not None else None
         x, skips = self.forward_downsample(x, temb[:bh], cond_hi, cm)
 
-        x_inner = conv2d_nhwc(x, self.in_adapter) if hasattr(self, "in_adapter") else None
+        dt = self.dtype
+        x_inner = (conv2d_nhwc(x, self.in_adapter, dt) if hasattr(self, "in_adapter")
+                   else None)
         if x_inner is not None and bh < bl:
             pad = x_inner.new_zeros((bl - bh,) + tuple(x_inner.shape[1:]))
             x_inner = torch.cat([x_inner, pad], dim=0)
         x_low, x_inner = self.inner_unet.forward_denoising(
             (list(x_t[1:]), x_inner), times, cond_emb, conditioning, cond_mask, micros)
-        x = x + conv2d_nhwc(x_inner, self.out_adapter)[:bh]
+        x = x + conv2d_nhwc(x_inner, self.out_adapter, dt)[:bh]
 
         x = self.forward_upsample(x, temb[:bh], cond_hi, cm, skips)
         out = [self.forward_output_layer(x)]

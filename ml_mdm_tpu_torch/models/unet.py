@@ -10,6 +10,11 @@ layer), which ``models/nested_unet.py`` reuses for its shells. With
 ``nesting`` the U-Net is the inner level of a nested one: it takes
 ``(x_t, x_feat)``, adds the shell's features after its input layer, and
 returns ``(x_out, x)``, its output and its last features.
+
+The U-Net computes in its ``dtype``: the compute dtype that
+``set_compute_dtype`` sets (bf16 on f32 parameters for training, as the
+JAX package's ``dtype=bfloat16`` modules), by default the parameters'
+own. ``train()`` switches every ResNet to the training route.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from ml_mdm_tpu_torch.models.layers import (
     GroupNormF32,
     ResNetBlockStage,
     conv2d_nhwc,
+    dense,
 )
 
 
@@ -60,6 +66,8 @@ def sinusoidal_embedding(times: torch.Tensor, temporal_dim: int) -> torch.Tensor
 
 
 class UNet(nn.Module):
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, input_channels: int, output_channels: int,
                  config: UNetConfig, cond_dim_override: Optional[int] = None,
                  text_dim: Optional[int] = None):
@@ -180,7 +188,17 @@ class UNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        """The compute dtype (by default the parameters' dtype)."""
+        return self.compute_dtype or self.conv_in.weight.dtype
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "UNet":
+        """Compute in ``dtype`` whatever the parameters' dtype: every conv
+        and dense layer casts its input, weight and bias to it at use (None:
+        the parameters' dtype)."""
+        for m in self.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
+        return self
 
     def use_kernels(self, enabled: bool = True) -> "UNet":
         """Route the ResNet convs and 4-D bf16 GroupNorm statistics through
@@ -194,13 +212,14 @@ class UNet(nn.Module):
 
     def create_temporal_embedding(self, times, ff_layers=None):
         layer1, layer2 = ff_layers or (self.temb_layer1, self.temb_layer2)
-        temb = sinusoidal_embedding(times, self.temporal_dim).to(self.dtype)
-        return layer2(F.silu(layer1(temb)))
+        dt = self.dtype
+        temb = sinusoidal_embedding(times, self.temporal_dim).to(dt)
+        return dense(F.silu(dense(temb, layer1, dt)), layer2, dt)
 
     def forward_conditioning(self, conditioning, cond_mask):
         cfg = self.config
         if cfg.conditioning_feature_proj_dim > 0:
-            conditioning = self.lm_proj(conditioning.to(self.dtype))
+            conditioning = dense(conditioning, self.lm_proj, self.dtype)
         if cond_mask is None:
             y = conditioning.mean(dim=1)
         else:
@@ -209,7 +228,7 @@ class UNet(nn.Module):
             y = (mask[..., None] * conditioning).sum(dim=1) / torch.clamp(denom, min=1e-6)
         if not cfg.masked_cross_attention:
             cond_mask = None
-        return self.cond_emb(y), conditioning, cond_mask
+        return dense(y, self.cond_emb, self.dtype), conditioning, cond_mask
 
     def forward_micro_conditioning(self, times, micros):
         temb = 0.0
@@ -244,7 +263,7 @@ class UNet(nn.Module):
         if normalize:
             std = x_t.float().std(dim=(1, 2, 3), keepdim=True, correction=1)
             x_t = x_t / std.to(x_t.dtype)
-        return conv2d_nhwc(x_t, self.conv_in)
+        return conv2d_nhwc(x_t, self.conv_in, self.dtype)
 
     def forward_downsample(self, x, temb, conditioning=None, cond_mask=None):
         """The down path; returns (x, the skip activations)."""
@@ -267,7 +286,7 @@ class UNet(nn.Module):
         return x
 
     def forward_output_layer(self, x):
-        return conv2d_nhwc(F.silu(self.norm_out(x)), self.conv_out)
+        return conv2d_nhwc(F.silu(self.norm_out(x)), self.conv_out, self.dtype)
 
     def forward_denoising(self, x_t, times, cond_emb=None, conditioning=None,
                           cond_mask=None, micros=None):
@@ -291,7 +310,7 @@ class UNet(nn.Module):
 
     def forward(self, x_t, times, conditioning=None, cond_mask=None, micros=None):
         """x_t (B, H, W, C_in), times (B,) int -> prediction (B, H, W, C_out)
-        in the weights' dtype (a nested U-Net takes and returns one image
+        in the compute dtype (a nested U-Net takes and returns one image
         per resolution, highest first)."""
         cond_emb = None
         if self.effective_cond_dim > 0:

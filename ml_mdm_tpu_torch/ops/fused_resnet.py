@@ -21,6 +21,20 @@ it on the H100 and how it is laid out). It is built with ``nvcc`` for
 ``sm_90a`` at first use into ``ml_mdm_tpu_torch/_build/`` and loaded with
 ctypes. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
+
+``affine_silu_conv3x3_vjp`` (kernel K3, replacing the JAX package's
+``custom_vjp`` of the same name) is the differentiable single-operand
+form for training. Its forward is K2. Its backward follows the JAX
+``_vjp_bwd``: the data gradient is again a 3x3 stride-1 convolution, of
+dy with the flipped, io-transposed weights, and runs through K2; the
+derivative chain (SiLU', the affine, the (B, C) reductions) is f32 plain
+PyTorch, and the weight gradient is the library's conv weight-gradient,
+as the JAX package leaves both to XLA. It stashes only x, a, b, w and,
+with ``emit_stats``, y: the SiLU input is recomputed from x. The backward
+and its two convolutions are named profiler ranges ("K3 backward", "K3 dx
+(K2)", "K3 dw (library)"), so a trace can split the backward's device
+time; a range costs a few microseconds of host time with the profiler
+off.
 """
 from __future__ import annotations
 
@@ -35,11 +49,13 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 # launches of the CUDA kernel since the counts were last set to 0: "K2"
-# counts every launch, "K2·N" those with more than one operand and
-# "K2·proj" those that also emit the shortcut
-launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0}
+# counts every launch, "K2·N" those with more than one operand, "K2·proj"
+# those that also emit the shortcut and "K3" those of K3's backward (the
+# data gradient)
+launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0, "K3": 0}
 MAX_OPERANDS = 4
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -131,6 +147,67 @@ def conv3x3_fast(x, w, bias, residual=None):
         bias = torch.zeros((w.shape[-1],), device=x.device, dtype=torch.float32)
     return affine_silu_conv3x3(x, ones, zeros, w, bias, residual,
                                apply_silu=False)
+
+
+class _AffineSiluConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b, w, bias, residual, emit_stats):
+        out = affine_silu_conv3x3(x, a, b, w, bias, residual, emit_stats=emit_stats)
+        ctx.set_materialize_grads(False)
+        ctx.emit_stats = emit_stats
+        ctx.has_bias, ctx.has_res = bias is not None, residual is not None
+        # y, for the stats' cotangent, is the next layer's input anyway
+        ctx.save_for_backward(x, a, b, w, out[0] if emit_stats else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, ds1=None, ds2=None):
+        with record_function("K3 backward"):
+            x, a, b, w, y = ctx.saved_tensors
+            cout = w.shape[-1]
+            if dy is None:
+                dy = x.new_zeros(x.shape[:3] + (cout,))
+            if ds1 is not None or ds2 is not None:
+                d = dy.float()
+                if ds1 is not None:
+                    d = d + ds1[:, None, None, :]
+                if ds2 is not None:
+                    d = d + 2.0 * y.float() * ds2[:, None, None, :]
+                dy = d.to(dy.dtype)
+            a_c, b_c = a.float()[:, None, None, :], b.float()[:, None, None, :]
+            v = x.float() * a_c + b_c
+            sig = torch.sigmoid(v)
+            s_store = v * sig
+            dact = sig * (1.0 + v * (1.0 - sig))
+            # data gradient: the 3x3 conv of dy with the flipped, io-transposed
+            # weights, through K2 (the plain version for a CPU tensor)
+            with record_function("K3 dx (K2)"):
+                ds = conv3x3_fast(dy, w.flip(0, 1).transpose(2, 3), None)
+                if dy.is_cuda:
+                    launch_counts["K3"] += 1
+            dv = ds.float() * dact
+            dx = (dv * a_c).to(x.dtype)
+            da = (dv * x.float()).sum(dim=(1, 2)).to(a.dtype)
+            db = dv.sum(dim=(1, 2)).to(b.dtype)
+            dbias = dy.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
+            # weight gradient: the library's conv weight-gradient of the stored
+            # activation against dy, in x's dtype (f32 accumulation inside)
+            with record_function("K3 dw (library)"):
+                dw = torch.nn.grad.conv2d_weight(
+                    s_store.to(x.dtype).permute(0, 3, 1, 2), (cout, x.shape[-1], 3, 3),
+                    dy.to(x.dtype).permute(0, 3, 1, 2), padding=1,
+                ).permute(2, 3, 1, 0).to(w.dtype)
+            dres = dy if ctx.has_res else None
+            return dx, da, db, dw, dbias, dres, None
+
+
+def affine_silu_conv3x3_vjp(x, a, b, w, bias, residual=None, *,
+                            emit_stats: bool = False):
+    """Differentiable ``affine_silu_conv3x3`` of one operand, always with
+    the SiLU (kernel K3): the same forward and outputs, with the backward
+    above. On a CUDA tensor both directions launch K2 or raise; K2 takes
+    bf16 only."""
+    return _AffineSiluConv3x3.apply(x, a, b, w, bias, residual, emit_stats)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,10 @@ the activation once with wide masked block loads: one program owns one
 accumulator in registers that it reduces once at the end. Every sum is
 finished inside one program, so there are no atomics and the result does
 not depend on launch order.
+
+``spatial_sums`` is differentiable (the JAX package's ``custom_vjp``,
+``_bwd``): dx = ds1 + 2 x ds2 in f32, rounded to x's dtype, in plain
+PyTorch as the JAX package computes it in plain jnp.
 """
 from __future__ import annotations
 
@@ -32,12 +36,25 @@ def spatial_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xf.sum(dim=(1, 2)), xf.square().sum(dim=(1, 2))
 
 
+class _SpatialSums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type == "cpu":
+            return spatial_sums_plain(x)
+        return _launch(x)
+
+    @staticmethod
+    def backward(ctx, ds1, ds2):
+        (x,) = ctx.saved_tensors
+        dx = ds1[:, None, None, :] + 2.0 * x.float() * ds2[:, None, None, :]
+        return dx.to(x.dtype)
+
+
 def spatial_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, W, C) -> (s1, s2): (B, C) f32. A CPU tensor takes the plain
-    version; a CUDA tensor launches the Triton kernel."""
-    if x.device.type == "cpu":
-        return spatial_sums_plain(x)
-    return _launch(x)
+    """(B, H, W, C) -> (s1, s2): (B, C) f32, differentiable. A CPU tensor
+    takes the plain version; a CUDA tensor launches the Triton kernel."""
+    return _SpatialSums.apply(x)
 
 
 def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

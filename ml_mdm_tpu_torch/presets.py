@@ -15,7 +15,10 @@ code (the machine with the card may lack PyYAML).
   sets it (without it the YAMLs give the model no text conditioning).
 
 The released checkpoints and the T5 text tower are not in the repository,
-so weights are random, made from a seed.
+so weights are random, made from a seed. By default a preset samples: bf16
+weights and compute, ``eval()``. With ``train=True`` it trains as the JAX
+package's ``train_256`` bench preset does: the same seeded weights kept in
+f32, bf16 compute, ``train()``.
 """
 from __future__ import annotations
 
@@ -110,19 +113,26 @@ def init_params_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
     return module
 
 
-def flagship_64px(device, seed: int = 0,
-                  scaled: bool = False) -> Tuple[Diffusion, int, int]:
-    """Build the flagship pipeline on ``device`` with bf16 weights from
-    ``seed`` (bf16 weights and compute, as the bench preset runs).
-    Returns (pipeline, text width, image side)."""
-    ucfg, dcfg, lm_dim, side = flagship_configs(scaled)
+def _build(cls, ucfg, device, seed: int, train: bool):
+    """The U-Net with seeded weights: bf16 in eval mode, or f32 with bf16
+    compute in training mode."""
     with torch.device("meta"):
-        unet = UNet(3, 3, ucfg)
+        unet = cls(3, 3, ucfg)
     unet = unet.to_empty(device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    init_params_(unet, gen)
-    unet = unet.to(torch.bfloat16).eval()
-    return Diffusion(unet, dcfg), lm_dim, side
+    init_params_(unet, torch.Generator(device=device).manual_seed(seed))
+    if train:
+        return unet.set_compute_dtype(torch.bfloat16).train()
+    return unet.to(torch.bfloat16).eval()
+
+
+def flagship_64px(device, seed: int = 0, scaled: bool = False,
+                  train: bool = False) -> Tuple[Diffusion, int, int]:
+    """Build the flagship pipeline on ``device`` with weights from ``seed``
+    (bf16 weights and compute, as the bench preset runs, or with ``train``
+    f32 weights and bf16 compute). Returns (pipeline, text width, image
+    side)."""
+    ucfg, dcfg, lm_dim, side = flagship_configs(scaled)
+    return Diffusion(_build(UNet, ucfg, device, seed, train), dcfg), lm_dim, side
 
 
 def _shell(channels, resnets, micro: str, temporal_dim: int, groups: int,
@@ -176,17 +186,13 @@ def nested_configs(name: str, scaled: bool = False
     return ucfg, dcfg, lm_dim, core_side * 16
 
 
-def nested_preset(name: str, device, seed: int = 0,
-                  scaled: bool = False) -> Tuple[NestedDiffusion, int, int]:
-    """Build a nested preset on ``device`` with bf16 weights from ``seed``.
-    Returns (pipeline, text width, image side)."""
+def nested_preset(name: str, device, seed: int = 0, scaled: bool = False,
+                  train: bool = False) -> Tuple[NestedDiffusion, int, int]:
+    """Build a nested preset on ``device`` with weights from ``seed`` (bf16,
+    or with ``train`` f32 weights and bf16 compute). Returns (pipeline,
+    text width, image side)."""
     ucfg, dcfg, lm_dim, side = nested_configs(name, scaled)
-    with torch.device("meta"):
-        unet = NestedUNet(3, 3, ucfg)
-    unet = unet.to_empty(device=device)
-    init_params_(unet, torch.Generator(device=device).manual_seed(seed))
-    unet = unet.to(torch.bfloat16).eval()
-    return NestedDiffusion(unet, dcfg), lm_dim, side
+    return NestedDiffusion(_build(NestedUNet, ucfg, device, seed, train), dcfg), lm_dim, side
 
 
 def cc12m_256x256(device, seed: int = 0) -> Tuple[NestedDiffusion, int, int]:

@@ -7,6 +7,11 @@ copied here because importing them would import JAX. The denoise loop is a
 Python loop over the timestep table. Per-image gammas broadcast as
 (B, 1, 1, 1) against NHWC images; coefficients are computed in f32 and
 applied in the carry's dtype.
+
+The training side (``get_eps_time``, ``get_xt``, ``get_prediction_targets``
+and their nested forms) keeps the same rule: coefficients in f32, applied
+in the images' dtype. Timesteps and noise come from the caller or from an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -97,6 +102,14 @@ def shift_gammas_tensor(gammas: torch.Tensor, scale_factor: Optional[float],
     return gammas
 
 
+def vdm_loss_weights(gammas: np.ndarray) -> np.ndarray:
+    """Variational Diffusion Model per-step loss weights."""
+    g = gammas[2:]
+    g_last = gammas[1:-1]
+    w = g_last * (1.0 - g) / (1.0 - g_last) / g - 1.0
+    return np.concatenate([w[:1], w[:1], w])
+
+
 ModelFn = Callable[..., torch.Tensor]
 # noise(step, level, x) -> a standard-normal tensor like x, for the step's
 # stochastic update at one resolution
@@ -113,16 +126,63 @@ class Sampler:
         gammas = shift_gammas(base, config.rescale_schedule,
                               config.schedule_shifted_power)
         self.gammas = torch.from_numpy(np.asarray(gammas, dtype=np.float32))
-        self._gammas_on = {}  # device -> copy of the table there
+        self.vdm_loss_weights = torch.from_numpy(
+            vdm_loss_weights(np.asarray(gammas, dtype=np.float32)))
+        self._tables_on = {}  # (table, device) -> copy of the table there
+
+    def _table_on(self, name: str, device: torch.device) -> torch.Tensor:
+        """A table copied to ``device`` once (a copy from host memory
+        synchronises the stream)."""
+        table = self._tables_on.get((name, device))
+        if table is None:
+            table = self._tables_on[(name, device)] = getattr(self, name).to(device)
+        return table
 
     def read_gamma(self, time: torch.Tensor) -> torch.Tensor:
-        """Gamma at integer timesteps (B,) -> (B, 1, 1, 1) f32. The table is
-        copied to each device once (a copy from host memory synchronises the
-        stream)."""
-        table = self._gammas_on.get(time.device)
-        if table is None:
-            table = self._gammas_on[time.device] = self.gammas.to(time.device)
-        return table[time].reshape(-1, 1, 1, 1)
+        """Gamma at integer timesteps (B,) -> (B, 1, 1, 1) f32."""
+        return self._table_on("gammas", time.device)[time].reshape(-1, 1, 1, 1)
+
+    # -- training side ---------------------------------------------------------
+
+    def get_eps_time(self, images: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     time: Optional[torch.Tensor] = None,
+                     eps: Optional[torch.Tensor] = None):
+        """(eps, gamma_t, gamma_{t-1}, vdm weights, t) for a batch: t (B,)
+        uniform in [0, n_steps) and eps standard normal in the images'
+        dtype, each given or drawn from ``generator``."""
+        dev = images.device
+        if time is None:
+            time = torch.randint(0, self.n_steps, (images.shape[0],),
+                                 generator=generator, device=dev)
+        if eps is None:
+            eps = torch.randn(images.shape, generator=generator, device=dev,
+                              dtype=images.dtype)
+        time, eps = time.to(dev), eps.to(dev, images.dtype)
+        weights = self._table_on("vdm_loss_weights", dev)[time + 1]
+        return eps, self.read_gamma(time + 1), self.read_gamma(time), weights, time
+
+    def get_xt(self, images, eps, g):
+        dt = images.dtype
+        return torch.sqrt(g).to(dt) * images + torch.sqrt(1.0 - g).to(dt) * eps
+
+    def get_image_rescaled(self, images, scale_factor=None):
+        if scale_factor is None:
+            scale_factor = self.config.rescale_signal
+        if scale_factor:
+            return images / scale_factor
+        return images
+
+    def get_prediction_targets(self, images, eps, g, g_last, prediction_type=None):
+        pt = prediction_type or self.config.loss_target_type
+        if pt in (PredictionType.DDPM, PredictionType.DDIM):
+            return eps
+        if pt == PredictionType.V_PREDICTION:
+            dt = images.dtype
+            return torch.sqrt(g).to(dt) * eps - torch.sqrt(1.0 - g).to(dt) * images
+        raise ValueError(f"Unsupported prediction type {pt}")
+
+    # -- sampling side ---------------------------------------------------------
 
     def get_x0_eps_from_pred(self, x_t, pred, g, prediction_type=None,
                              clip_fn=None, return_eps=True):
@@ -312,6 +372,19 @@ class NestedSampler(Sampler):
         if not self.config.schedule_shifted:
             return [gamma for _ in scales]
         return [self.get_schedule_shifted(gamma, s) for s in scales]
+
+    def _at_scale(self, x, s):
+        return x if self.config.schedule_shifted else self.get_image_rescaled(x, s)
+
+    def get_xt(self, x0_list, eps_list, g_list, scales):
+        return [super(NestedSampler, self).get_xt(self._at_scale(x, s), e, g)
+                for x, s, e, g in zip(x0_list, scales, eps_list, g_list)]
+
+    def get_prediction_targets(self, x0_list, eps_list, g_list, g_last_list, scales,
+                               prediction_type=None):
+        return [super(NestedSampler, self).get_prediction_targets(
+                    self._at_scale(x, s), e, g, gl, prediction_type)
+                for x, s, e, g, gl in zip(x0_list, scales, eps_list, g_list, g_last_list)]
 
     def forward_model(self, model_fn: ModelFn, x_t, t, lm_outputs, lm_mask,
                       micros, guidance_scale=1.0):

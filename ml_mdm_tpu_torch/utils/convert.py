@@ -10,6 +10,10 @@ Repeats the mapping of ``ml_mdm_tpu/utils/torch_compat.py``
 - dense layers of a 2-D attention block (``qkv``, ``proj_out``, ``ffn_1``,
   ``ffn_3``) were 1x1 convolutions in torch and get two trailing unit axes;
 - norm ``scale`` becomes ``weight``.
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` (parameters,
+EMA copy, optax Adam moments and count, step) into the port's
+``trainer.TrainState`` with the same mapping.
 """
 from __future__ import annotations
 
@@ -73,3 +77,30 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
         else:
             out[key] = torch.from_numpy(np.array(v, order="C"))
     return out
+
+
+def train_state_from_jax(state, module: torch.nn.Module):
+    """A JAX ``trainer.TrainState`` after ``jax.device_get`` (numpy leaves)
+    -> the port's ``trainer.TrainState`` over ``module``: the parameters
+    are loaded into the module strictly, and the EMA copy and optax Adam's
+    ``mu``, ``nu`` and ``count`` (the ``opt_state`` entry that has moments)
+    map by the same names onto the EMA and the ``torch.optim.Adam`` state
+    (``exp_avg``, ``exp_avg_sq``, ``step``) of each parameter."""
+    from ml_mdm_tpu_torch.trainer import TrainState
+
+    module.load_state_dict(params_from_jax(state.params), strict=True)
+    new = TrainState.create(module)
+    opt = state.opt_state
+    adam = next(s for s in (opt if isinstance(opt, (tuple, list)) else (opt,))
+                if hasattr(s, "mu") and hasattr(s, "nu"))
+    ema, mu, nu = (params_from_jax(t) for t in (state.ema_params, adam.mu, adam.nu))
+    names = list(new.params)
+    for k, p in new.params.items():
+        new.ema_params[k] = ema[k].to(p.device, p.dtype)
+    sd = new.optimizer.state_dict()
+    # load_state_dict moves the moments to each parameter's device and dtype
+    sd["state"] = {i: {"step": torch.tensor(float(adam.count)), "exp_avg": mu[k],
+                       "exp_avg_sq": nu[k]} for i, k in enumerate(names)}
+    new.optimizer.load_state_dict(sd)
+    new.step = int(state.step)
+    return new

@@ -7,17 +7,22 @@ without this directory's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances, bf16 (the working type): K1 sums <= 1e-5 * max|ref| (f32 sums
-in another order); K2 output, stats and shortcut <= 2e-2 * max|ref| (two
-bf16 ULPs: the kernel's SiLU uses the fast exponential and sums in another
-order, so a rounding can flip); the tiny U-Net and nested U-Net kernel
-paths against their plain paths <= 5e-2 * max|ref| (those flips, carried
-through ~20-40 layers).
+in another order); K2 output, stats and shortcut, and K3's gradients
+against autograd of the plain version, <= 2e-2 * max|ref| (two bf16 ULPs:
+the kernel's SiLU uses the fast exponential and sums in another order, so
+a rounding can flip); the tiny U-Net and nested U-Net kernel paths against
+their plain paths <= 5e-2 * max|ref| (those flips, carried through ~20-40
+layers); one tiny nested training step, kernel path against plain path:
+loss within 1e-2 relative, gradient norm within 5e-2, cosine of the
+flattened gradients >= 0.99.
 """
 import pytest
 import torch
 
 from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
+
+SAMPLING_MODES = ("K2", "K2·N", "K2·proj")  # K3 launches only in a backward
 
 
 def _rel(got, ref) -> float:
@@ -159,8 +164,8 @@ def test_tiny_unet_kernel_path_matches_plain_path(dev):
     with torch.no_grad():
         got = unet(x, t, lm, mask, {})
         assert gn_stats.launch_count > counts[0]
-        for mode, n in counts[1].items():
-            assert fused_resnet.launch_counts[mode] > n, mode
+        for mode in SAMPLING_MODES:
+            assert fused_resnet.launch_counts[mode] > counts[1][mode], mode
         ref = unet.use_kernels(False)(x, t, lm, mask, {})
     assert torch.isfinite(got).all()
     assert _rel(got, ref) <= 5e-2
@@ -179,10 +184,77 @@ def test_tiny_nested_kernel_path_matches_plain_path(dev, name):
     counts = dict(fused_resnet.launch_counts)
     with torch.no_grad():
         got = unet(xs, t, lm, mask, {})
-        for mode, n in counts.items():
-            assert fused_resnet.launch_counts[mode] > n, mode
+        for mode in SAMPLING_MODES:
+            assert fused_resnet.launch_counts[mode] > counts[mode], mode
         ref = unet.use_kernels(False)(xs, t, lm, mask, {})
     assert len(got) == len(ref) == len(xs)
     for o, r, x in zip(got, ref, xs):
         assert o.shape == x.shape and torch.isfinite(o).all()
         assert _rel(o, r) <= 5e-2
+
+
+def _grads(fn, ins, cots, stats):
+    ins = [t.clone().requires_grad_(True) if t is not None else None for t in ins]
+    out = fn(*ins, emit_stats=stats)
+    outs = out if stats else (out,)
+    torch.autograd.backward(outs, cots[:len(outs)])
+    return [t.grad for t in ins if t is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,cout,stats,residual", [
+    (2, 64, 64, 256, 256, True, False),     # core conv1
+    (4, 32, 32, 768, 512, False, True),     # core conv2 after a width change
+    (10, 256, 256, 64, 64, True, True),     # the 256px shell at the train preset's 10 rows
+    (2, 8, 1024, 32, 32, True, True),       # a 1024-wide row
+])
+def test_k3_backward_kernel(dev, b, h, w, c, cout, stats, residual):
+    x, a, bb, wk, bias, res, _ = _conv_inputs(dev, b, h, w, (c,), cout, residual, False, seed=4)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cots = [torch.randn((b, h, w, cout), generator=g, device=dev).to(torch.bfloat16),
+            torch.randn((b, cout), generator=g, device=dev) * 1e-3,
+            torch.randn((b, cout), generator=g, device=dev) * 1e-4]
+    ins = [x[0], a[0], bb[0], wk[0].float(), bias, res]  # f32 weights, as training holds them
+    before = dict(fused_resnet.launch_counts)
+    got = _grads(fused_resnet.affine_silu_conv3x3_vjp, ins, cots, stats)
+    torch.cuda.synchronize()
+    assert fused_resnet.launch_counts["K3"] == before["K3"] + 1
+    assert fused_resnet.launch_counts["K2"] == before["K2"] + 2  # forward and data gradient
+    ref = _grads(fused_resnet.affine_silu_conv3x3_plain, ins, cots, stats)
+    for name, o, r in zip(["dx", "da", "db", "dw", "dbias", "dres"], got, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        assert _rel(o, r) <= 2e-2, name
+
+
+@pytest.mark.cuda
+def test_tiny_nested_training_step_kernel_path_matches_plain_path(dev):
+    pipe, lm_dim, side = nested_preset("cc12m_256x256", dev, seed=0, scaled=True, train=True)
+    unet = pipe.vision_module
+    g = torch.Generator(device=dev).manual_seed(6)
+    b = 3
+    batch = {"images": torch.rand((b, side, side, 3), generator=g, device=dev) * 2 - 1,
+             "lm_outputs": torch.randn((b, 8, lm_dim), generator=g, device=dev),
+             "lm_mask": torch.ones((b, 8), device=dev)}
+    batch = {k: v.to(torch.bfloat16) for k, v in batch.items()}
+    time = torch.tensor([10, 400, 900], device=dev)
+    eps = [torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+           for x in pipe.get_noise(b, side, g)]
+    results = []
+    for kernels in (True, False):
+        unet.use_kernels(kernels).zero_grad()
+        counts = gn_stats.launch_count, dict(fused_resnet.launch_counts)
+        loss = pipe.get_loss(batch, time=time, eps=eps)[0].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        if kernels:
+            assert gn_stats.launch_count > counts[0]
+            for mode in ("K2", "K3"):
+                assert fused_resnet.launch_counts[mode] > counts[1][mode], mode
+        grads = torch.cat([p.grad.flatten() for p in unet.parameters() if p.grad is not None])
+        results.append((float(loss.detach()), grads))
+    unet.use_kernels(True)
+    (lk, gk), (lp, gp) = results
+    assert torch.isfinite(gk).all() and gk.dtype == torch.float32
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    assert abs(float(gk.norm()) - float(gp.norm())) <= 5e-2 * float(gp.norm())
+    assert float(torch.nn.functional.cosine_similarity(gk, gp, dim=0)) >= 0.99

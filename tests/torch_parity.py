@@ -54,6 +54,33 @@ def fill_zero_leaves(params, seed: int = 0, scale: float = 0.02):
     return jax.tree_util.tree_map(fill, jax.device_get(params))
 
 
+def seeded_params(jpipe, seed: int, **init_kw):
+    """A params tree for ``jpipe``'s module without compiling its init: the
+    shapes from ``jax.eval_shape``, every leaf seeded normals (kernels
+    scaled by 1/sqrt(fan-in), norm scales 1 + 0.1 N, biases 0.02 N)."""
+    shapes = jax.eval_shape(lambda k: jpipe.init_params(k, **init_kw), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = str(path[-1].key)
+        v = rng.standard_normal(s.shape)
+        if name == "kernel":
+            v = v / np.sqrt(np.prod(s.shape[:-1]))
+        elif name == "scale":
+            v = 1.0 + 0.1 * v
+        else:
+            v = 0.02 * v
+        return v.astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _params(jpipe, seed: int, fast_init: bool, **init_kw):
+    if fast_init:
+        return seeded_params(jpipe, seed, **init_kw)
+    return fill_zero_leaves(jpipe.init_params(jax.random.PRNGKey(seed), **init_kw), seed)
+
+
 def jax_config_of(cfg):
     """The JAX package's dataclass with the same field values as the
     port's ``cfg`` (a U-Net config, nested or not, or a diffusion config)."""
@@ -73,15 +100,14 @@ def jax_config_of(cfg):
     return (JNDC if isinstance(cfg, NestedDiffusionConfig) else JDC)(**d)
 
 
-def tiny_pair(seed: int = 0):
+def tiny_pair(seed: int = 0, fast_init: bool = False):
     """(jax pipeline, jax params as numpy, port pipeline, lm_dim, side) for
-    the scaled flagship structure in f32."""
+    the scaled flagship structure in f32 (``fast_init``: ``seeded_params``
+    in place of the JAX init)."""
     ucfg, dcfg, lm_dim, side = flagship_configs(scaled=True)
     jmod = JaxUNet(3, 3, jax_config_of(ucfg), dtype=jnp.float32)
     jpipe = JaxDiffusion(jmod, jax_config_of(dcfg))
-    params = jpipe.init_params(jax.random.PRNGKey(seed), image_side=side,
-                               lm_dim=lm_dim, seq_len=LM_LEN)
-    params = fill_zero_leaves(params, seed)
+    params = _params(jpipe, seed, fast_init, image_side=side, lm_dim=lm_dim, seq_len=LM_LEN)
     unet = UNet(3, 3, ucfg)
     unet.load_state_dict(params_from_jax(params), strict=True)
     return jpipe, params, Diffusion(unet.eval(), dcfg), lm_dim, side
@@ -108,19 +134,55 @@ def tiny_nested_configs(depth: int):
     return ucfg, dcfg, 32
 
 
-def tiny_nested_pair(depth: int, seed: int = 0):
+def tiny_nested_pair(depth: int, seed: int = 0, fast_init: bool = False):
     """(jax pipeline, jax params as numpy, port pipeline, lm_dim, side) for
     the tiny nested model of ``tiny_nested_configs(depth)`` in f32: JAX
-    init, all-zero leaves filled, ``params_from_jax``, strict load."""
+    init, all-zero leaves filled (``fast_init``: ``seeded_params``),
+    ``params_from_jax``, strict load."""
     ucfg, dcfg, side = tiny_nested_configs(depth)
     jmod = JaxNestedUNet(3, 3, jax_config_of(ucfg), dtype=jnp.float32)
     jpipe = JaxNestedDiffusion(jmod, jax_config_of(dcfg))
-    params = jpipe.init_params(jax.random.PRNGKey(seed), image_side=side,
-                               lm_dim=NESTED_LM_DIM, seq_len=LM_LEN)
-    params = fill_zero_leaves(params, seed)
+    params = _params(jpipe, seed, fast_init, image_side=side, lm_dim=NESTED_LM_DIM,
+                     seq_len=LM_LEN)
     unet = NestedUNet(3, 3, ucfg)
     unet.load_state_dict(params_from_jax(params), strict=True)
     return jpipe, params, NestedDiffusion(unet.eval(), dcfg), NESTED_LM_DIM, side
+
+
+def with_diffusion_config(pair, **overrides):
+    """A nested pair with the same modules and weights and pipelines built
+    on a diffusion config with ``overrides`` (``mixed_ratio``,
+    ``use_double_loss``, ...)."""
+    jpipe, params, pipe, lm_dim, side = pair
+    dcfg = dataclasses.replace(pipe.config, **overrides)
+    return (JaxNestedDiffusion(jpipe.vision_module, jax_config_of(dcfg)), params,
+            NestedDiffusion(pipe.vision_module, dcfg), lm_dim, side)
+
+
+def jax_flat_noise(jpipe, key, images):
+    """The timesteps and noise the JAX ``Diffusion.get_loss`` draws from
+    ``key``, as keyword arguments of the port's ``get_loss``."""
+    key, _ = jax.random.split(key)
+    eps, _, _, _, time = jpipe.sampler.get_eps_time(key, jnp.asarray(images))
+    return {"time": torch.from_numpy(np.array(time)).long(),
+            "eps": torch.from_numpy(np.array(eps))}
+
+
+def jax_nested_noise(jpipe, key, images):
+    """The timesteps and per-resolution noise the JAX
+    ``NestedDiffusion.get_loss`` draws from ``key``, as keyword arguments
+    of the port's ``get_loss``."""
+    k_et, k_renoise, _ = jax.random.split(key, 3)
+    eps, _, _, _, time = jpipe.sampler.get_eps_time(k_et, jnp.asarray(images))
+    scales = jpipe.scales
+    b, side, _, c = images.shape
+    keys = jax.random.split(k_renoise, len(scales))
+    eps_list = [np.array(eps)] + [
+        np.array(jax.random.normal(keys[i], (b, side * s // scales[0], side * s // scales[0], c),
+                                   eps.dtype))
+        for i, s in enumerate(scales) if i > 0]
+    return {"time": torch.from_numpy(np.array(time)).long(),
+            "eps": [torch.from_numpy(e) for e in eps_list]}
 
 
 def rel_err(got, ref) -> float:
