@@ -3,26 +3,35 @@
 
     python3 chip_smoke.py
 
-Builds the hand kernels from the sources in this checkout (K2 with nvcc
-in a background thread while Triton compiles K1), then drives each of the
-port's sampling paths with random weights from a seed:
+Builds the hand kernels from the sources in this checkout (K2 and K4 with
+nvcc, one background thread each, while Triton compiles K1), then drives
+each of the port's paths with random weights from a seed:
 
   1. cc12m_64x64 (``Diffusion.sample``): every kernel launch shape of a
      batch-64 forward held against its plain version and timed beside its
      bound and the library call (the shortcut's shapes also without the
      stats); batch 4, 4 DDIM steps, kernel path against
-     plain path; two batch-64 DDIM-50 requests (the bench preset); one
+     plain path; one batch-64 DDIM-50 request (the bench preset); one
      batch-8 request with classifier-free guidance 5; one profiled forward.
+     Then the flash route (``use_flash(True)``: every self-attention of
+     the U-Net through K4): K4 at every self-attention launch shape of that
+     forward, on the chunked views the model hands it, held against its
+     plain version and timed beside the matmul route, the library call
+     (``scaled_dot_product_attention``) and the bound; batch 4, flash path
+     against matmul path (one forward, DDIM-4); two batch-64 DDIM-50
+     requests; one profiled forward.
   2. cc12m_256x256 (``NestedDiffusion.sample``, a 256px shell around the
      64px core): every kernel launch shape of the request's forward
      (8 rows) checked and timed; batch 2 kernel path against plain path
      (one forward, DDIM-4); two requests of the web demo's defaults
-     (batch 4, guidance 7.5, DDIM-50, eta 0); one profiled forward.
+     (batch 4, guidance 7.5, DDIM-50, eta 0); one profiled forward; then,
+     with the flash route on, K4 at that forward's shapes and one more such
+     request.
   3. cc12m_1024x1024 (nested2: 1024px and 256px shells around the core):
      every kernel launch shape of a batch-4 forward checked and timed; one
-     untimed forward, then one request of ``bench.py`` ``sample_1024``'s
-     preset (batch 4, DDIM-250, eta 1; DDIM-50 if that forward took over
-     400 ms); one ``output_inner`` call; one profiled forward.
+     untimed forward, then one request at ``bench.py`` ``sample_1024``'s
+     batch and eta (batch 4, eta 1) with 50 DDIM steps of its 250; one
+     ``output_inner`` call; one profiled forward.
   4. Training (``NestedDiffusion.get_loss`` and ``trainer.make_train_step``
      on cc12m_256x256 with f32 parameters and bf16 compute): every K3
      launch shape of a batch-16 step, its backward held against autograd
@@ -33,14 +42,22 @@ port's sampling paths with random weights from a seed:
      16, lr 5e-5, warmup 10, clip 2.0, no remat): one untimed and five
      timed steps; one profiled step; then cc12m_64x64 (``Diffusion.
      get_loss``) at batch 32 for two steps.
+  5. The attention modules no shipped config turns on, at a small size by
+     necessity: two temporal U-Nets (frames as ``(b t)`` rows; temporal
+     attention and the frame resample, and ``temporal_spatial_ds``) and a
+     U-Net with a learned lm-head of two layers, one forward each with K1
+     and K2 under them, against their ``use_kernels(False)`` forward.
+     Then K2 at the one shape of the JAX package's cost-decomposition
+     probes (``tools/probe_kernel_anatomy*.py``), beside its bound.
 
 Before each request or training phase every launch count is set to 0 and
 read just after it; a kernel of the path that never launched fails the
 run. Every phase that fails raises, and the script exits non-zero. It
 needs a CUDA device and never falls back to the CPU. The card's name and
 power limit are printed near the top; the line before the last names
-every kernel with its launches (K1 and K2 during the nested requests, K3
-during the train_256 preset's timed steps), its error and its times; the
+every kernel with its launches (K1 and K2 during the nested matmul-route
+requests, K3 during the train_256 preset's timed steps, K4 during the
+flash-route requests), its error and its times; the
 last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
@@ -48,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -63,12 +81,12 @@ K2_TOL = 2e-2    # two bf16 ULPs: fast exp in SiLU and sum order can flip a roun
 UNET_TOL = 5e-2  # those flips carried through the full U-Net (one forward)
 SAMPLE_MEAN_TOL = 1e-2  # 4-step sample, mean |kernel - plain| over pixels in [-1, 1]
 SAMPLE_MAX_TOL = 0.25   # 4-step sample, max |kernel - plain|
+K4_TOL = 2e-2    # P and the output rounded to bf16; the JAX test of its kernel allows the same
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_TENSOR = 989e12  # FLOP/s
 PEAK_F32 = 67e12           # FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12         # bytes/s
-FORWARD_MS_FOR_250_STEPS = 400.0  # above it the 1024 request runs DDIM-50
 
 
 def log(*a):
@@ -316,20 +334,130 @@ def check_kernels(k2_keys, k1_keys, dev, label: str):
         log(f"{label} K2 {key[:5]} shortcut without stats: rel_errs "
             f"{', '.join(f'{e:.3e}' for e in errs)}")
     for m, t in tot.items():
-        log(f"{label} {m} over {t['shapes']} shapes: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        if t["shapes"]:
+            log(f"{label} {m} over {t['shapes']} shapes: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
     return tot
 
 
 def merge_totals(*parts):
-    out = {m: _new_totals() for m in parts[0]}
+    out = {m: dict.fromkeys(t, 0.0) for m, t in parts[0].items()}
     for p in parts:
         for m, t in p.items():
-            o = out[m]
-            o["err"] = max(o["err"], t["err"])
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms", "shapes"):
-                o[k] += t[k]
+            for k, v in t.items():
+                out[m][k] = max(out[m][k], v) if k == "err" else out[m][k] + v
     return out
+
+
+# -- K4: the flash route's kernel ---------------------------------------------
+
+
+@contextlib.contextmanager
+def flash_route():
+    """The flash route on (every supported self-attention through K4), and
+    the choice given back to the environment after."""
+    from ml_mdm_tpu_torch.ops import attention
+
+    attention.use_flash(True)
+    try:
+        yield
+    finally:
+        attention.use_flash(None)
+
+
+def record_k4_shapes(run):
+    """Run ``run()`` with the flash route on and K4's wrapper wrapped, and
+    return the distinct launch shapes it gave it, (B, Lq, Lk, H, D), after
+    checking that each operand was a strided view (a chunk of the qkv
+    tensor), not a copy."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import attention
+
+    keys = set()
+    flash = attention.flash_attention
+
+    def rec(q, k, v):
+        if q.is_contiguous() or k.is_contiguous() or v.is_contiguous():
+            raise AssertionError("K4 was handed a contiguous copy, not the qkv chunks")
+        keys.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))
+        return flash(q, k, v)
+
+    attention.flash_attention = rec
+    try:
+        with torch.no_grad(), flash_route():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        attention.flash_attention = flash
+    return sorted(keys)
+
+
+def k4_bound(key):
+    """(least ms, what bounds it) for one K4 launch on the H100: the two
+    products' 4 B H Lq Lk D FLOPs over the dense bf16 tensor-core peak, or
+    q, k, v read once and the output written once over HBM."""
+    bsz, lq, lk, heads, d = key
+    t_ops = 4 * bsz * heads * lq * lk * d / PEAK_BF16_TENSOR
+    t_bytes = 2 * bsz * heads * d * (2 * lq + 2 * lk) / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def check_k4(keys, dev, label: str):
+    """Each launch shape, on the chunks of one (B, L, 3 H D) tensor as the
+    model hands them over: K4 against its plain version (K4_TOL of
+    max|plain|), then K4's time beside the plain version's, the matmul
+    route's (what the flag replaces), the library call's
+    (``scaled_dot_product_attention`` on the same views, timed only) and
+    the bound. Returns the totals."""
+    import torch
+    import torch.nn.functional as F
+
+    from ml_mdm_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    tot = _new_totals()
+    tot["matmul_ms"] = 0.0
+    for key in keys:
+        bsz, lq, lk, heads, d = key
+        if lq != lk:
+            raise AssertionError(f"K4 {key}: the model's self-attention has Lq == Lk")
+        qkv = torch.randn((bsz, lq, 3 * heads * d), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = (t.reshape(bsz, lq, heads, d) for t in qkv.chunk(3, dim=-1))
+        out = attention.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = attention.reference_flash_attention(q, k, v)
+        err = rel_err(out, ref)
+        if not (err <= K4_TOL and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"K4 {key}: rel err {err} > {K4_TOL}")
+        route_err = rel_err(attention.matmul_attention(q, k, v), ref)
+        ms = cuda_ms(lambda: attention.flash_attention(q, k, v))
+        pms = cuda_ms(lambda: attention.reference_flash_attention(q, k, v), warmup=1, reps=3)
+        mms = cuda_ms(lambda: attention.matmul_attention(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=d ** -0.5)
+                      .transpose(1, 2))
+        bound, by = k4_bound(key)
+        tflops = 4 * bsz * heads * lq * lk * d / ms / 1e9
+        log(f"{label} K4 B={bsz} L={lq} H={heads} D={d}: rel_err {err:.3e} (the matmul route's "
+            f"against the same plain version: {route_err:.3e}) kernel {ms:.4f} ms "
+            f"({tflops:.1f} TFLOP/s) plain {pms:.4f} ms matmul route {mms:.4f} ms "
+            f"library {lms:.4f} ms bound {bound:.4f} ms ({by})")
+        _add(tot, abs_err(out, ref), ms, pms, lms, bound, by)
+        tot["matmul_ms"] += mms
+    log(f"{label} K4 over {tot['shapes']} shapes: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, matmul route {tot['matmul_ms']:.4f} ms, library "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    return tot
+
+
+def self_attention_count(unet) -> int:
+    """The 2-D self-attention modules of a U-Net: each launches K4 once a
+    forward on the flash route (at the shipped models' sides every one has
+    a supported length)."""
+    from ml_mdm_tpu_torch.models.layers import SelfAttention
+
+    return sum(isinstance(m, SelfAttention) for m in unet.modules())
 
 
 # -- requests -------------------------------------------------------------
@@ -359,54 +487,70 @@ def check_images(out, shape, what: str):
 
 
 SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj")
+FLASH_KERNELS = SAMPLING_KERNELS + ("K4",)
 TRAINING_KERNELS = ("K1", "K2", "K3")
 
 
 def reset_counts():
-    from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
 
     gn_stats.launch_count = 0
+    attention.launch_count = 0
     fused_resnet.reset_launch_counts()
 
 
 def read_counts(what: str, required=SAMPLING_KERNELS):
     """The launch counts since reset_counts(); fails if a kernel of the path
     (``required``) never launched."""
-    from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
 
-    counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts}
+    counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts,
+              "K4": attention.launch_count}
     log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels of the path never launched: {missing}")
+    if "K4" not in required and counts["K4"]:
+        raise AssertionError(f"{what}: K4 launched {counts['K4']} times off the flash route")
     return counts
 
 
-def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen, **kw):
+def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen,
+                 flash: bool = False, **kw):
     """n timed sampling requests between a count reset and a count read;
-    returns (counts, outputs)."""
+    returns (counts, outputs). With ``flash`` they run on the flash route,
+    and K4 must have launched once per self-attention module, step and
+    request."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     outs = []
-    for i in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs.append(pipe.sample(batch, cond, side, gen, **kw))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        log(f"{what} request {i}: batch {batch}: {dt:.4f} s, {batch / dt:.4f} samples/s")
-    counts = read_counts(what)
+    with flash_route() if flash else contextlib.nullcontext():
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(pipe.sample(batch, cond, side, gen, **kw))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"{what} request {i}: batch {batch}: {dt:.4f} s, {batch / dt:.4f} samples/s")
+    counts = read_counts(what, FLASH_KERNELS if flash else SAMPLING_KERNELS)
+    if flash:
+        expected = self_attention_count(pipe.vision_module) * kw["num_inference_steps"] * n
+        if counts["K4"] != expected:
+            raise AssertionError(f"{what}: K4 launched {counts['K4']} times, expected "
+                                 f"{expected} (self-attentions x steps x requests)")
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"{what}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
     return counts, outs
 
 
-def kernel_vs_plain(pipe, dev, lm_dim: int, side: int, what: str, batch: int = 4):
-    """One forward and a DDIM-4 sample through the kernels and through the
-    plain versions, with the same weights and noise."""
+def compare_paths(pipe, dev, lm_dim: int, side: int, what: str, batch: int, names, switch):
+    """One forward and a DDIM-4 sample on two paths through the same
+    weights and noise, ``switch(True)`` selecting the first of ``names``
+    and ``switch(False)`` the second, under UNET_TOL, SAMPLE_MEAN_TOL and
+    SAMPLE_MAX_TOL."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -414,26 +558,52 @@ def kernel_vs_plain(pipe, dev, lm_dim: int, side: int, what: str, batch: int = 4
     noise = pipe.get_noise(batch, side, gen)
     t = torch.linspace(999, 100, batch, device=dev).long()
     kw = dict(num_inference_steps=4, resample_steps=True, ddim_eta=0.0)
-    unet = pipe.vision_module
+    results = []
     with torch.no_grad():
-        f_k = pipe.model(noise, t, cond["lm_outputs"], cond["lm_mask"], {})
-        s_k = pipe.sample(batch, cond, side, noise=noise, **kw)
-        unet.use_kernels(False)
-        f_p = pipe.model(noise, t, cond["lm_outputs"], cond["lm_mask"], {})
-        s_p = pipe.sample(batch, cond, side, noise=noise, **kw)
-        unet.use_kernels(True)
-    f_k = f_k if isinstance(f_k, list) else [f_k]
-    f_p = f_p if isinstance(f_p, list) else [f_p]
-    f_err = max(rel_err(a, b) for a, b in zip(f_k, f_p))
-    s_mean = float((s_k - s_p).abs().mean())
-    s_max = float((s_k - s_p).abs().max())
-    log(f"{what} kernel vs plain path, one forward B={batch}: rel err {f_err:.4e} "
-        f"(tol {UNET_TOL}) over {len(f_k)} outputs")
-    log(f"{what} kernel vs plain path, DDIM-4 sample B={batch}: mean abs {s_mean:.4e} "
+        for first in (True, False):
+            switch(first)
+            f = pipe.model(noise, t, cond["lm_outputs"], cond["lm_mask"], {})
+            results.append((f if isinstance(f, list) else [f],
+                            pipe.sample(batch, cond, side, noise=noise, **kw)))
+    (f_a, s_a), (f_b, s_b) = results
+    f_err = max(rel_err(a, b) for a, b in zip(f_a, f_b))
+    s_mean = float((s_a - s_b).abs().mean())
+    s_max = float((s_a - s_b).abs().max())
+    vs = f"{names[0]} vs {names[1]} path"
+    log(f"{what} {vs}, one forward B={batch}: rel err {f_err:.4e} "
+        f"(tol {UNET_TOL}) over {len(f_a)} outputs")
+    log(f"{what} {vs}, DDIM-4 sample B={batch}: mean abs {s_mean:.4e} "
         f"(tol {SAMPLE_MEAN_TOL}), max abs {s_max:.4e} (tol {SAMPLE_MAX_TOL})")
     if not (f_err <= UNET_TOL and s_mean <= SAMPLE_MEAN_TOL and s_max <= SAMPLE_MAX_TOL):
-        raise AssertionError(f"{what}: kernel path disagrees with plain path")
-    check_images(s_k, (batch, side, side, 3), f"{what} DDIM-4 kernel path")
+        raise AssertionError(f"{what}: {names[0]} path disagrees with {names[1]} path")
+    check_images(s_a, (batch, side, side, 3), f"{what} DDIM-4 {names[0]} path")
+
+
+def kernel_vs_plain(pipe, dev, lm_dim: int, side: int, what: str, batch: int = 4):
+    """The kernels against their plain versions through the whole model."""
+    unet = pipe.vision_module
+    try:
+        compare_paths(pipe, dev, lm_dim, side, what, batch, ("kernel", "plain"),
+                      unet.use_kernels)
+    finally:
+        unet.use_kernels(True)
+
+
+def flash_vs_matmul(pipe, dev, lm_dim: int, side: int, what: str, batch: int = 4):
+    """The flash route (K4) against the matmul route through the whole
+    model; fails if the flash forwards launched no K4."""
+    from ml_mdm_tpu_torch.ops import attention
+
+    reset_counts()
+    try:
+        compare_paths(pipe, dev, lm_dim, side, what, batch, ("flash", "matmul"),
+                      attention.use_flash)
+    finally:
+        attention.use_flash(None)
+    expected = 5 * self_attention_count(pipe.vision_module)  # one forward and DDIM-4
+    if attention.launch_count != expected:
+        raise AssertionError(f"{what}: K4 launched {attention.launch_count} times on the "
+                             f"flash path, expected {expected}")
 
 
 def forward_inputs(pipe, dev, batch: int, side: int, lm_dim: int):
@@ -511,13 +681,12 @@ def path_64(dev):
         check_kernels(k2_keys, k1_keys, dev, "64px")
     with phase("64px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "64px")
-    with phase("64px: two batch-64 DDIM-50 requests"):
+    bench = dict(num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
+    with phase("64px: one batch-64 DDIM-50 request, matmul route"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 3)
         cond = text_conditioning(dev, 64, lm_dim, gen)
-        _, outs = run_requests(pipe, dev, "64px", 2, 64, side, cond, gen,
-                               num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
-        for i, out in enumerate(outs):
-            check_images(out, (64, side, side, 3), f"64px request {i}")
+        _, outs = run_requests(pipe, dev, "64px", 1, 64, side, cond, gen, **bench)
+        check_images(outs[0], (64, side, side, 3), "64px request 0")
     with phase("64px: CFG request"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 4)
         cond = text_conditioning(dev, 16, lm_dim, gen)
@@ -526,7 +695,27 @@ def path_64(dev):
                                guidance_scale=5.0)
         check_images(outs[0], (8, side, side, 3), "64px CFG request")
     with phase("64px: profile"):
-        profile_forward(forward_inputs(pipe, dev, 64, side, lm_dim), "64px B=64")
+        forward = forward_inputs(pipe, dev, 64, side, lm_dim)
+        profile_forward(forward, "64px B=64 matmul route")
+    with phase("64px flash route: K4 at the forward's shapes"):
+        n_attn = self_attention_count(pipe.vision_module)
+        k4_keys = record_k4_shapes(forward)
+        log(f"cc12m_64x64 has {n_attn} self-attention modules; K4 launch shapes of a "
+            f"batch-64 forward (B, Lq, Lk, H, D): {k4_keys}")
+        totals = check_k4(k4_keys, dev, "64px")
+    with phase("64px: flash path vs matmul path"):
+        flash_vs_matmul(pipe, dev, lm_dim, side, "64px")
+    with phase("64px: two batch-64 DDIM-50 requests, flash route"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        cond = text_conditioning(dev, 64, lm_dim, gen)
+        counts, outs = run_requests(pipe, dev, "64px flash", 2, 64, side, cond, gen,
+                                    flash=True, **bench)
+        for i, out in enumerate(outs):
+            check_images(out, (64, side, side, 3), f"64px flash request {i}")
+    with phase("64px: profile, flash route"):
+        with flash_route():
+            profile_forward(forward, "64px B=64 flash route")
+    return totals, counts
 
 
 def path_256(dev):
@@ -553,8 +742,18 @@ def path_256(dev):
         for i, out in enumerate(outs):
             check_images(out, (batch, side, side, 3), f"256px request {i}")
     with phase("256px: profile"):
-        profile_forward(forward_inputs(pipe, dev, 2 * batch, side, lm_dim), "256px B=8")
-    return totals, counts
+        forward = forward_inputs(pipe, dev, 2 * batch, side, lm_dim)
+        profile_forward(forward, "256px B=8")
+    with phase("256px flash route: K4 at the forward's shapes, one request"):
+        k4_keys = record_k4_shapes(forward)
+        log(f"K4 launch shapes of the 256px request's forward (B, Lq, Lk, H, D): {k4_keys}")
+        totals_k4 = check_k4(k4_keys, dev, "256px")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        counts_k4, outs = run_requests(pipe, dev, "256px flash", 1, batch, side, cond, gen,
+                                       flash=True, num_inference_steps=50, resample_steps=True,
+                                       ddim_eta=0.0, guidance_scale=guidance)
+        check_images(outs[0], (batch, side, side, 3), "256px flash request 0")
+    return totals, counts, totals_k4, counts_k4
 
 
 def path_1024(dev):
@@ -579,9 +778,8 @@ def path_1024(dev):
             forward()
         torch.cuda.synchronize()
         fwd_ms = 1e3 * (time.perf_counter() - t0)
-        steps = 250 if fwd_ms <= FORWARD_MS_FOR_250_STEPS else 50
-        log(f"1024px untimed forward B={batch}: {fwd_ms:.3f} ms -> DDIM-{steps}"
-            + ("" if steps == 250 else f" (over {FORWARD_MS_FOR_250_STEPS} ms)"))
+        steps = 50  # of sample_1024's 250: the same path, a fifth of the depth
+        log(f"1024px untimed forward B={batch}: {fwd_ms:.3f} ms")
         gen = torch.Generator(device=dev).manual_seed(SEED + 7)
         cond = text_conditioning(dev, batch, lm_dim, gen)
         counts, outs = run_requests(pipe, dev, f"1024px DDIM-{steps}", 1, batch, side, cond,
@@ -953,12 +1151,102 @@ def path_train(dev):
     return tot_k3, counts
 
 
+# -- the attention modules no shipped config turns on ---------------------------
+
+
+def path_new_modules(dev):
+    """Temporal U-Nets and a U-Net with the learned lm-head, small by
+    necessity (no shipped config sets ``temporal_mode`` or a nonzero
+    ``num_lm_head_layers``): one bf16 forward each with K1 and K2 under
+    the new modules, finite and within UNET_TOL of the
+    ``use_kernels(False)`` forward."""
+    import dataclasses
+
+    import torch
+
+    from ml_mdm_tpu_torch.config import ResNetConfig, UNetConfig
+    from ml_mdm_tpu_torch.models.layers import SelfAttention1DBlock, TemporalAttentionBlock
+    from ml_mdm_tpu_torch.models.unet import UNet
+    from ml_mdm_tpu_torch.presets import flagship_configs, init_params_
+
+    def temporal(spatial_ds: bool, pos_emb: bool) -> UNetConfig:
+        return UNetConfig(
+            resolution_channels=[64, 128], num_resnets_per_resolution=[1, 1],
+            attention_levels=[1], num_attention_layers=[0, 1],
+            num_temporal_attention_layers=[1, 1], temporal_mode=True,
+            temporal_spatial_ds=spatial_ds, temporal_positional_encoding=pos_emb,
+            conditioning_feature_dim=-1, masked_cross_attention=0,
+            resnet_config=ResNetConfig(num_groups_norm=8, use_attention_ffn=False))
+
+    lm_cfg, _, lm_dim, _ = flagship_configs(scaled=True)
+    videos, frames, side = 2, 4, 32
+    cases = [
+        ("temporal U-Net (frame resample, temporal attention, rotary positions)",
+         temporal(False, True), videos * frames, 0, TemporalAttentionBlock, 6),
+        ("temporal U-Net (temporal_spatial_ds)", temporal(True, False), videos * frames, 0,
+         TemporalAttentionBlock, 0),
+        ("U-Net with num_lm_head_layers 2, masked",
+         dataclasses.replace(lm_cfg, num_lm_head_layers=2, masked_cross_attention=1),
+         videos, lm_dim, SelfAttention1DBlock, 2),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    for what, cfg, rows, text_dim, cls, n_modules in cases:
+        unet = UNet(3, 3, cfg).to(dev)
+        init_params_(unet, gen)
+        unet = unet.to(torch.bfloat16).eval()
+        found = sum(isinstance(m, cls) for m in unet.modules())
+        if found != n_modules:
+            raise AssertionError(f"{what}: {found} {cls.__name__} modules, expected {n_modules}")
+        x = torch.randn((rows, side, side, 3), generator=gen, device=dev)
+        t = torch.tensor([900, 200], device=dev)
+        lm = mask = None
+        if text_dim:
+            lm = torch.randn((videos, LM_LEN, text_dim), generator=gen, device=dev).to(torch.bfloat16)
+            mask = torch.ones((videos, LM_LEN), device=dev, dtype=torch.bfloat16)
+            mask[0, LM_LEN // 2:] = 0
+        reset_counts()
+        with torch.no_grad():
+            got = unet(x, t, lm, mask, {})
+            torch.cuda.synchronize()
+            counts = read_counts(what, ("K1", "K2"))
+            ref = unet.use_kernels(False)(x, t, lm, mask, {})
+        err = rel_err(got, ref)
+        log(f"{what}, small by necessity (no shipped config has these fields on): "
+            f"{n_modules} {cls.__name__} modules, rows {rows}, side {side}: out "
+            f"{tuple(got.shape)}, kernel vs plain forward rel err {err:.4e} (tol {UNET_TOL}), "
+            f"K1 {counts['K1']} K2 {counts['K2']} launches")
+        if tuple(got.shape) != tuple(x.shape) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: output {tuple(got.shape)} not finite or misshapen")
+        if not err <= UNET_TOL:
+            raise AssertionError(f"{what}: kernel path disagrees with plain path")
+
+
+def nvcc_report(lib_path, name: str):
+    """Log what ptxas said of each kernel in a built library: registers and
+    spills, with the head width of a templated instance."""
+    build_log = lib_path.with_name(lib_path.name + ".log")
+    if not build_log.exists():
+        return
+    lines, width = [], ""
+    for line in build_log.read_text().splitlines():
+        if "built in" in line:
+            log(f"  nvcc {name}: {line.strip()}")
+        elif "Compiling entry function" in line:
+            m = re.search(r"flash_attention_kernelILi(\d+)E", line)
+            width = f"D={m.group(1)}: " if m else ""
+        elif "spill" in line or "registers" in line:
+            lines.append(width + line.replace("ptxas info    :", "").strip())
+            if "registers" in line:
+                log(f"  nvcc {name}: " + "; ".join(lines))
+                lines = []
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's check runs only on a GPU")
-    from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
 
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -968,49 +1256,65 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    with phase("build the kernels (nvcc for K2 beside Triton's K1 compile)"):
-        built = {}
+    with phase("build the kernels (one nvcc each for K2 and K4, beside Triton's K1 compile)"):
+        built, errors = {}, {}
 
-        def build():
+        def build(name, module):
             try:
-                built["path"] = fused_resnet.build_library()
+                built[name] = module.build_library()
             except Exception as e:  # re-raised below, in the main thread
-                built["error"] = e
+                errors[name] = e
 
-        thread = threading.Thread(target=build)
+        threads = [threading.Thread(target=build, args=a)
+                   for a in (("K2", fused_resnet), ("K4", attention))]
         t0 = time.perf_counter()
-        thread.start()
+        for thread in threads:
+            thread.start()
         probe = torch.ones((1, 8, 8, 64), device=dev, dtype=torch.bfloat16)
         gn_stats.spatial_sums(probe)
         torch.cuda.synchronize()
         log(f"K1 first launch (Triton compile): {time.perf_counter() - t0:.3f} s")
-        thread.join()
-        if "error" in built:
-            raise built["error"]
+        for thread in threads:
+            thread.join()
+        for e in errors.values():
+            raise e
         fused_resnet.load_library()
-        lib_path = built["path"]
-        log(f"K2 build (nvcc, sm_90a) + load: {time.perf_counter() - t0:.3f} s -> {lib_path.name}")
-        build_log = lib_path.with_name(lib_path.name + ".log")
-        if build_log.exists():
-            for line in build_log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "built in" in line:
-                    log(f"  nvcc: {line.strip()}")
+        attention.load_library()
+        log(f"K2 and K4 build (nvcc, sm_90a) + load: {time.perf_counter() - t0:.3f} s -> "
+            f"{built['K2'].name}, {built['K4'].name}")
+        for name, lib_path in built.items():
+            nvcc_report(lib_path, name)
 
-    path_64(dev)
+    tot_k4_64, counts_k4_64 = path_64(dev)
     torch.cuda.empty_cache()
-    tot_256, counts_256 = path_256(dev)
+    tot_256, counts_256, tot_k4_256, counts_k4_256 = path_256(dev)
     torch.cuda.empty_cache()
     tot_1024, counts_1024 = path_1024(dev)
 
     torch.cuda.empty_cache()
     tot_k3, counts_train = path_train(dev)
+    torch.cuda.empty_cache()
+    with phase("new attention modules on the card"):
+        path_new_modules(dev)
+    with phase("K2 at the shape of the TPU cost-decomposition probes"):
+        # tools/probe_kernel_anatomy*.py take the Pallas conv apart at B=4,
+        # 512 x 512, 128 -> 128 channels, bf16; their Hopper counterpart is
+        # still to write, so K2 itself is timed there beside its bound
+        check_kernels([(4, 512, 512, (128,), 128, False, False, False, True)], [], dev,
+                      "probe shape")
 
     totals = merge_totals(tot_256, tot_1024)
     totals["K3"] = tot_k3
-    launches = {k: counts_256[k] + counts_1024[k] for k in counts_256}
+    totals["K4"] = merge_totals({"K4": tot_k4_64}, {"K4": tot_k4_256})["K4"]
+    launches = {k: counts_256[k] + counts_1024[k] for k in SAMPLING_KERNELS}
     launches["K3"] = counts_train["K3"]
-    log(f"launches during the nested requests (256px and 1024px), K3's during the "
-        f"train_256 preset's timed steps: {launches}")
+    launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
+    log(f"launches during the nested matmul-route requests (256px and 1024px), K3's during "
+        f"the train_256 preset's timed steps, K4's during the flash-route requests (64px "
+        f"and 256px): {launches}")
+    log(f"K4 over the 64px and 256px forwards' shapes: kernel {totals['K4']['ms']:.4f} ms, "
+        f"matmul route {totals['K4']['matmul_ms']:.4f} ms, library "
+        f"{totals['K4']['library_ms']:.4f} ms")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
 
     def entry(name, mode, route, source, replaces, library=True):
@@ -1032,6 +1336,8 @@ def main() -> int:
               "ml_mdm_tpu/ops/fused_resnet.py:284"),
         entry("affine_silu_conv3x3_vjp (backward)", "K3", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:744"),
+        entry("flash_attention", "K4", "cuda", "ml_mdm_tpu_torch/csrc/flash_attention.cu",
+              "ml_mdm_tpu/ops/attention.py:130"),
     ]
     print(json.dumps({"kernels": kernels}, ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {

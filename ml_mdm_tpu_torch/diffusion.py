@@ -29,6 +29,39 @@ def avg_pool_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(b, h // r, r, w // r, r, c).mean(dim=(2, 4))
 
 
+def subsample_frames(x: torch.Tensor, n: int, step: int, n_out: int) -> torch.Tensor:
+    """x (B, n*h, n*w, C) holds n*n frames of (h, w) as an n x n grid, in
+    row-major order. Keeps every ``step``-th frame and lays the kept
+    n_out*n_out frames out as an n_out x n_out grid."""
+    b, hh, ww, c = x.shape
+    h, w = hh // n, ww // n
+    frames = x.reshape(b, n, h, n, w, c).permute(0, 1, 3, 2, 4, 5).reshape(b, n * n, h, w, c)
+    frames = frames[:, ::step]
+    return (frames.reshape(b, n_out, n_out, h, w, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, n_out * h, n_out * w, c))
+
+
+def image_pyramid(images: torch.Tensor, scales: Sequence[int],
+                  is_temporal: Sequence[bool]) -> List[torch.Tensor]:
+    """The training images at every resolution, highest first
+    (``NestedDiffusion.get_loss`` of the JAX package): each level is the
+    one above avg-pooled by the ratio between them, or, where the shell
+    above it resamples across frames (``is_temporal``, one flag per shell,
+    outermost first), the one above with its 4 x 4 grid of frames
+    subsampled: every (scales[0] / scale)^2-th frame kept, the grid's side
+    divided by the ratio."""
+    out, grid = [images], 4
+    for i in range(1, len(scales)):
+        r = scales[0] // scales[i]
+        rr = scales[i - 1] // scales[i]
+        if is_temporal[i - 1]:
+            out.append(subsample_frames(out[-1], grid, r * r, grid // rr))
+            grid //= rr
+        else:
+            out.append(avg_pool_nhwc(out[-1], rr))
+    return out
+
+
 def _mse_per_image(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     """Mean over all but the batch axis of the squared difference, squared
     in the difference's dtype and accumulated in f32."""
@@ -199,9 +232,9 @@ class NestedDiffusion(Diffusion):
     def get_loss(self, sample: Dict[str, Any], generator: Optional[torch.Generator] = None,
                  *, time: Optional[torch.Tensor] = None,
                  eps: Optional[Sequence[torch.Tensor]] = None):
-        """Nested training loss: the images avg-pooled to every resolution,
-        each noised at its shifted gamma with its own normals, the loss of
-        the highest resolution (of every one with ``use_double_loss``,
+        """Nested training loss: the images at every resolution
+        (``image_pyramid``), each noised at its shifted gamma with its own
+        normals, the loss of the highest resolution (of every one with ``use_double_loss``,
         weighted by ``multi_res_weights``), and with ``mixed_ratio`` each
         resolution's loss divided by its row share and kept on its rows.
         ``eps`` is one normal tensor per resolution, highest first (else
@@ -215,9 +248,7 @@ class NestedDiffusion(Diffusion):
             images, generator, time, None if eps is None else eps[0])
         if not cfg.use_vdm_loss_weights:
             weights = None
-        images_list = [images]
-        for r_prev, r in zip(scales, scales[1:]):
-            images_list.append(avg_pool_nhwc(images_list[-1], int(r_prev // r)))
+        images_list = image_pyramid(images, scales, self.vision_module.is_temporal)
         g_list = self.sampler.get_gammas(g, scales)
         g_last_list = self.sampler.get_gammas(g_last, scales)
         eps_list = [eps0]

@@ -1,8 +1,8 @@
 """Building blocks of the port's U-Net (NHWC tensors, PyTorch modules).
 
-Counterpart of ``ml_mdm_tpu/models/layers.py``, unpacked and non-temporal
-only. Activations keep the JAX layout (B, H, W, C); a 3x3 convolution runs
-on the ``permute(0, 3, 1, 2)`` view, which is channels-last in memory.
+Counterpart of ``ml_mdm_tpu/models/layers.py`` without space-to-depth
+packing. Activations keep the JAX layout (B, H, W, C); a 3x3 convolution
+runs on the ``permute(0, 3, 1, 2)`` view, which is channels-last in memory.
 Parameter names are the reference torch names
 (``down_blocks.0.resnets.1.conv1.weight``), so JAX weights load through
 ``utils.convert.params_from_jax`` and ``load_state_dict(strict=True)``.
@@ -78,6 +78,30 @@ def dense(x: torch.Tensor, layer: nn.Module,
     w = layer.weight
     dt = dtype or w.dtype
     return F.linear(x.to(dt), w.reshape(w.shape[0], -1).to(dt), _cast(layer.bias, dt))
+
+
+def conv1d_nlc(x: torch.Tensor, conv: nn.Conv1d,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Apply a torch Conv1d to an (N, L, C) tensor in ``dtype`` (default:
+    the weight's), casting x, weight and bias to it."""
+    dt = dtype or conv.weight.dtype
+    y = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt), _cast(conv.bias, dt),
+                 conv.stride, conv.padding)
+    return y.transpose(1, 2)
+
+
+def frames_to_tokens(x: torch.Tensor, b: int) -> torch.Tensor:
+    """((b t), h, w, c) -> ((b h w), t, c): each pixel's frames as a
+    sequence."""
+    bt, h, w, c = x.shape
+    return x.reshape(b, bt // b, h, w, c).permute(0, 2, 3, 1, 4).reshape(b * h * w, bt // b, c)
+
+
+def tokens_to_frames(y: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+    """((b h w), t, c) -> ((b t), h, w, c), the inverse of
+    ``frames_to_tokens``."""
+    t, c = y.shape[1], y.shape[2]
+    return y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4).reshape(b * t, h, w, c)
 
 
 def _gn_affine_from_moments(mean, var, scale, bias, g, eps: float):
@@ -232,6 +256,8 @@ class ResNet(nn.Module):
         """norm2's coefficients from conv1's output sums, with FiLM folded
         in: norm2(h) * (1 + ta) + tb == h * a2 + b2."""
         t = dense(F.silu(temb), self.time_layer, self.compute_dtype).float()
+        if h.shape[0] > t.shape[0]:  # temporal: (b t) rows share their video's temb
+            t = t.repeat_interleave(h.shape[0] // t.shape[0], dim=0)
         ta, tb = t.chunk(2, dim=-1)
         a2, b2 = group_norm_coeffs_from_sums(
             hs1, hs2, h.shape[1] * h.shape[2], self.norm2.weight, self.norm2.bias,
@@ -346,18 +372,155 @@ class SelfAttention(nn.Module):
         return x
 
 
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def rotary_embedding(x: torch.Tensor) -> torch.Tensor:
+    """RoPE over the last axis of (B, H, L, D), angles in f32 (so a bf16
+    input comes back in f32, as in the JAX package)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(0, half, dtype=torch.float32, device=x.device)
+                               / half))
+    t = torch.arange(x.shape[-2], dtype=torch.float32, device=x.device)
+    angles = torch.outer(t, freqs)
+    angles = torch.cat([angles, angles], dim=-1)
+    return x * torch.cos(angles) + _rotate_half(x) * torch.sin(angles)
+
+
+def _num_heads(channels: int, num_heads: int, num_head_channels: int) -> int:
+    if num_head_channels == -1:
+        return num_heads
+    if channels % num_head_channels:
+        raise ValueError(f"{channels} channels do not split into heads of {num_head_channels}")
+    return channels // num_head_channels
+
+
+class SelfAttention1D(nn.Module):
+    """Self-attention over tokens (B, L, C) with an optional key mask
+    (B, L), rotary positions (``pos_emb``) and FFN
+    (``ml_mdm_tpu/models/layers.py`` ``SelfAttention1D``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def __init__(self, channels: int, num_heads: int = 8, num_head_channels: int = -1,
+                 use_attention_ffn: bool = False, pos_emb: bool = False):
+        super().__init__()
+        self.heads = _num_heads(channels, num_heads, num_head_channels)
+        self.pos_emb = pos_emb
+        self.norm = LayerNormF32(channels)
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.proj_out = nn.Linear(channels, channels)
+        self.use_attention_ffn = use_attention_ffn
+        if use_attention_ffn:
+            self.ffn = nn.Sequential(
+                LayerNormF32(channels),
+                nn.Linear(channels, 4 * channels),
+                GELU(),
+                nn.Linear(4 * channels, channels),
+            )
+
+    def forward(self, x, mask=None):
+        b, l, c = x.shape
+        dt = self.compute_dtype
+        qkv = dense(self.norm(x), self.qkv, dt)
+        q, k, v = (t.reshape(b, l, self.heads, c // self.heads) for t in qkv.chunk(3, dim=-1))
+        if self.pos_emb:
+            q = rotary_embedding(q.transpose(1, 2)).transpose(1, 2)
+            k = rotary_embedding(k.transpose(1, 2)).transpose(1, 2)
+        out = dot_product_attention(q, k, v, mask=mask).reshape(b, l, c)
+        x = x + dense(out, self.proj_out, dt)
+        if self.use_attention_ffn:
+            f = self.ffn
+            x = x + dense(f[2](dense(f[0](x), f[1], dt)), f[3], dt)
+        return x
+
+
+class MLP(nn.Module):
+    """Pre-norm residual MLP: ``main.0-3`` are LayerNorm, Linear, GELU and
+    the zero-init Linear."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def __init__(self, channels: int, multiplier: int = 4):
+        super().__init__()
+        self.main = nn.Sequential(
+            LayerNormF32(channels),
+            nn.Linear(channels, multiplier * channels),
+            GELU(),
+            nn.Linear(multiplier * channels, channels),
+        )
+
+    def forward(self, x):
+        m, dt = self.main, self.compute_dtype
+        return x + dense(m[2](dense(m[0](x), m[1], dt)), m[3], dt)
+
+
+class SelfAttention1DBlock(nn.Module):
+    """Attention then MLP: one layer of the learned lm-head."""
+
+    def __init__(self, channels: int, num_heads: int = 8, num_head_channels: int = -1,
+                 mlp_multiplier: int = 4):
+        super().__init__()
+        self.attn = SelfAttention1D(channels, num_heads, num_head_channels)
+        self.mlp = MLP(channels, mlp_multiplier)
+
+    def forward(self, x, mask=None):
+        return self.mlp(self.attn(x, mask))
+
+
+class TemporalAttentionBlock(nn.Module):
+    """Attention across the frames of each pixel
+    (``ml_mdm_tpu/models/layers.py`` ``TemporalAttentionBlock``): x is
+    ((b t), h, w, c) and temb (b, d) tells how many videos the rows hold.
+    With ``down`` the block works at half the side: a stride-2 3x3 conv
+    before, nearest-2x and a 3x3 conv after."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def __init__(self, channels: int, num_heads: int = 8, num_head_channels: int = -1,
+                 down: bool = False, pos_emb: bool = False):
+        super().__init__()
+        self.attn = SelfAttention1D(channels, num_heads, num_head_channels, pos_emb=pos_emb)
+        self.mlp = MLP(channels, multiplier=4)
+        self.down = down
+        if down:
+            self.down_conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+            self.up_conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x, temb):
+        x_in = x
+        dt = self.compute_dtype
+        if self.down:
+            x = conv2d_nhwc(x, self.down_conv, dt)
+        b, (_, h, w, _) = temb.shape[0], x.shape
+        y = self.mlp(self.attn(frames_to_tokens(x, b)))
+        x = tokens_to_frames(y, b, h, w)
+        if self.down:
+            x = conv2d_nhwc(nearest_upsample_2x(x), self.up_conv, dt)
+        return x + x_in
+
+
 class ResNetBlockStage(nn.Module):
     """One resolution stage: N ResNets (each followed by its attention
-    layers) and an optional resample; ``ml_mdm_tpu/models/layers.py``
-    ``ResNetBlockStage``, unpacked and non-temporal. Downsampling is a
-    stride-2 3x3 conv; upsampling is nearest-2x followed by a 3x3 conv."""
+    layers, the 2-D ones and then the temporal ones) and an optional
+    resample; ``ml_mdm_tpu/models/layers.py`` ``ResNetBlockStage``,
+    unpacked. Downsampling is a stride-2 3x3 conv; upsampling is nearest-2x
+    followed by a 3x3 conv. In ``temporal_mode`` without
+    ``temporal_spatial_ds`` the resample works across frames, not space: a
+    1-D conv over each pixel's frames, stride 2 down, nearest-2x then conv
+    up. The temporal attention layers exist only without
+    ``temporal_spatial_ds``, as in the JAX package."""
 
     compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, temporal_dim: int, num_residual_blocks: int,
                  num_attention_layers: int, downsample_output: bool,
                  upsample_output: bool, resnet_configs: Sequence[ResNetConfig],
-                 conditioning_feature_dim: int = -1):
+                 conditioning_feature_dim: int = -1, temporal_mode: bool = False,
+                 temporal_pos_emb: bool = False, temporal_spatial_ds: bool = False,
+                 num_temporal_attention_layers: Optional[int] = None):
         super().__init__()
         if downsample_output and upsample_output:
             raise ValueError("a stage either down- or upsamples")
@@ -379,11 +542,24 @@ class ResNetBlockStage(nn.Module):
                 for i in range(num_residual_blocks)
                 for _ in range(num_attention_layers)
             )
+        self.num_temporal_attention_layers = (
+            0 if temporal_spatial_ds else num_temporal_attention_layers or 0)
+        if self.num_temporal_attention_layers > 0:
+            self.t_attn = nn.ModuleList(
+                TemporalAttentionBlock(
+                    resnet_configs[i].output_channels, num_head_channels=32, down=True,
+                    pos_emb=temporal_pos_emb,
+                )
+                for i in range(num_residual_blocks)
+                for _ in range(self.num_temporal_attention_layers)
+            )
         out_ch = resnet_configs[-1].output_channels
+        self.resample_frames = temporal_mode and not temporal_spatial_ds
+        conv = nn.Conv1d if self.resample_frames else nn.Conv2d
         if downsample_output:
-            self.resample = nn.Conv2d(out_ch, out_ch, 3, stride=2, padding=1)
+            self.resample = conv(out_ch, out_ch, 3, stride=2, padding=1)
         elif upsample_output:
-            self.resample = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+            self.resample = conv(out_ch, out_ch, 3, padding=1)
 
     def forward(self, x, temb, skip_activations: Optional[List[torch.Tensor]] = None,
                 conditioning=None, cond_mask=None):
@@ -398,10 +574,20 @@ class ResNetBlockStage(nn.Module):
             n_attn = self.num_attention_layers
             for j in range(n_attn):
                 x = self.attn[i * n_attn + j](x, conditioning, cond_mask)
+            n_tattn = self.num_temporal_attention_layers
+            for j in range(n_tattn):
+                x = self.t_attn[i * n_tattn + j](x, temb)
             activations.append(x)
         if self.downsample_output or self.upsample_output:
-            if self.upsample_output:
-                x = nearest_upsample_2x(x)
-            x = conv2d_nhwc(x, self.resample, self.compute_dtype)
+            if self.resample_frames:
+                b, (_, h, w, _) = temb.shape[0], x.shape
+                y = frames_to_tokens(x, b)
+                if self.upsample_output:
+                    y = y.repeat_interleave(2, dim=1)
+                x = tokens_to_frames(conv1d_nlc(y, self.resample, self.compute_dtype), b, h, w)
+            else:
+                if self.upsample_output:
+                    x = nearest_upsample_2x(x)
+                x = conv2d_nhwc(x, self.resample, self.compute_dtype)
             activations.append(x)
         return x, activations

@@ -62,6 +62,17 @@ class NestedUNet(UNet):
     def nest_ratio(self) -> List[int]:
         return compute_nest_ratio(self.config)
 
+    @property
+    def is_temporal(self) -> List[bool]:
+        """For each shell, outermost first, whether it resamples across
+        frames (``temporal_mode`` without ``temporal_spatial_ds``)."""
+        flags = []
+        cfg = self.config
+        while getattr(cfg, "inner_config", None) is not None:
+            flags.append(bool(cfg.temporal_mode and not cfg.temporal_spatial_ds))
+            cfg = cfg.inner_config
+        return flags
+
     def forward_conditioning(self, conditioning, cond_mask):
         return self.inner_unet.forward_conditioning(conditioning, cond_mask)
 

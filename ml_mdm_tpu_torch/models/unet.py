@@ -1,11 +1,14 @@
 """Text-conditioned diffusion U-Net of the port (NHWC, PyTorch).
 
-Counterpart of ``ml_mdm_tpu/models/unet.py`` ``UNet`` without packing,
-temporal mode or the learned lm_head: sinusoidal time embedding and its
-2-layer MLP, pooled-text conditioning added to the time embedding,
-micro-conditioning (``scale:64``), the down path, two mid blocks, the up
-path with skip concats, and ``norm_out`` / ``conv_out``. The forward comes
-in the JAX package's pieces (input layer, down path, up path, output
+Counterpart of ``ml_mdm_tpu/models/unet.py`` ``UNet`` without packing:
+sinusoidal time embedding and its 2-layer MLP, the optional learned
+lm-head (self-attention blocks over the text features), pooled-text
+conditioning added to the time embedding, micro-conditioning
+(``scale:64``), the down path, two mid blocks, the up path with skip
+concats, and ``norm_out`` / ``conv_out``. A temporal U-Net
+(``temporal_mode``, ``num_temporal_attention_layers``) takes the frames of
+its videos as ``(b t)`` rows beside per-video times and text. The forward
+comes in the JAX package's pieces (input layer, down path, up path, output
 layer), which ``models/nested_unet.py`` reuses for its shells. With
 ``nesting`` the U-Net is the inner level of a nested one: it takes
 ``(x_t, x_feat)``, adds the shell's features after its input layer, and
@@ -32,6 +35,7 @@ from ml_mdm_tpu_torch.config import UNetConfig
 from ml_mdm_tpu_torch.models.layers import (
     GroupNormF32,
     ResNetBlockStage,
+    SelfAttention1DBlock,
     conv2d_nhwc,
     dense,
 )
@@ -78,10 +82,6 @@ class UNet(nn.Module):
         input conditioning width."""
         super().__init__()
         cfg = config
-        if cfg.temporal_mode or any(cfg.num_temporal_attention_layers or []):
-            raise NotImplementedError("temporal U-Nets are not ported yet")
-        if cfg.num_lm_head_layers:
-            raise NotImplementedError("the learned lm_head is not ported yet")
         self.config = cfg
         self.cond_dim_override = cond_dim_override
         self.text_dim = self.input_conditioning_feature_dim if text_dim is None else text_dim
@@ -126,6 +126,7 @@ class UNet(nn.Module):
                 resnet_configs=stage_cfgs,
                 conditioning_feature_dim=(
                     cond_dim if i in cfg.attention_levels else -1),
+                **self._temporal_args(i),
             ))
         self.down_blocks = nn.ModuleList(down)
 
@@ -154,6 +155,7 @@ class UNet(nn.Module):
                 resnet_configs=stage_cfgs,
                 conditioning_feature_dim=(
                     cond_dim if i in cfg.attention_levels else -1),
+                **self._temporal_args(i),
             ))
         self.up_blocks = nn.ModuleList(up)
 
@@ -161,6 +163,19 @@ class UNet(nn.Module):
         self.conv_out = nn.Conv2d(channels, output_channels, 3, padding=1)
         if self.has_cond and cfg.conditioning_feature_proj_dim > 0:
             self.lm_proj = nn.Linear(self.text_dim, cond_dim)
+        if self.has_cond and cfg.num_lm_head_layers:
+            self.lm_head = nn.ModuleList(
+                SelfAttention1DBlock(cond_dim) for _ in range(cfg.num_lm_head_layers))
+
+    def _temporal_args(self, level: int) -> dict:
+        """What the down and up stages of ``level`` take of the temporal
+        fields (the mid blocks take none)."""
+        cfg = self.config
+        n = cfg.num_temporal_attention_layers
+        return dict(temporal_mode=cfg.temporal_mode,
+                    temporal_pos_emb=cfg.temporal_positional_encoding,
+                    temporal_spatial_ds=cfg.temporal_spatial_ds,
+                    num_temporal_attention_layers=None if n is None else n[level])
 
     def _n_attn(self, level: int) -> int:
         cfg = self.config
@@ -220,7 +235,11 @@ class UNet(nn.Module):
         cfg = self.config
         if cfg.conditioning_feature_proj_dim > 0:
             conditioning = dense(conditioning, self.lm_proj, self.dtype)
-        if cond_mask is None:
+        heads = getattr(self, "lm_head", ())
+        for head in heads:  # masked only under masked_cross_attention
+            conditioning = head(conditioning,
+                                mask=cond_mask if cfg.masked_cross_attention else None)
+        if cond_mask is None or (not cfg.masked_cross_attention and len(heads) > 0):
             y = conditioning.mean(dim=1)
         else:
             mask = cond_mask.to(conditioning.dtype)

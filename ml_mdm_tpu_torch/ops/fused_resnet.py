@@ -40,16 +40,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+
+from ml_mdm_tpu_torch.ops import cuda_build
 
 # launches of the CUDA kernel since the counts were last set to 0: "K2"
 # counts every launch, "K2·N" those with more than one operand, "K2·proj"
@@ -57,14 +54,6 @@ from torch.profiler import record_function
 # data gradient)
 launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0, "K3": 0}
 MAX_OPERANDS = 4
-
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "fused_resnet.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 
 def reset_launch_counts() -> None:
@@ -313,40 +302,10 @@ def _launch(x, a, b, w, bias, residual, apply_silu, emit_stats,
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-
-
 def build_library() -> Path:
-    """Compile ``csrc/fused_resnet.cu`` for sm_90a into the build directory
-    (named by the source's hash, so an edited source rebuilds). Returns the
-    shared library's path; ``<path>.log`` keeps nvcc's output."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"fused_resnet_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    Path(str(out) + ".log").write_text(
-        f"built in {time.perf_counter() - t0:.3f} s\n{log}"
-    )
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/fused_resnet.cu`` for sm_90a (``ops/cuda_build.py``).
+    Returns the shared library's path; ``<path>.log`` keeps nvcc's output."""
+    return cuda_build.build_library("fused_resnet")
 
 
 @functools.cache

@@ -43,7 +43,7 @@ from ml_mdm_tpu_torch.models.unet import UNet
 
 # layers the JAX package initialises to zero (its output projections and
 # the nested adapters)
-_ZERO_INIT = ("conv2", "conv_out", "proj_out", "ffn.3", "in_adapter", "out_adapter")
+_ZERO_INIT = ("conv2", "conv_out", "proj_out", "ffn.3", "main.3", "in_adapter", "out_adapter")
 NESTED_PRESETS = ("cc12m_256x256", "cc12m_1024x1024")
 
 

@@ -6,9 +6,12 @@ Repeats the mapping of ``ml_mdm_tpu/utils/torch_compat.py``
 - ``down_blocks_0 / resnets_1 / conv1 / kernel`` becomes
   ``down_blocks.0.resnets.1.conv1.weight`` (a trailing ``_<int>`` is a list
   index; ``cond_layers_<key>_<i>`` becomes ``cond_layers.<key>.<i>``);
-- conv kernels go HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+- conv kernels go HWIO -> OIHW, the 1-D conv of a temporal stage's frame
+  resample KIO -> OIK, dense kernels (in, out) -> (out, in);
 - dense layers of a 2-D attention block (``qkv``, ``proj_out``, ``ffn_1``,
-  ``ffn_3``) were 1x1 convolutions in torch and get two trailing unit axes;
+  ``ffn_3`` under a path component ``attn_<i>``) were 1x1 convolutions in
+  torch and get two trailing unit axes; those of the 1-D attention blocks
+  (``lm_head_<i>/attn``, ``t_attn_<i>/attn``) stay ``nn.Linear``;
 - norm ``scale`` becomes ``weight``.
 
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (parameters,
@@ -63,6 +66,8 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
             name = "weight"
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)
+            elif v.ndim == 3:
+                v = v.transpose(2, 1, 0)
             else:
                 v = v.transpose(1, 0)
                 if in_2d_attn and path[-2] in _ATTN2D_DENSE:

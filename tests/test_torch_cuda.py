@@ -14,12 +14,15 @@ a rounding can flip); the tiny U-Net and nested U-Net kernel paths against
 their plain paths <= 5e-2 * max|ref| (those flips, carried through ~20-40
 layers); one tiny nested training step, kernel path against plain path:
 loss within 1e-2 relative, gradient norm within 5e-2, cosine of the
-flattened gradients >= 0.99.
+flattened gradients >= 0.99; K4 against its plain f32 version
+<= 2e-2 * max|ref| (the kernel rounds P to bf16 for the second product and
+the output once to bf16; the JAX package's own test of its kernel allows the
+same).
 """
 import pytest
 import torch
 
-from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
 from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
 
 SAMPLING_MODES = ("K2", "K2·N", "K2·proj")  # K3 launches only in a backward
@@ -258,3 +261,70 @@ def test_tiny_nested_training_step_kernel_path_matches_plain_path(dev):
     assert abs(lk - lp) <= 1e-2 * abs(lp)
     assert abs(float(gk.norm()) - float(gp.norm())) <= 5e-2 * float(gp.norm())
     assert float(torch.nn.functional.cosine_similarity(gk, gp, dim=0)) >= 0.99
+
+
+def _qkv(dev, b, lq, lk, heads, d, chunked, seed=7):
+    """bf16 q (b, lq, heads, d) and k, v (b, lk, heads, d): contiguous
+    tensors, or with ``chunked`` (lq == lk) the three chunks of one
+    (b, l, 3 * heads * d) tensor, as ``SelfAttention`` hands them over."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if chunked:
+        qkv = torch.randn((b, lq, 3 * heads * d), generator=g, device=dev).to(torch.bfloat16)
+        return tuple(t.reshape(b, lq, heads, d) for t in qkv.chunk(3, dim=-1))
+    return tuple(torch.randn((b, l, heads, d), generator=g, device=dev).to(torch.bfloat16)
+                 for l in (lq, lk, lk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,d,lq,lk,chunked", [
+    (3, 5, 32, 128, 384, False),    # the JAX test's shape: Lq != Lk
+    (1, 7, 64, 384, 128, False),
+    (3, 1, 96, 256, 128, False),    # six k-steps of 16
+    (2, 3, 128, 128, 256, False),   # the widest head the kernel takes
+    (4, 8, 64, 1024, 1024, True),   # the 64px model's shapes, as chunked views
+    (3, 8, 96, 256, 256, True),
+    (5, 3, 32, 128, 128, True),
+    (1, 3, 48, 200, 72, False),     # ragged tiles: a direct call takes any length
+])
+def test_flash_attention_kernel(dev, b, heads, d, lq, lk, chunked):
+    q, k, v = _qkv(dev, b, lq, lk, heads, d, chunked)
+    assert q.is_contiguous() != chunked
+    n = attention.launch_count
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.launch_count == n + 1
+    ref = attention.reference_flash_attention(q, k, v)
+    assert out.shape == ref.shape == q.shape and out.dtype == torch.bfloat16
+    assert out.is_contiguous() and torch.isfinite(out).all()
+    assert _rel(out, ref) <= 2e-2
+    # sharper than the stated tolerance: against the f32 result before its
+    # rounding to bf16, the error stays at a few bf16 roundings of the output
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    assert _rel(out, attention.reference_flash_attention(q32, k32, v32)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_route_on_the_card(dev):
+    """bf16 takes K4 through ``dot_product_attention``; f32 is not a type
+    the kernel takes, so it stays on the matmul route, and a direct call
+    raises; a masked call stays on the matmul route; autograd raises."""
+    q, k, v = _qkv(dev, 2, 128, 128, 4, 32, chunked=True)
+    attention.use_flash(True)
+    try:
+        n = attention.launch_count
+        out = attention.dot_product_attention(q, k, v)
+        assert attention.launch_count == n + 1
+        assert _rel(out, attention.matmul_attention(q, k, v)) <= 2e-2
+        mask = torch.ones((2, 128), device=dev)
+        attention.dot_product_attention(q, k, v, mask=mask)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        assert not attention._flash_supported(q32, k32)
+        got = attention.dot_product_attention(q32, k32, v32)
+        assert attention.launch_count == n + 1
+        assert torch.equal(got, attention.matmul_attention(q32, k32, v32))
+        with pytest.raises(TypeError):
+            attention.flash_attention(q32, k32, v32)
+        with pytest.raises(NotImplementedError):
+            attention.dot_product_attention(q.clone().requires_grad_(True), k, v)
+    finally:
+        attention.use_flash(None)

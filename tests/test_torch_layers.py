@@ -20,8 +20,8 @@ import jax.numpy as jnp
 from ml_mdm_tpu.models import layers as jl
 from ml_mdm_tpu_torch.config import ResNetConfig
 from ml_mdm_tpu_torch.models import layers as tl
-from ml_mdm_tpu_torch.utils.convert import params_from_jax
 from torch_parity import fill_zero_leaves, rel_err, to_np
+from torch_parity import load_subtree as _load
 
 torch.set_num_threads(1)
 
@@ -30,18 +30,6 @@ KERNEL_ENV = {
     "ML_MDM_TPU_GN_KERNEL": "interpret",
     "ML_MDM_TPU_FUSED_MIN_SIDE": "8",
 }
-
-
-def _load(module, params, prefix=()):
-    """Load a JAX params subtree into a port module (wrapped under
-    ``prefix`` so name-dependent conversion rules apply, then stripped)."""
-    tree = params
-    for p in reversed(prefix):
-        tree = {p: tree}
-    sd = params_from_jax(tree)
-    strip = "".join(f"{p.replace('_', '.')}." for p in prefix)
-    module.load_state_dict({k[len(strip):]: v for k, v in sd.items()}, strict=True)
-    return module.eval()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,8 @@
 """Shared fixtures of the port's parity tests (tests/test_torch_*.py): the
-tiny flagship-structured U-Net and tiny nested U-Nets (the structure of
-tests/test_files/tiny_nested_train.yaml, one or two shells deep) in both
-packages, with the same weights.
+tiny flagship-structured U-Net, tiny nested U-Nets (the structure of
+tests/test_files/tiny_nested_train.yaml, one or two shells deep), and tiny
+U-Nets with the learned lm-head or in temporal mode, in both packages,
+with the same weights.
 
 Weights are initialised by JAX, every all-zero leaf (biases and the
 zero-init output projections, which would make the U-Net output exactly 0)
@@ -27,6 +28,7 @@ from ml_mdm_tpu_torch.config import (
     NestedDiffusionConfig,
     NestedUNetConfig,
     ResNetConfig,
+    UNetConfig,
     load_model_config,
 )
 from ml_mdm_tpu_torch.diffusion import Diffusion, NestedDiffusion
@@ -55,10 +57,17 @@ def fill_zero_leaves(params, seed: int = 0, scale: float = 0.02):
 
 
 def seeded_params(jpipe, seed: int, **init_kw):
-    """A params tree for ``jpipe``'s module without compiling its init: the
-    shapes from ``jax.eval_shape``, every leaf seeded normals (kernels
-    scaled by 1/sqrt(fan-in), norm scales 1 + 0.1 N, biases 0.02 N)."""
-    shapes = jax.eval_shape(lambda k: jpipe.init_params(k, **init_kw), jax.random.PRNGKey(0))
+    """A params tree for ``jpipe``'s module without compiling its init
+    (``seeded_tree`` over ``jpipe.init_params``)."""
+    return seeded_tree(lambda k: jpipe.init_params(k, **init_kw), seed)
+
+
+def seeded_tree(init_fn, seed: int):
+    """A params tree shaped as ``init_fn(key)`` returns it, without
+    compiling the init: the shapes from ``jax.eval_shape``, every leaf
+    seeded normals (kernels scaled by 1/sqrt(fan-in), norm scales
+    1 + 0.1 N, biases 0.02 N)."""
+    shapes = jax.eval_shape(init_fn, jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -111,6 +120,43 @@ def tiny_pair(seed: int = 0, fast_init: bool = False):
     unet = UNet(3, 3, ucfg)
     unet.load_state_dict(params_from_jax(params), strict=True)
     return jpipe, params, Diffusion(unet.eval(), dcfg), lm_dim, side
+
+
+def unet_pair(ucfg, x_shape, n_videos: int, lm_dim: int, seed: int = 0):
+    """(jax U-Net, its params as numpy, the port's U-Net in eval mode) for
+    the port's U-Net config ``ucfg`` in f32, seeded weights
+    (``seeded_tree``): the input has ``x_shape`` (rows, side, side, 3), the
+    times and the text features (``lm_dim`` wide; 0: none) have
+    ``n_videos`` rows, fewer than the input for a temporal U-Net."""
+    jmod = JaxUNet(3, 3, jax_config_of(ucfg), dtype=jnp.float32)
+    lm = jnp.zeros((n_videos, LM_LEN, lm_dim)) if lm_dim else None
+    mask = jnp.ones((n_videos, LM_LEN)) if lm_dim else None
+    params = seeded_tree(
+        lambda k: jmod.init(k, jnp.zeros(x_shape), jnp.zeros((n_videos,), jnp.int32),
+                            lm, mask, {})["params"], seed)
+    unet = UNet(3, 3, ucfg)
+    unet.load_state_dict(params_from_jax(params), strict=True)
+    return jmod, params, unet.eval()
+
+
+def lm_head_config(masked_cross_attention: int):
+    """The scaled flagship structure with a learned lm-head of two layers."""
+    ucfg = flagship_configs(scaled=True)[0]
+    return dataclasses.replace(ucfg, num_lm_head_layers=2,
+                               masked_cross_attention=masked_cross_attention)
+
+
+def temporal_config(spatial_ds: bool, pos_emb: bool):
+    """A tiny temporal U-Net: two levels of 32 and 64 channels, one ResNet
+    each, one temporal attention layer per ResNet, no text."""
+    return UNetConfig(
+        resolution_channels=[32, 64], num_resnets_per_resolution=[1, 1],
+        attention_levels=[1], num_attention_layers=[0, 1],
+        num_temporal_attention_layers=[1, 1], temporal_mode=True,
+        temporal_spatial_ds=spatial_ds, temporal_positional_encoding=pos_emb,
+        conditioning_feature_dim=-1, masked_cross_attention=0,
+        resnet_config=ResNetConfig(num_groups_norm=8, use_attention_ffn=False),
+    )
 
 
 def tiny_nested_configs(depth: int):
@@ -183,6 +229,19 @@ def jax_nested_noise(jpipe, key, images):
         for i, s in enumerate(scales) if i > 0]
     return {"time": torch.from_numpy(np.array(time)).long(),
             "eps": [torch.from_numpy(e) for e in eps_list]}
+
+
+def load_subtree(module, params, prefix=()):
+    """Load a JAX params subtree into a port module (wrapped under
+    ``prefix`` so name-dependent conversion rules apply, then stripped);
+    returns the module in eval mode."""
+    tree = params
+    for p in reversed(prefix):
+        tree = {p: tree}
+    sd = params_from_jax(tree)
+    strip = "".join(f"{p.replace('_', '.')}." for p in prefix)
+    module.load_state_dict({k[len(strip):]: v for k, v in sd.items()}, strict=True)
+    return module.eval()
 
 
 def rel_err(got, ref) -> float:
