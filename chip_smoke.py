@@ -42,7 +42,15 @@ each of the port's paths with random weights from a seed:
      16, lr 5e-5, warmup 10, clip 2.0, no remat): one untimed and five
      timed steps; one profiled step; then cc12m_64x64 (``Diffusion.
      get_loss``) at batch 32 for two steps.
-  5. The attention modules no shipped config turns on, at a small size by
+  5. The train_1024 preset (``presets.train_1024``: cc12m_1024x1024 with
+     its thin shells packed, batch 2, selective remat): every K1, K2 and K3
+     launch shape of one step held against its plain version and timed
+     (packed launches beside the unpacked K2 at the same unpacked shape and
+     the library's dense packed convolution; pipelined ones beside the serial
+     K2); a batch-1 step, kernel path against plain path; 1 untimed and 3
+     timed steps; one profiled step; then packing off (``pack_min_side`` 0)
+     against on, for one forward at batch 4 and one step at batch 2.
+  6. The attention modules no shipped config turns on, at a small size by
      necessity: two temporal U-Nets (frames as ``(b t)`` rows; temporal
      attention and the frame resample, and ``temporal_spatial_ds``) and a
      U-Net with a learned lm-head of two layers, one forward each with K1
@@ -50,15 +58,20 @@ each of the port's paths with random weights from a seed:
      Then K2 at the one shape of the JAX package's cost-decomposition
      probes (``tools/probe_kernel_anatomy*.py``), beside its bound.
 
-Before each request or training phase every launch count is set to 0 and
-read just after it; a kernel of the path that never launched fails the
-run. Every phase that fails raises, and the script exits non-zero. It
+The nested models pack their thin shells as the JAX package does, so the
+256px and 1024px phases launch K2·struct too; K2·pipe runs wherever a
+launch has at least two channel chunks and 4096 thread blocks (every path
+but the 64px CFG request's 16 rows). Before each request or training
+phase every launch count is set to 0 and read just after it; a kernel of
+the path that never launched fails the run. Every phase that fails
+raises, and the script exits non-zero. It
 needs a CUDA device and never falls back to the CPU. The card's name and
 power limit are printed near the top; the line before the last names
 every kernel with its launches (K1 and K2 during the nested matmul-route
-requests, K3 during the train_256 preset's timed steps, K4 during the
-flash-route requests), its error and its times; the
-last line is one JSON object with "ok" and the device.
+requests, K2·struct and K2·pipe during the train_1024 preset's timed steps,
+K3 during the train_256 preset's timed steps, K4 during the flash-route
+requests), its error and its times; the last line is one JSON object with
+"ok" and the device.
 """
 from __future__ import annotations
 
@@ -71,6 +84,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import NamedTuple
 
 SEED = 0
 LM_LEN = 32
@@ -146,10 +160,33 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
 # -- kernel launch shapes of a path ---------------------------------------
 
 
-def record_launch_shapes(run):
-    """Run ``run()`` with the kernel wrappers wrapped, and return the
-    distinct launch shapes it gave them: K2 keys (B, H, W, operand
-    channels, Cout, residual, stats, shortcut, silu) and K1 keys (B, H, W, C)."""
+class K2Key(NamedTuple):
+    """One K2 launch shape: operand channels ``cs`` and ``cout`` as the
+    kernel sees them (packed channels when ``struct``)."""
+    b: int
+    h: int
+    w: int
+    cs: tuple
+    cout: int
+    residual: bool
+    stats: bool
+    proj: bool
+    silu: bool
+    struct: bool
+    pipe: bool
+
+    def unpacked(self) -> "K2Key":
+        """The same convolution at the unpacked shape (itself if unpacked)."""
+        if not self.struct:
+            return self
+        return self._replace(h=2 * self.h, w=2 * self.w, cs=tuple(c // 4 for c in self.cs),
+                             cout=self.cout // 4, struct=False)
+
+
+def record_launch_shapes(run, grad: bool = False):
+    """Run ``run()`` with the kernel wrappers wrapped (under ``no_grad``
+    unless ``grad``), and return the distinct launch shapes it gave them:
+    K2Keys and K1 keys (B, H, W, C)."""
     import torch
 
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
@@ -159,10 +196,13 @@ def record_launch_shapes(run):
 
     def conv_rec(x, a, b, w, bias, residual=None, **kw):
         xs = x if isinstance(x, (tuple, list)) else (x,)
-        k2.add((*xs[0].shape[:3], tuple(xi.shape[-1] for xi in xs),
-                (w[0] if isinstance(w, (tuple, list)) else w).shape[-1],
-                residual is not None, bool(kw.get("emit_stats")),
-                kw.get("proj_kernel") is not None, kw.get("apply_silu", True)))
+        cs = tuple(xi.shape[-1] for xi in xs)
+        cout = (w[0] if isinstance(w, (tuple, list)) else w).shape[-1]
+        k2.add(K2Key(*xs[0].shape[:3], cs, cout,
+                     residual is not None, bool(kw.get("emit_stats")),
+                     kw.get("proj_kernel") is not None, kw.get("apply_silu", True),
+                     bool(kw.get("packed_struct")),
+                     fused_resnet.pipelines(cs, *xs[0].shape[:3], cout, kw.get("pipelined"))))
         return conv(x, a, b, w, bias, residual, **kw)
 
     def sums_rec(x):
@@ -171,7 +211,7 @@ def record_launch_shapes(run):
 
     fused_resnet.affine_silu_conv3x3, gn_stats.spatial_sums = conv_rec, sums_rec
     try:
-        with torch.no_grad():
+        with contextlib.nullcontext() if grad else torch.no_grad():
             run()
         torch.cuda.synchronize()
     finally:
@@ -179,11 +219,13 @@ def record_launch_shapes(run):
     return sorted(k2), sorted(k1)
 
 
-def k2_bound(key):
+def k2_bound(key: K2Key):
     """(least ms, what bounds it) for one K2 launch on the H100: each input
     read once and each output written once over HBM, the convolution and
-    shortcut products over the dense bf16 tensor-core peak."""
-    bsz, h, w, cs, cout, residual, stats, proj, _ = key
+    shortcut products over the dense bf16 tensor-core peak. A packed launch
+    reads against its unpacked convolution (the same bytes, 9 unpacked taps),
+    so that both routes have one yardstick."""
+    bsz, h, w, cs, cout, residual, stats, proj = key.unpacked()[:8]
     ct, px = sum(cs), bsz * h * w
     flops = 2 * px * ct * cout * (9 + proj)
     nbytes = (2 * px * ct + 2 * 4 * bsz * ct + 2 * 9 * ct * cout + 4 * cout
@@ -201,25 +243,40 @@ def k1_bound(key):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def _conv_inputs(key, dev, g):
+def _conv_inputs(key: K2Key, dev, g):
+    """Random bf16 operands and residual, f32 coefficients and bias, bf16
+    weights for a launch shape. Packed: the weights are the packed kernels
+    of random unpacked ones in their combined form (as the model hands them
+    over), and ``kw["dense"]`` keeps their (3, 3) form for the library
+    call; the shortcut is the block-diagonal packed 1x1 kernel."""
     import torch
 
-    bsz, h, w, cs, cout, residual, _, proj, _ = key
-    ct = sum(cs)
+    from ml_mdm_tpu_torch.ops import fused_resnet
+    from ml_mdm_tpu_torch.ops import space_to_depth as s2d
+
+    bsz, h, w, cs, cout, residual = key[:6]
+    m = 4 if key.struct else 1
+    ct = sum(cs) // m
     bf = torch.bfloat16
     xs = tuple(torch.randn((bsz, h, w, c), generator=g, device=dev).to(bf) for c in cs)
     a = tuple(torch.randn((bsz, c), generator=g, device=dev) * 0.2 + 1.0 for c in cs)
     b = tuple(torch.randn((bsz, c), generator=g, device=dev) * 0.3 for c in cs)
-    wk = tuple((torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * ct) ** 0.5).to(bf)
+    wk = tuple(torch.randn((3, 3, c // m, cout // m), generator=g, device=dev) / (9 * ct) ** 0.5
                for c in cs)
     bias = torch.randn((cout,), generator=g, device=dev) * 0.1
     res = torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf) if residual else None
     kw = {}
-    if proj:
-        kw["proj_kernel"] = tuple((torch.randn((c, cout), generator=g, device=dev)
-                                   / ct ** 0.5).to(bf) for c in cs)
+    if key.proj:
+        pk = tuple(torch.randn((1, 1, c // m, cout // m), generator=g, device=dev) / ct ** 0.5
+                   for c in cs)
+        kw["proj_kernel"] = tuple((s2d.pack_conv1x1_kernel(p) if key.struct else p)[0, 0].to(bf)
+                                  for p in pk)
         kw["proj_bias"] = torch.randn((cout,), generator=g, device=dev) * 0.1
-    return xs, a, b, wk, bias, res, kw
+    if key.struct:
+        dense = tuple(s2d.pack_conv3x3_kernel(wi).to(bf) for wi in wk)
+        return xs, a, b, tuple(fused_resnet.struct_weights(d) for d in dense), bias, res, \
+            dict(kw, packed_struct=True, dense=dense)
+    return xs, a, b, tuple(wi.to(bf) for wi in wk), bias, res, kw
 
 
 def library_conv(xs, a, b, wk, bias, res, stats, proj_kernel=None, proj_bias=None):
@@ -250,10 +307,11 @@ def library_conv(xs, a, b, wk, bias, res, stats, proj_kernel=None, proj_bias=Non
 
 def _new_totals():
     return {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "shapes": 0}
+            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "shapes": 0,
+            "serial_ms": 0.0, "unpacked_ms": 0.0, "paired_ms": 0.0}
 
 
-def _add(tot, err, ms, pms, lms, bound, by):
+def _add(tot, err, ms, pms, lms, bound, by, serial_ms=0.0, unpacked_ms=0.0):
     tot["err"] = max(tot["err"], err)
     tot["ms"] += ms
     tot["plain_ms"] += pms
@@ -261,19 +319,34 @@ def _add(tot, err, ms, pms, lms, bound, by):
     tot["bound_ms"] += bound
     tot["ops_ms" if by == "operations" else "bytes_ms"] += bound
     tot["shapes"] += 1
+    tot["serial_ms"] += serial_ms
+    tot["unpacked_ms"] += unpacked_ms
+    tot["paired_ms"] += ms if unpacked_ms else 0.0  # kernel time of the shapes beside it
 
 
-def check_kernels(k2_keys, k1_keys, dev, label: str):
+K2_MODES = ("K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe")
+
+
+def _key_label(key: K2Key) -> str:
+    return (f"B={key.b} {key.h}x{key.w} {'+'.join(map(str, key.cs))}->{key.cout}"
+            f"{' residual' if key.residual else ''}{' stats' if key.stats else ''}"
+            f"{' shortcut' if key.proj else ''}{'' if key.silu else ' no-silu'}"
+            f"{' packed' if key.struct else ''}{' pipelined' if key.pipe else ''}")
+
+
+def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
     """Each launch shape: kernel against plain version (tolerance), then
-    kernel, plain and library times and the bound. Returns per-mode
-    totals: K1, K2 (every shape), K2·N (shapes with several operands),
-    K2·proj (shapes with the shortcut)."""
+    kernel, plain and library times and the bound; a pipelined launch also
+    beside the serial K2 (and y compared with it), a packed one beside the
+    unpacked K2 at the same unpacked shape. Returns per-mode totals: K1, K2
+    (every shape), K2·N (several operands), K2·proj (the shortcut),
+    K2·struct (packed), K2·pipe (pipelined)."""
     import torch
 
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    tot = {m: _new_totals() for m in ("K1", "K2", "K2·N", "K2·proj")}
+    tot = {m: _new_totals() for m in ("K1",) + K2_MODES}
     for key in k1_keys:
         x = (torch.randn(key, generator=g, device=dev) + 0.25).to(torch.bfloat16)
         s1, s2 = gn_stats.spatial_sums(x)
@@ -281,62 +354,87 @@ def check_kernels(k2_keys, k1_keys, dev, label: str):
         err = max(rel_err(s1, p1), rel_err(s2, p2))
         if not err <= K1_TOL:
             raise AssertionError(f"K1 spatial_sums {key}: rel err {err} > {K1_TOL}")
-        ms = cuda_ms(lambda: gn_stats.spatial_sums(x))
+        ms = cuda_ms(lambda: gn_stats.spatial_sums(x), reps=reps)
+        # the plain version, two torch.sum over the f32 upcast, is also the
+        # one library call that computes these sums
         pms = cuda_ms(lambda: gn_stats.spatial_sums_plain(x), reps=3)
         bound, by = k1_bound(key)
         log(f"{label} K1 spatial_sums {key}: rel_err {err:.3e} kernel {ms:.4f} ms "
-            f"({x.numel() * 2 / ms / 1e6:.0f} GB/s) plain {pms:.4f} ms bound {bound:.4f} ms ({by})")
-        _add(tot["K1"], max(abs_err(s1, p1), abs_err(s2, p2)), ms, pms, None, bound, by)
+            f"({x.numel() * 2 / ms / 1e6:.0f} GB/s) plain (= library) {pms:.4f} ms "
+            f"bound {bound:.4f} ms ({by})")
+        _add(tot["K1"], max(abs_err(s1, p1), abs_err(s2, p2)), ms, pms, pms, bound, by)
     for key in k2_keys:
         xs, a, b, wk, bias, res, kw = _conv_inputs(key, dev, g)
-        stats, silu = key[6], key[8]
+        dense = kw.pop("dense", wk)
 
-        def kernel():
-            return fused_resnet.affine_silu_conv3x3(xs, a, b, wk, bias, res, emit_stats=stats,
-                                                    apply_silu=silu, **kw)
+        def kernel(**extra):
+            return fused_resnet.affine_silu_conv3x3(xs, a, b, wk, bias, res, emit_stats=key.stats,
+                                                    apply_silu=key.silu, **kw, **extra)
 
         def plain():
             return fused_resnet.affine_silu_conv3x3_plain(xs, a, b, wk, bias, res,
-                                                          emit_stats=stats, apply_silu=silu, **kw)
+                                                          emit_stats=key.stats,
+                                                          apply_silu=key.silu, **kw)
 
         out, ref = kernel(), plain()
         out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
         errs = [rel_err(o, r) for o, r in zip(out, ref)]
         if not max(errs) <= K2_TOL:
-            raise AssertionError(f"K2 {key}: rel errs {errs} > {K2_TOL}")
-        ms = cuda_ms(kernel)
+            raise AssertionError(f"K2 {_key_label(key)}: rel errs {errs} > {K2_TOL}")
+        ms = cuda_ms(kernel, reps=reps)
         pms = cuda_ms(plain, warmup=1, reps=3)
-        lms = (cuda_ms(lambda: library_conv(xs, a, b, wk, bias, res, stats, **kw))
-               if silu else None)
+        lms = (cuda_ms(lambda: library_conv(xs, a, b, dense, bias, res, key.stats,
+                                            **{k: v for k, v in kw.items() if k.startswith("proj")}),
+                       reps=reps) if key.silu else None)
         bound, by = k2_bound(key)
-        bsz, h, w, cs, cout = key[:5]
-        tflops = 2 * bsz * h * w * sum(cs) * cout * (9 + key[7]) / ms / 1e9
-        log(f"{label} K2 B={bsz} {h}x{w} {'+'.join(map(str, cs))}->{cout}"
-            f"{' residual' if key[5] else ''}{' stats' if stats else ''}"
-            f"{' shortcut' if key[7] else ''}: rel_errs {', '.join(f'{e:.3e}' for e in errs)} "
-            f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {pms:.4f} ms "
-            f"library {lms if lms is None else f'{lms:.4f}'} ms bound {bound:.4f} ms ({by})")
+        extra, sms, ums = "", 0.0, 0.0
+        if key.pipe:
+            serial = kernel(pipelined=False)
+            serial = serial if isinstance(serial, tuple) else (serial,)
+            diff = abs_err(out[0], serial[0])
+            sms = cuda_ms(lambda: kernel(pipelined=False), reps=reps)
+            extra += f" serial K2 {sms:.4f} ms (y max abs diff to it {diff:.3e})"
+        ukey = key.unpacked()
+        if key.struct and ukey.cout % 8 == 0 and all(c % 8 == 0 for c in ukey.cs):
+            uxs, ua, ub, uwk, ubias, ures, ukw = _conv_inputs(ukey, dev, g)
+            ums = cuda_ms(lambda: fused_resnet.affine_silu_conv3x3(
+                uxs, ua, ub, uwk, ubias, ures, emit_stats=key.stats, apply_silu=key.silu, **ukw),
+                reps=reps)
+            extra += f" unpacked K2 ({_key_label(ukey)}) {ums:.4f} ms"
+        elif key.struct:  # the packed output layer: 3 unpacked channels, no K2 launch
+            extra += " unpacked K2: no such launch"
+        flops = 2 * ukey.b * ukey.h * ukey.w * sum(ukey.cs) * ukey.cout * (9 + key.proj)
+        log(f"{label} K2 {_key_label(key)}: rel_errs {', '.join(f'{e:.3e}' for e in errs)} "
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} unpacked TFLOP/s) plain {pms:.4f} ms "
+            f"library {lms if lms is None else f'{lms:.4f}'} ms bound {bound:.4f} ms ({by})"
+            + extra)
         err = max(abs_err(o, r) for o, r in zip(out, ref))
-        modes = ["K2"] + (["K2·N"] if len(cs) > 1 else []) + (["K2·proj"] if key[7] else [])
+        modes = (["K2"] + (["K2·N"] if len(key.cs) > 1 else []) + (["K2·proj"] if key.proj else [])
+                 + (["K2·struct"] if key.struct else []) + (["K2·pipe"] if key.pipe else []))
         for m in modes:
-            _add(tot[m], err, ms, pms, lms, bound, by)
+            _add(tot[m], err, ms, pms, lms, bound, by, sms, ums)
     # the path runs the shortcut only beside the stats (conv1): hold its
     # shapes without them too, untimed and outside the totals
     for key in k2_keys:
-        if not (key[6] and key[7]):
+        if not (key.stats and key.proj):
             continue
         xs, a, b, wk, bias, res, kw = _conv_inputs(key, dev, g)
+        kw.pop("dense", None)
         out = fused_resnet.affine_silu_conv3x3(xs, a, b, wk, bias, res, **kw)
         ref = fused_resnet.affine_silu_conv3x3_plain(xs, a, b, wk, bias, res, **kw)
         errs = [rel_err(o, r) for o, r in zip(out, ref)]
         if not max(errs) <= K2_TOL:
-            raise AssertionError(f"K2 {key} without stats: rel errs {errs} > {K2_TOL}")
-        log(f"{label} K2 {key[:5]} shortcut without stats: rel_errs "
+            raise AssertionError(f"K2 {_key_label(key)} without stats: rel errs {errs} > {K2_TOL}")
+        log(f"{label} K2 {_key_label(key)} shortcut without stats: rel_errs "
             f"{', '.join(f'{e:.3e}' for e in errs)}")
     for m, t in tot.items():
         if t["shapes"]:
             log(f"{label} {m} over {t['shapes']} shapes: kernel {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms" + (f", serial K2 {t['serial_ms']:.4f} ms"
+                                             if m == "K2·pipe" else "")
+                + (f", unpacked K2 {t['unpacked_ms']:.4f} ms against {t['paired_ms']:.4f} ms packed "
+                   f"at the same shapes" if m == "K2·struct" else ""))
     return tot
 
 
@@ -486,9 +584,11 @@ def check_images(out, shape, what: str):
         f"share of pixels inside (-1, 1): {inner:.4f}")
 
 
-SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj")
+SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj", "K2·pipe")
+NESTED_KERNELS = SAMPLING_KERNELS + ("K2·struct",)  # the nested models pack a shell
 FLASH_KERNELS = SAMPLING_KERNELS + ("K4",)
-TRAINING_KERNELS = ("K1", "K2", "K3")
+TRAINING_KERNELS = ("K1", "K2", "K2·pipe", "K3")
+TRAIN_1024_KERNELS = TRAINING_KERNELS + ("K2·struct",)
 
 
 def reset_counts():
@@ -516,9 +616,10 @@ def read_counts(what: str, required=SAMPLING_KERNELS):
 
 
 def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen,
-                 flash: bool = False, **kw):
+                 flash: bool = False, required=None, **kw):
     """n timed sampling requests between a count reset and a count read;
-    returns (counts, outputs). With ``flash`` they run on the flash route,
+    returns (counts, outputs). ``required``: the kernels of the path
+    (default: the flagship's). With ``flash`` they run on the flash route,
     and K4 must have launched once per self-attention module, step and
     request."""
     import torch
@@ -535,7 +636,9 @@ def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen,
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             log(f"{what} request {i}: batch {batch}: {dt:.4f} s, {batch / dt:.4f} samples/s")
-    counts = read_counts(what, FLASH_KERNELS if flash else SAMPLING_KERNELS)
+    if required is None:
+        required = FLASH_KERNELS if flash else SAMPLING_KERNELS
+    counts = read_counts(what, required + (("K4",) if flash and "K4" not in required else ()))
     if flash:
         expected = self_attention_count(pipe.vision_module) * kw["num_inference_steps"] * n
         if counts["K4"] != expected:
@@ -642,7 +745,7 @@ def profile_forward(forward, what: str):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         log(f"{what} profile: the profiler recorded no device time")
-        return ms
+        return ms, None, None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -662,7 +765,7 @@ def profile_forward(forward, what: str):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {tot / 1e3:9.3f} ms {100 * tot / busy:5.1f}%  x{n:<5d} {name[:88]}")
-    return ms
+    return ms, busy / 1e3, window / 1e3
 
 
 # -- the paths --------------------------------------------------------------
@@ -690,7 +793,9 @@ def path_64(dev):
     with phase("64px: CFG request"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 4)
         cond = text_conditioning(dev, 16, lm_dim, gen)
+        # 16 rows: every launch has fewer thread blocks than K2·pipe's rule asks
         _, outs = run_requests(pipe, dev, "64px CFG", 1, 8, side, cond, gen,
+                               required=tuple(k for k in SAMPLING_KERNELS if k != "K2·pipe"),
                                num_inference_steps=50, resample_steps=True, ddim_eta=0.0,
                                guidance_scale=5.0)
         check_images(outs[0], (8, side, side, 3), "64px CFG request")
@@ -737,8 +842,8 @@ def path_256(dev):
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
         cond = text_conditioning(dev, 2 * batch, lm_dim, gen)
         counts, outs = run_requests(pipe, dev, "256px", 2, batch, side, cond, gen,
-                                    num_inference_steps=50, resample_steps=True,
-                                    ddim_eta=0.0, guidance_scale=guidance)
+                                    required=NESTED_KERNELS, num_inference_steps=50,
+                                    resample_steps=True, ddim_eta=0.0, guidance_scale=guidance)
         for i, out in enumerate(outs):
             check_images(out, (batch, side, side, 3), f"256px request {i}")
     with phase("256px: profile"):
@@ -750,7 +855,8 @@ def path_256(dev):
         totals_k4 = check_k4(k4_keys, dev, "256px")
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
         counts_k4, outs = run_requests(pipe, dev, "256px flash", 1, batch, side, cond, gen,
-                                       flash=True, num_inference_steps=50, resample_steps=True,
+                                       flash=True, required=NESTED_KERNELS,
+                                       num_inference_steps=50, resample_steps=True,
                                        ddim_eta=0.0, guidance_scale=guidance)
         check_images(outs[0], (batch, side, side, 3), "256px flash request 0")
     return totals, counts, totals_k4, counts_k4
@@ -768,8 +874,8 @@ def path_1024(dev):
         log(f"cc12m_1024x1024 built on {dev}: {n_params} parameters (bf16), scales {pipe.scales}")
         forward = forward_inputs(pipe, dev, batch, side, lm_dim)
         k2_keys, k1_keys = record_launch_shapes(forward)
-        if not any(k[2] == 1024 for k in k2_keys):
-            raise AssertionError("K2 never launched at W = 1024")
+        if not any(k.struct and k.w == side // 2 for k in k2_keys):
+            raise AssertionError("K2·struct never launched on the packed 1024px shell (W = 512)")
         totals = check_kernels(k2_keys, k1_keys, dev, "1024px")
     with phase("1024px: one untimed forward, then the sample_1024 request"):
         torch.cuda.synchronize()
@@ -783,8 +889,8 @@ def path_1024(dev):
         gen = torch.Generator(device=dev).manual_seed(SEED + 7)
         cond = text_conditioning(dev, batch, lm_dim, gen)
         counts, outs = run_requests(pipe, dev, f"1024px DDIM-{steps}", 1, batch, side, cond,
-                                    gen, num_inference_steps=steps, resample_steps=True,
-                                    ddim_eta=1.0)
+                                    gen, required=NESTED_KERNELS, num_inference_steps=steps,
+                                    resample_steps=True, ddim_eta=1.0)
         check_images(outs[0], (batch, side, side, 3), "1024px request")
     with phase("1024px: output_inner"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -802,14 +908,16 @@ def path_1024(dev):
 
 def record_k3_shapes(run):
     """Run ``run()`` (a forward and backward) with K3's wrapper wrapped, and
-    return its distinct launch shapes: (B, H, W, C, Cout, residual, stats)."""
+    return its distinct launch shapes: (B, H, W, C, Cout, residual, stats,
+    packed)."""
     from ml_mdm_tpu_torch.ops import fused_resnet
 
     keys = set()
     vjp = fused_resnet.affine_silu_conv3x3_vjp
 
     def rec(x, a, b, w, bias, residual=None, **kw):
-        keys.add((*x.shape, w.shape[-1], residual is not None, bool(kw.get("emit_stats"))))
+        keys.add((*x.shape, w.shape[-1], residual is not None, bool(kw.get("emit_stats")),
+                  bool(kw.get("packed_struct"))))
         return vjp(x, a, b, w, bias, residual, **kw)
 
     fused_resnet.affine_silu_conv3x3_vjp = rec
@@ -828,9 +936,13 @@ def k3_bound(key):
     and weight gradients' tensor-core FLOPs (2 x 2 B H W 9 C Cout) over the
     dense bf16 peak, or the bytes over HBM: x, dy (and y with the stats)
     read, dx written, the f32 weights read and their gradient written, and
-    the (B, C) vectors."""
-    bsz, h, w, c, cout, residual, stats = key
+    the (B, C) vectors. A packed launch reads against its unpacked
+    convolution."""
+    bsz, h, w, c, cout, residual, stats, struct = key
     px = bsz * h * w
+    if struct:  # the same bytes; the unpacked channels and taps
+        c, cout = c // 4, cout // 4
+        px *= 4
     flops = 4 * px * 9 * c * cout
     nbytes = (2 * px * c * 2 + 2 * px * cout * (1 + stats) + 2 * 4 * 9 * c * cout
               + 4 * 4 * bsz * c + 4 * cout + (2 * 4 * bsz * cout if stats else 0))
@@ -840,15 +952,17 @@ def k3_bound(key):
 
 def _k3_inputs(key, dev, g):
     """bf16 x, residual and dy; f32 coefficients, weights (as training holds
-    them), bias and stats cotangents."""
+    them; packed: the unpacked kernel, packed inside the call), bias and
+    stats cotangents."""
     import torch
 
-    bsz, h, w, c, cout, residual, stats = key
+    bsz, h, w, c, cout, residual, stats, struct = key
+    m = 4 if struct else 1
     bf = torch.bfloat16
     ins = [torch.randn((bsz, h, w, c), generator=g, device=dev).to(bf),
            torch.randn((bsz, c), generator=g, device=dev) * 0.2 + 1.0,
            torch.randn((bsz, c), generator=g, device=dev) * 0.3,
-           torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5,
+           torch.randn((3, 3, c // m, cout // m), generator=g, device=dev) / (9 * c // m) ** 0.5,
            torch.randn((cout,), generator=g, device=dev) * 0.1,
            torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf) if residual else None]
     cots = [torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf)]
@@ -858,14 +972,20 @@ def _k3_inputs(key, dev, g):
     return ins, cots
 
 
-def _backward_of(fn, ins, cots, stats):
+def _backward_of(fn, ins, cots, stats, struct):
     """One forward through fn; returns a closure that runs its backward
     (the graph is kept, so it can run again) and returns the gradients of
-    x, a, b, w, bias and the residual."""
+    x, a, b, w, bias and the residual. Packed, w is the unpacked kernel,
+    packed inside, so its gradient is the unpacked one."""
     import torch
 
+    from ml_mdm_tpu_torch.ops import space_to_depth as s2d
+
     leaves = [t.detach().requires_grad_(True) if t is not None else None for t in ins]
-    out = fn(*leaves, emit_stats=stats)
+    args = list(leaves)
+    if struct:
+        args[3] = s2d.pack_conv3x3_kernel(leaves[3])
+    out = fn(*args, emit_stats=stats, packed_struct=struct)
     outs = out if stats else (out,)
     targets = [t for t in leaves if t is not None]
     return lambda: torch.autograd.grad(outs, targets, cots, retain_graph=True), outs
@@ -873,7 +993,8 @@ def _backward_of(fn, ins, cots, stats):
 
 def library_k3_backward(x, a, b, w16, dy, y=None, ds1=None, ds2=None):
     """K3's backward with cuDNN's bf16 dgrad in place of K2 (and cuDNN's
-    wgrad, as K3 has), for timing only."""
+    wgrad, as K3 has; packed: both on the dense packed kernel), for timing
+    only."""
     import torch
 
     if y is not None:
@@ -892,7 +1013,7 @@ def library_k3_backward(x, a, b, w16, dy, y=None, ds1=None, ds2=None):
     return dx, (dv * x.float()).sum(dim=(1, 2)), dv.sum(dim=(1, 2)), dw, dy.float().sum(dim=(0, 1, 2))
 
 
-def check_k3(keys, dev):
+def check_k3(keys, dev, label: str = "256px train"):
     """Each K3 launch shape: the Function's backward against autograd of the
     plain version (K2_TOL), then the backward's time, the plain
     backward's, the library's, the weight re-layout's and the bound.
@@ -900,37 +1021,40 @@ def check_k3(keys, dev):
     import torch
 
     from ml_mdm_tpu_torch.ops import fused_resnet
+    from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     tot = _new_totals()
     relayout_ms = 0.0
     for key in keys:
-        bsz, h, w, c, cout, residual, stats = key
+        bsz, h, w, c, cout, residual, stats, struct = key
         ins, cots = _k3_inputs(key, dev, g)
-        kernel, outs = _backward_of(fused_resnet.affine_silu_conv3x3_vjp, ins, cots, stats)
-        plain, _ = _backward_of(fused_resnet.affine_silu_conv3x3_plain, ins, cots, stats)
+        kernel, outs = _backward_of(fused_resnet.affine_silu_conv3x3_vjp, ins, cots, stats, struct)
+        plain, _ = _backward_of(fused_resnet.affine_silu_conv3x3_plain, ins, cots, stats, struct)
         got, ref = kernel(), plain()
         errs = [rel_err(o, r) for o, r in zip(got, ref)]
         if not max(errs) <= K2_TOL:
             raise AssertionError(f"K3 {key}: rel errs {errs} > {K2_TOL}")
         ms = cuda_ms(kernel)
         pms = cuda_ms(plain, warmup=1, reps=3)
-        w16 = ins[3].to(torch.bfloat16)
+        wf = s2d.pack_conv3x3_kernel(ins[3]) if struct else ins[3]
+        w16 = wf.to(torch.bfloat16)
         extra = (outs[0].detach(), *cots[1:]) if stats else ()
         lms = cuda_ms(lambda: library_k3_backward(ins[0], ins[1], ins[2], w16, cots[0], *extra))
         # the data gradient's weights as K2's wrapper lays them out per call
-        rms = cuda_ms(lambda: ins[3].flip(0, 1).transpose(2, 3).to(torch.bfloat16)
-                      .permute(3, 0, 1, 2).reshape(c, 9 * cout).contiguous())
+        wt = wf.flip(0, 1).transpose(2, 3)
+        rms = cuda_ms(lambda: (fused_resnet.struct_weights(wt) if struct else wt)
+                      .to(torch.bfloat16).permute(3, 0, 1, 2).reshape(c, -1).contiguous())
         relayout_ms += rms
         bound, by = k3_bound(key)
-        log(f"K3 B={bsz} {h}x{w} {c}->{cout}{' residual' if residual else ''}"
-            f"{' stats' if stats else ''}: rel_errs (dx, da, db, dw, dbias"
-            f"{', dres' if residual else ''}) {', '.join(f'{e:.3e}' for e in errs)} "
-            f"backward {ms:.4f} ms ({4 * bsz * h * w * 9 * c * cout / ms / 1e9:.1f} TFLOP/s) "
-            f"plain {pms:.4f} ms library {lms:.4f} ms weight re-layout {rms:.4f} ms "
-            f"bound {bound:.4f} ms ({by})")
+        flops = 4 * bsz * h * w * 9 * c * cout / (4 if struct else 1)
+        log(f"{label} K3 B={bsz} {h}x{w} {c}->{cout}{' residual' if residual else ''}"
+            f"{' stats' if stats else ''}{' packed' if struct else ''}: rel_errs (dx, da, db, "
+            f"dw, dbias{', dres' if residual else ''}) {', '.join(f'{e:.3e}' for e in errs)} "
+            f"backward {ms:.4f} ms ({flops / ms / 1e9:.1f} unpacked TFLOP/s) plain {pms:.4f} ms "
+            f"library {lms:.4f} ms weight re-layout {rms:.4f} ms bound {bound:.4f} ms ({by})")
         _add(tot, max(abs_err(o, r) for o, r in zip(got, ref)), ms, pms, lms, bound, by)
-    log(f"K3 over {tot['shapes']} shapes: backward {tot['ms']:.4f} ms, plain "
+    log(f"{label} K3 over {tot['shapes']} shapes: backward {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms; the data gradient's weight re-layout {relayout_ms:.4f} ms")
     return tot
@@ -950,7 +1074,8 @@ def flat_grads(unet):
     return torch.cat([p.grad.flatten() for p in unet.parameters() if p.grad is not None])
 
 
-def train_kernel_vs_plain(pipe, dev, lm_dim: int, side: int, batch: int = 4):
+def train_kernel_vs_plain(pipe, dev, lm_dim: int, side: int, batch: int = 4,
+                          label: str = "256px train"):
     """One step's loss and gradients through the kernels and through the
     plain versions, from the same f32 weights, timesteps and noise."""
     import torch
@@ -972,11 +1097,11 @@ def train_kernel_vs_plain(pipe, dev, lm_dim: int, side: int, batch: int = 4):
     l_err = abs(lk - lp) / abs(lp)
     n_err = abs(float(gk.norm()) - float(gp.norm())) / float(gp.norm())
     cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
-    log(f"256px train, kernel vs plain path, one step B={batch}: loss {lk:.6f} vs {lp:.6f} "
+    log(f"{label}, kernel vs plain path, one step B={batch}: loss {lk:.6f} vs {lp:.6f} "
         f"(rel {l_err:.4e}, tol 1e-2); grad norm {float(gk.norm()):.6f} vs {float(gp.norm()):.6f} "
         f"(rel {n_err:.4e}, tol 5e-2); cosine {cos:.6f} (>= 0.99)")
     if not (l_err <= 1e-2 and n_err <= 5e-2 and cos >= 0.99 and torch.isfinite(gk).all()):
-        raise AssertionError("256px train: kernel path disagrees with plain path")
+        raise AssertionError(f"{label}: kernel path disagrees with plain path")
 
 
 def run_train_steps(step, state, pipe, dev, what: str, n: int, batch: int, side: int,
@@ -1003,7 +1128,8 @@ def run_train_steps(step, state, pipe, dev, what: str, n: int, batch: int, side:
     return times
 
 
-def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: int, gen):
+def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: int, gen,
+                       label: str = "256px train"):
     """One training step under the profiler: the device's busy and idle
     share, the top device time by kernel, and the device time of K3's
     backward split into its data gradient (K2 and the weights' re-layout),
@@ -1023,8 +1149,8 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        log("256px train profile: the profiler recorded no device time")
-        return
+        log(f"{label} profile: the profiler recorded no device time")
+        return None, None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -1035,7 +1161,7 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - min(e.time_range.start for e in events)
-    log(f"256px train profile, one step B={batch}: device busy {busy / 1e3:.3f} ms of a "
+    log(f"{label} profile, one step B={batch}: device busy {busy / 1e3:.3f} ms of a "
         f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}")
     by_name = {}
     for e in kernels:
@@ -1059,6 +1185,7 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
                                      - parts["K3 data gradient, ATen part (re-layout, ones/zeros)"])
     for name, us in parts.items():
         log(f"  {name}: {us / 1e3:.3f} ms device, {100 * us / busy:.1f}% of busy")
+    return busy / 1e3, window / 1e3
 
 
 def path_train(dev):
@@ -1151,6 +1278,175 @@ def path_train(dev):
     return tot_k3, counts
 
 
+# -- 1024px training: the train_1024 preset ----------------------------------------
+
+
+def set_packing(unet, pack_min_side: int) -> None:
+    """Set ``pack_min_side`` of a built model (0: packing off): the plan
+    reads the configs, each stage its own field."""
+    from ml_mdm_tpu_torch.models.layers import ResNetBlockStage
+    from ml_mdm_tpu_torch.presets import set_pack_min_side
+
+    set_pack_min_side(unet.config, pack_min_side)
+    for m in unet.modules():
+        if isinstance(m, ResNetBlockStage):
+            m.pack_min_side = pack_min_side
+
+
+def level_plans(unet, side: int):
+    """The pack plan of every level of a nested U-Net, outermost first."""
+    import torch
+
+    plans, m = [], unet
+    while m is not None:
+        plans.append(m._pack_plan(torch.zeros((1, side, side, 3))))
+        side //= 2 ** (len(m.config.resolution_channels) - 1)
+        m = getattr(m, "inner_unet", None)
+    return plans
+
+
+def packed_vs_unpacked(pipe, state, step, dev, lm_dim: int, side: int, gen):
+    """pack_min_side 0 against the default on the same weights: one forward
+    at batch 4 (eval mode) and one training step at batch 2, each timed and
+    profiled, in the order packed, unpacked, unpacked, packed; the two
+    routes' forward outputs and loss and gradients compared."""
+    import torch
+
+    unet = pipe.vision_module
+    packed_at = unet.config.pack_min_side  # 512, the configs' own
+    routes = (("packed", packed_at), ("unpacked", 0))
+    unet.eval()
+    fwd = forward_inputs(pipe, dev, 4, side, lm_dim)
+    outs, times = {}, {name: [] for name, _ in routes}
+    with torch.no_grad():
+        for name, value in routes + routes[::-1]:
+            set_packing(unet, value)
+            outs[name] = fwd()
+            times[name].append(cuda_ms(fwd, warmup=1, reps=3))
+    busy = {}
+    for name, value in routes:
+        set_packing(unet, value)
+        _, busy[name], _ = profile_forward(fwd, f"1024px B=4 forward, {name}")
+    err = max(rel_err(a, b) for a, b in zip(outs["packed"], outs["unpacked"]))
+    log(f"1024px B=4 forward, packed against unpacked (NVIDIA H100): "
+        + "; ".join(f"{n} {times[n][0]:.3f} / {times[n][1]:.3f} ms (CUDA events, median of 3), "
+                    f"device busy {busy[n] if busy[n] is None else f'{busy[n]:.3f}'} ms"
+                    for n, _ in routes)
+        + f"; rel err between the routes {err:.4e} (tol 5e-2)")
+    if not err <= 5e-2:
+        raise AssertionError("1024px forward: the packed route disagrees with the unpacked one")
+    del outs, fwd
+    unet.train()
+    data = {k: v.to(torch.bfloat16) for k, v in train_batch(dev, 2, side, lm_dim, gen).items()}
+    time_ = torch.randint(0, 1000, (2,), generator=gen, device=dev)
+    eps = [n.to(torch.bfloat16) for n in pipe.get_noise(2, side, gen)]
+    grads = {}
+    for name, value in routes:
+        set_packing(unet, value)
+        unet.zero_grad(set_to_none=True)
+        loss = pipe.get_loss(data, time=time_, eps=eps)[0].mean()
+        loss.backward()
+        grads[name] = (float(loss.detach()), flat_grads(unet))
+        unet.zero_grad(set_to_none=True)
+    (lp, gp), (lu, gu) = grads["packed"], grads["unpacked"]
+    l_err = abs(lp - lu) / abs(lu)
+    n_err = abs(float(gp.norm()) - float(gu.norm())) / float(gu.norm())
+    cos = float(torch.nn.functional.cosine_similarity(gp, gu, dim=0))
+    del grads, gp, gu
+    step_s = {name: [] for name, _ in routes}
+    for name, value in routes + routes[::-1]:
+        set_packing(unet, value)
+        step_s[name] += run_train_steps(step, state, pipe, dev, f"1024px train, {name}", 1, 2,
+                                        side, lm_dim, gen)
+    step_busy = {}
+    for name, value in routes:
+        set_packing(unet, value)
+        step_busy[name], _ = profile_train_step(step, state, pipe, dev, 2, side, lm_dim, gen,
+                                                f"1024px train, {name}")
+    set_packing(unet, packed_at)
+    log(f"1024px train step B=2, packed against unpacked (NVIDIA H100): "
+        + "; ".join(f"{n} {step_s[n][0]:.4f} / {step_s[n][1]:.4f} s (host clock), device busy "
+                    f"{step_busy[n] if step_busy[n] is None else f'{step_busy[n]:.3f}'} ms"
+                    for n, _ in routes)
+        + f"; loss rel err {l_err:.4e}, grad norm rel err {n_err:.4e} (tol 5e-2), "
+        f"gradient cosine {cos:.6f}")
+    if not (l_err <= 5e-2 and n_err <= 5e-2 and cos >= 0.99):
+        raise AssertionError("1024px train: the packed route disagrees with the unpacked one")
+
+
+def path_train_1024(dev):
+    """The train_1024 preset (cc12m_1024x1024, batch 2, selective remat):
+    every kernel launch shape of one step held against its plain version and
+    timed; a batch-1 step, kernel path against plain path; 1 untimed and 3
+    timed steps; one profiled step; packed against unpacked. Returns (the K2
+    totals of the step's shapes, K3's, the launch counts of the timed
+    steps)."""
+    import gc
+
+    import torch
+
+    from ml_mdm_tpu_torch import trainer
+    from ml_mdm_tpu_torch.presets import train_1024
+
+    with phase("1024px train: build, kernel shapes of one step"):
+        preset = train_1024(dev, seed=SEED)
+        pipe, cfg, batch, lm_dim, side = (preset.pipeline, preset.config, preset.batch,
+                                          preset.lm_dim, preset.side)
+        unet = pipe.vision_module
+        n_params = sum(p.numel() for p in unet.parameters())
+        log(f"train_1024 built on {dev}: cc12m_1024x1024, {n_params} parameters "
+            f"({next(unet.parameters()).dtype}), compute {unet.dtype}, batch {batch}, text "
+            f"({preset.lm_len}, {lm_dim}), {cfg}; pack plans per level {level_plans(unet, side)}")
+        trainer.set_remat(unet, cfg.remat_save_conv_max_side)  # as the step sets it
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+        data = {k: v.to(torch.bfloat16)
+                for k, v in train_batch(dev, batch, side, lm_dim, gen).items()}
+
+        def one_backward():
+            unet.zero_grad(set_to_none=True)
+            pipe.get_loss(data, gen)[0].mean().backward()
+
+        k3_box = []
+        reset_counts()
+        k2_keys, k1_keys = record_launch_shapes(
+            lambda: k3_box.append(record_k3_shapes(one_backward)), grad=True)
+        read_counts("one train_1024 loss and backward (the recorded step)", TRAIN_1024_KERNELS)
+        k3_keys = k3_box[0]
+        unet.zero_grad(set_to_none=True)
+        del data
+        log(f"{len(k2_keys)} K2 launch shapes ({sum(k.struct for k in k2_keys)} packed, "
+            f"{sum(k.pipe for k in k2_keys)} pipelined), {len(k1_keys)} K1, {len(k3_keys)} K3 "
+            f"({sum(k[-1] for k in k3_keys)} packed)")
+        tot = check_kernels(k2_keys, k1_keys, dev, "1024px train", reps=3)
+        tot_k3 = check_k3(k3_keys, dev, "1024px train")
+    with phase("1024px train: kernel path vs plain path, batch 1"):
+        train_kernel_vs_plain(pipe, dev, lm_dim, side, batch=1, label="1024px train")
+    with phase("1024px train: the train_1024 preset, 1 untimed and 3 timed steps"):
+        state = trainer.TrainState.create(unet)
+        step = trainer.make_train_step(pipe, cfg)
+        run_train_steps(step, state, pipe, dev, "1024px train", 1, batch, side, lm_dim, gen,
+                        timed=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        times = run_train_steps(step, state, pipe, dev, "1024px train", 3, batch, side, lm_dim,
+                                gen)
+        counts = read_counts("the train_1024 preset's timed steps", TRAIN_1024_KERNELS)
+        dt = sum(times) / len(times)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"1024px train (batch {batch}; 1024px, 256px and 64px levels, remat above side "
+            f"{cfg.remat_save_conv_max_side}): {1 / dt:.4f} steps/s, {batch / dt:.4f} images/s "
+            f"(mean of 3 steps); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    with phase("1024px train: profile one step"):
+        profile_train_step(step, state, pipe, dev, batch, side, lm_dim, gen, "1024px train")
+    with phase("1024px: packed against unpacked (forward B=4, train step B=2)"):
+        packed_vs_unpacked(pipe, state, step, dev, lm_dim, side, gen)
+    del pipe, unet, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tot, tot_k3, counts
+
+
 # -- the attention modules no shipped config turns on ---------------------------
 
 
@@ -1233,7 +1529,10 @@ def nvcc_report(lib_path, name: str):
             log(f"  nvcc {name}: {line.strip()}")
         elif "Compiling entry function" in line:
             m = re.search(r"flash_attention_kernelILi(\d+)E", line)
-            width = f"D={m.group(1)}: " if m else ""
+            k2 = re.search(r"affine_silu_conv3x3_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+            width = (f"D={m.group(1)}: " if m else
+                     f"shortcut {k2.group(1)} packed {k2.group(2)} pipelined {k2.group(3)}: "
+                     if k2 else "")
         elif "spill" in line or "registers" in line:
             lines.append(width + line.replace("ptxas info    :", "").strip())
             if "registers" in line:
@@ -1294,46 +1593,62 @@ def main() -> int:
     torch.cuda.empty_cache()
     tot_k3, counts_train = path_train(dev)
     torch.cuda.empty_cache()
+    tot_t1024, tot_k3_1024, counts_t1024 = path_train_1024(dev)
+    torch.cuda.empty_cache()
     with phase("new attention modules on the card"):
         path_new_modules(dev)
     with phase("K2 at the shape of the TPU cost-decomposition probes"):
         # tools/probe_kernel_anatomy*.py take the Pallas conv apart at B=4,
         # 512 x 512, 128 -> 128 channels, bf16; their Hopper counterpart is
         # still to write, so K2 itself is timed there beside its bound
-        check_kernels([(4, 512, 512, (128,), 128, False, False, False, True)], [], dev,
+        check_kernels([K2Key(4, 512, 512, (128,), 128, False, False, False, True, False,
+                             fused_resnet.pipelines((128,), 4, 512, 512, 128))], [], dev,
                       "probe shape")
 
+    # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
+    # slices), K2·struct and K2·pipe over those and the train_1024 step's
     totals = merge_totals(tot_256, tot_1024)
+    for mode in ("K2·struct", "K2·pipe"):
+        totals[mode] = merge_totals(tot_256, tot_1024, tot_t1024)[mode]
     totals["K3"] = tot_k3
     totals["K4"] = merge_totals({"K4": tot_k4_64}, {"K4": tot_k4_256})["K4"]
-    launches = {k: counts_256[k] + counts_1024[k] for k in SAMPLING_KERNELS}
+    launches = {k: counts_256[k] + counts_1024[k] for k in ("K1", "K2", "K2·N", "K2·proj")}
+    launches.update({k: counts_t1024[k] for k in ("K2·struct", "K2·pipe")})
     launches["K3"] = counts_train["K3"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
-    log(f"launches during the nested matmul-route requests (256px and 1024px), K3's during "
-        f"the train_256 preset's timed steps, K4's during the flash-route requests (64px "
-        f"and 256px): {launches}")
+    log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
+        f"train_1024 preset's timed steps (K2·struct, K2·pipe), the train_256 preset's timed "
+        f"steps (K3) and the flash-route requests (64px and 256px; K4): {launches}")
+    log(f"K3 over the train_1024 step's shapes: backward {tot_k3_1024['ms']:.4f} ms, plain "
+        f"{tot_k3_1024['plain_ms']:.4f} ms, library {tot_k3_1024['library_ms']:.4f} ms, bound "
+        f"{tot_k3_1024['bound_ms']:.4f} ms")
     log(f"K4 over the 64px and 256px forwards' shapes: kernel {totals['K4']['ms']:.4f} ms, "
         f"matmul route {totals['K4']['matmul_ms']:.4f} ms, library "
         f"{totals['K4']['library_ms']:.4f} ms")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
 
-    def entry(name, mode, route, source, replaces, library=True):
+    def entry(name, mode, route, source, replaces, library=True, **extra):
         t = totals[mode]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[mode], "max_abs_err": t["err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
-                "library_ms": t["library_ms"] if library else None}
+                "library_ms": t["library_ms"] if library else None,
+                **{k: t[v] for k, v in extra.items()}}
 
     cu = "ml_mdm_tpu_torch/csrc/fused_resnet.cu"
     kernels = [
         entry("spatial_sums", "K1", "triton", "ml_mdm_tpu_torch/ops/gn_stats.py",
-              "ml_mdm_tpu/ops/gn_stats.py:62", library=False),
+              "ml_mdm_tpu/ops/gn_stats.py:62"),
         entry("affine_silu_conv3x3", "K2", "cuda", cu, "ml_mdm_tpu/ops/fused_resnet.py:481"),
         entry("affine_silu_conv3x3 (N operands)", "K2·N", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:515"),
         entry("affine_silu_conv3x3 (shortcut)", "K2·proj", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:284"),
+        entry("affine_silu_conv3x3 (packed_struct)", "K2·struct", "cuda", cu,
+              "ml_mdm_tpu/ops/fused_resnet.py:92", unpacked_ms="unpacked_ms"),
+        entry("affine_silu_conv3x3 (pipelined)", "K2·pipe", "cuda", cu,
+              "ml_mdm_tpu/ops/fused_resnet.py:318", serial_ms="serial_ms"),
         entry("affine_silu_conv3x3_vjp (backward)", "K3", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:744"),
         entry("flash_attention", "K4", "cuda", "ml_mdm_tpu_torch/csrc/flash_attention.cu",

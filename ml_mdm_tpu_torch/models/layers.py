@@ -1,11 +1,14 @@
 """Building blocks of the port's U-Net (NHWC tensors, PyTorch modules).
 
-Counterpart of ``ml_mdm_tpu/models/layers.py`` without space-to-depth
-packing. Activations keep the JAX layout (B, H, W, C); a 3x3 convolution
-runs on the ``permute(0, 3, 1, 2)`` view, which is channels-last in memory.
-Parameter names are the reference torch names
-(``down_blocks.0.resnets.1.conv1.weight``), so JAX weights load through
-``utils.convert.params_from_jax`` and ``load_state_dict(strict=True)``.
+Counterpart of ``ml_mdm_tpu/models/layers.py``. Activations keep the JAX
+layout (B, H, W, C); a 3x3 convolution runs on the ``permute(0, 3, 1, 2)``
+view, which is channels-last in memory. Parameter names are the reference
+torch names (``down_blocks.0.resnets.1.conv1.weight``), so JAX weights load
+through ``utils.convert.params_from_jax`` and ``load_state_dict(strict=True)``.
+Parameters are never packed: a packed stage transforms its weights at use
+(``ops/space_to_depth.py``), so autograd carries packed gradients back. With
+gradients off (sampling) the transformed weights are built once and kept
+while the parameters do not change (``cached_weights``).
 
 Modules that own a hand kernel carry a ``kernels`` attribute (default
 True). With it, the ResNet block and every 4-D bf16 GroupNorm call the
@@ -23,10 +26,13 @@ train with bf16 compute, and a bf16 model's casts are no-ops.
 
 In ``training`` mode the ResNet takes the JAX package's training
 structure (its ``custom_vjp`` route), not the sampling one; see
-``ResNet``.
+``ResNet``. A conv-only stage of at most 64 channels at a large side runs
+space-to-depth packed (``ResNetBlockStage.packs_at``), as the JAX stage
+does.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import List, Optional, Sequence
 
@@ -34,9 +40,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ml_mdm_tpu_torch.config import ResNetConfig
 from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.ops.attention import dot_product_attention
+from ml_mdm_tpu_torch.perf import perf
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
@@ -210,6 +220,33 @@ class LayerNormF32(nn.Module):
         return x * a + b
 
 
+def _identity(v):
+    return v
+
+
+def packed_struct_kernel(w: torch.Tensor) -> torch.Tensor:
+    """An unpacked HWIO kernel -> K2·struct's combined packed taps."""
+    return fused_resnet.struct_weights(s2d.pack_conv3x3_kernel(w))
+
+
+def cached_weights(owner: nn.Module, name, modules, build):
+    """``build()``, a function of the parameters of ``modules`` only (packed
+    kernels, repeated vectors). With gradients off it is built once and kept
+    on ``owner`` while those parameters keep their storage and version
+    counter (an optimizer step, ``load_state_dict`` or a move rebuilds it):
+    the port's counterpart of the JAX package's ``wcache``, so that each
+    denoising step does not transform the weights again. With gradients on
+    it is built afresh, for autograd to reach the parameters."""
+    if torch.is_grad_enabled():
+        return build()
+    key = tuple((p.device, p.data_ptr(), p._version) for m in modules for p in m.parameters())
+    cache = owner.__dict__.setdefault("_weights_cache", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        hit = cache[name] = (key, build())
+    return hit[1]
+
+
 class ResNet(nn.Module):
     """GroupNorm + SiLU + 3x3 conv ResNet block with FiLM time injection
     (``ml_mdm_tpu/models/layers.py`` ``ResNet``), in the structure of its
@@ -230,7 +267,15 @@ class ResNet(nn.Module):
     those sums with FiLM folded in, the 1x1 shortcut is a separate dense
     ``conv3``, and conv2 runs through K3 with the shortcut (or x) as the
     residual. Dropout is not ported: a training ResNet with dropout > 0
-    raises."""
+    raises.
+
+    ``packed``: x (each operand) is space-to-depth packed, and so is the
+    output. The same structure runs on the packed tensors: the GroupNorm
+    scales and biases, the FiLM vectors and the conv biases repeated 4
+    times (exact: the c-major packed order keeps groups contiguous), the 3x3
+    convolutions as K2·struct (sampling: the combined taps of each operand's
+    packed kernel; training: K3 on the packed kernel) and the shortcut with
+    the block-diagonal packed 1x1 kernel."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -252,68 +297,110 @@ class ResNet(nn.Module):
               else fused_resnet.affine_silu_conv3x3_plain)
         return fn(*args, **kw)
 
-    def _norm2_film(self, h, hs1, hs2, temb):
+    def _norm2_film(self, h, hs1, hs2, temb, scale2, bias2, vec=_identity):
         """norm2's coefficients from conv1's output sums, with FiLM folded
-        in: norm2(h) * (1 + ta) + tb == h * a2 + b2."""
+        in: norm2(h) * (1 + ta) + tb == h * a2 + b2 (``vec`` packs the
+        per-channel FiLM vectors; ``scale2``, ``bias2`` are norm2's, packed
+        alike)."""
         t = dense(F.silu(temb), self.time_layer, self.compute_dtype).float()
         if h.shape[0] > t.shape[0]:  # temporal: (b t) rows share their video's temb
             t = t.repeat_interleave(h.shape[0] // t.shape[0], dim=0)
-        ta, tb = t.chunk(2, dim=-1)
+        ta, tb = (vec(v) for v in t.chunk(2, dim=-1))
         a2, b2 = group_norm_coeffs_from_sums(
-            hs1, hs2, h.shape[1] * h.shape[2], self.norm2.weight, self.norm2.bias,
-            self.config.num_groups_norm,
-        )
+            hs1, hs2, h.shape[1] * h.shape[2], scale2, bias2, self.config.num_groups_norm)
         return a2 * (1.0 + ta), b2 * (1.0 + ta) + tb
 
-    def _forward_train(self, x, temb):
+    def _shortcut_kernel(self, packed: bool) -> torch.Tensor:
+        """conv3 as a (Cin, Cout) matrix, block-diagonal (4Cin, 4Cout) packed."""
+        k = self.conv3.weight.permute(2, 3, 1, 0)
+        return (s2d.pack_conv1x1_kernel(k) if packed else k)[0, 0]
+
+    def _forward_train(self, x, temb, packed: bool):
         if self.config.dropout > 0:
             raise NotImplementedError("a training ResNet with dropout > 0 is not ported yet")
         conv = (fused_resnet.affine_silu_conv3x3_vjp if self.kernels
                 else fused_resnet.affine_silu_conv3x3_plain)
+        vec = s2d.pack_channel_vector if packed else _identity
+        kernel = s2d.pack_conv3x3_kernel if packed else _identity
         if isinstance(x, tuple):
             x = torch.cat(x, dim=-1)
-        a1, b1 = group_norm_coeffs(x, self.norm1.weight, self.norm1.bias,
+        a1, b1 = group_norm_coeffs(x, vec(self.norm1.weight), vec(self.norm1.bias),
                                    self.config.num_groups_norm, kernels=self.kernels)
-        h, hs1, hs2 = conv(x, a1, b1, self.conv1.weight.permute(2, 3, 1, 0),
-                           self.conv1.bias, emit_stats=True)
-        a2, b2 = self._norm2_film(h, hs1, hs2, temb)
-        res = dense(x, self.conv3, self.compute_dtype) if hasattr(self, "conv3") else x
-        return conv(h, a2, b2, self.conv2.weight.permute(2, 3, 1, 0), self.conv2.bias, res)
-
-    def forward(self, x, temb):
-        if self.training:
-            return self._forward_train(x, temb)
-        cfg = self.config
-        g = cfg.num_groups_norm
-        xs = x if isinstance(x, tuple) else (x,)
-        if len(xs) > 1:
-            a1, b1 = group_norm_coeffs_concat(xs, self.norm1.weight, self.norm1.bias,
-                                              g, kernels=self.kernels)
+        h, hs1, hs2 = conv(x, a1, b1, kernel(self.conv1.weight.permute(2, 3, 1, 0)),
+                           vec(self.conv1.bias), emit_stats=True, packed_struct=packed)
+        a2, b2 = self._norm2_film(h, hs1, hs2, temb, vec(self.norm2.weight),
+                                  vec(self.norm2.bias), vec)
+        if hasattr(self, "conv3"):
+            dt = self.compute_dtype or self.conv3.weight.dtype
+            res = F.linear(x.to(dt), self._shortcut_kernel(packed).t().to(dt),
+                           vec(self.conv3.bias).to(dt))
         else:
-            a1, b1 = group_norm_coeffs(xs[0], self.norm1.weight, self.norm1.bias,
-                                       g, kernels=self.kernels)
+            res = x
+        return conv(h, a2, b2, kernel(self.conv2.weight.permute(2, 3, 1, 0)),
+                    vec(self.conv2.bias), res, packed_struct=packed)
+
+    def _sampling_weights(self, cuts, packed: bool):
+        """The sampling forward's weights: norm1's and norm2's scale and bias,
+        conv1's kernel per operand slice ``cuts`` (of the unpacked input
+        channels) and its bias, the shortcut's matrices per slice and bias,
+        conv2's kernel and bias. Packed: the vectors repeated, the kernels in
+        K2·struct's combined form (each operand's slice packed on its own:
+        pack(concat) == concat(pack) in the c-major order), the shortcut
+        block-diagonal, built once per parameter version."""
+        def build():
+            vec = s2d.pack_channel_vector if packed else _identity
+            kernel = packed_struct_kernel if packed else _identity
+            w1 = self.conv1.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
+            out = {
+                "norm1": (vec(self.norm1.weight), vec(self.norm1.bias)),
+                "norm2": (vec(self.norm2.weight), vec(self.norm2.bias)),
+                "w1": tuple(kernel(w1[:, :, lo:hi]) for lo, hi in cuts),
+                "b1": vec(self.conv1.bias),
+                "w2": kernel(self.conv2.weight.permute(2, 3, 1, 0)),
+                "b2": vec(self.conv2.bias),
+            }
+            if hasattr(self, "conv3"):
+                k3 = self.conv3.weight.permute(2, 3, 1, 0)
+                pack1 = s2d.pack_conv1x1_kernel if packed else _identity
+                out["proj_kernel"] = tuple(pack1(k3[:, :, lo:hi])[0, 0] for lo, hi in cuts)
+                out["proj_bias"] = vec(self.conv3.bias)
+            return out
+
+        if not packed:  # views of the parameters: nothing to keep
+            return build()
+        modules = [m for m in self.children() if m is not self.time_layer]
+        return cached_weights(self, tuple(cuts), modules, build)
+
+    def forward(self, x, temb, packed: bool = False):
+        if self.training:
+            return self._forward_train(x, temb, packed)
+        g = self.config.num_groups_norm
+        m = 4 if packed else 1  # packed channels per unpacked channel
+        xs = x if isinstance(x, tuple) else (x,)
         # per-operand slices of the coefficients and of conv1's (and the
         # shortcut's) input channels
-        bounds = list(itertools.accumulate([xi.shape[-1] for xi in xs], initial=0))
+        bounds = list(itertools.accumulate([xi.shape[-1] // m for xi in xs], initial=0))
         cuts = list(zip(bounds, bounds[1:]))
-        w1 = self.conv1.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
-        kw = {"emit_stats": True}
-        if hasattr(self, "conv3"):
-            p = self.conv3.weight[:, :, 0, 0].t()  # (Cin, Cout)
-            kw["proj_kernel"] = tuple(p[lo:hi] for lo, hi in cuts)
-            kw["proj_bias"] = self.conv3.bias
+        wts = self._sampling_weights(cuts, packed)
+        scale1, bias1 = wts["norm1"]
+        if len(xs) > 1:
+            a1, b1 = group_norm_coeffs_concat(xs, scale1, bias1, g, kernels=self.kernels)
+        else:
+            a1, b1 = group_norm_coeffs(xs[0], scale1, bias1, g, kernels=self.kernels)
+        kw = {"emit_stats": True, "packed_struct": packed}
+        if "proj_kernel" in wts:
+            kw["proj_kernel"], kw["proj_bias"] = wts["proj_kernel"], wts["proj_bias"]
         out = self._conv(
-            xs, tuple(a1[:, lo:hi] for lo, hi in cuts),
-            tuple(b1[:, lo:hi] for lo, hi in cuts),
-            tuple(w1[:, :, lo:hi] for lo, hi in cuts), self.conv1.bias, **kw)
+            xs, tuple(a1[:, m * lo:m * hi] for lo, hi in cuts),
+            tuple(b1[:, m * lo:m * hi] for lo, hi in cuts), wts["w1"], wts["b1"], **kw)
         h, hs1, hs2 = out[:3]
-        if hasattr(self, "conv3"):
+        if "proj_kernel" in wts:
             res = out[3]
         else:
             res = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
-        a2, b2 = self._norm2_film(h, hs1, hs2, temb)
-        return self._conv(h, a2, b2, self.conv2.weight.permute(2, 3, 1, 0),
-                          self.conv2.bias, res)
+        a2, b2 = self._norm2_film(h, hs1, hs2, temb, *wts["norm2"],
+                                  s2d.pack_channel_vector if packed else _identity)
+        return self._conv(h, a2, b2, wts["w2"], wts["b2"], res, packed_struct=packed)
 
 
 class SelfAttention(nn.Module):
@@ -502,25 +589,61 @@ class TemporalAttentionBlock(nn.Module):
         return x + x_in
 
 
+def stage_packs_at(side: int, max_channels: int, pack_min_side: int,
+                   num_attention_layers: int, temporal: bool) -> bool:
+    """Whether a stage runs space-to-depth packed at the (unpacked) image
+    side ``side`` (``ResNetBlockStage.packs_at`` of the JAX package): a
+    conv-only stage of at most 32 channels from the model's
+    ``pack_min_side``, of at most ``perf().pack_max_ch`` (64) channels from
+    ``perf().pack64_min_side`` (256), never with attention or in temporal
+    mode, never when ``pack_min_side`` is 0, and only at an even side."""
+    p = perf()
+    if max_channels <= 32:
+        min_side = pack_min_side
+    elif max_channels <= p.pack_max_ch:
+        min_side = p.pack64_min_side
+    else:
+        return False
+    return (pack_min_side > 0 and side >= min_side and side % 2 == 0
+            and num_attention_layers == 0 and not temporal)
+
+
 class ResNetBlockStage(nn.Module):
     """One resolution stage: N ResNets (each followed by its attention
     layers, the 2-D ones and then the temporal ones) and an optional
-    resample; ``ml_mdm_tpu/models/layers.py`` ``ResNetBlockStage``,
-    unpacked. Downsampling is a stride-2 3x3 conv; upsampling is nearest-2x
-    followed by a 3x3 conv. In ``temporal_mode`` without
-    ``temporal_spatial_ds`` the resample works across frames, not space: a
-    1-D conv over each pixel's frames, stride 2 down, nearest-2x then conv
-    up. The temporal attention layers exist only without
-    ``temporal_spatial_ds``, as in the JAX package."""
+    resample (``ml_mdm_tpu/models/layers.py`` ``ResNetBlockStage``).
+    Downsampling is a stride-2 3x3 conv; upsampling is nearest-2x followed
+    by a 3x3 conv. In ``temporal_mode`` without ``temporal_spatial_ds`` the
+    resample works across frames, not space: a 1-D conv over each pixel's
+    frames, stride 2 down, nearest-2x then conv up. The temporal attention
+    layers exist only without ``temporal_spatial_ds``, as in the JAX
+    package.
+
+    A stage for which ``packs_at`` holds runs its ResNets space-to-depth
+    packed and resamples in the packed domain: down as the stride-2
+    convolution on the packed tensor (packed out: ``packed_strided_conv_
+    p2p``), up as the packed upsample convolution (through K2 when
+    sampling). ``packed_in``: x and the incoming skips arrive packed (the
+    stage must pack at that side), and the activations it emits stay
+    packed; ``packed_out``: its output leaves packed. The owning U-Net
+    threads its plan through these so that a packed shell's tensors never
+    change layout between stages.
+
+    ``remat_above`` (None: off; set by ``trainer.make_train_step`` with
+    ``remat``): in training, a stage whose convolutions run at a physical
+    side (the packed tensor's for a packed stage) above it runs under
+    ``torch.utils.checkpoint`` and recomputes its forward in the backward."""
 
     compute_dtype: Optional[torch.dtype] = None
+    remat_above: Optional[int] = None
 
     def __init__(self, temporal_dim: int, num_residual_blocks: int,
                  num_attention_layers: int, downsample_output: bool,
                  upsample_output: bool, resnet_configs: Sequence[ResNetConfig],
                  conditioning_feature_dim: int = -1, temporal_mode: bool = False,
                  temporal_pos_emb: bool = False, temporal_spatial_ds: bool = False,
-                 num_temporal_attention_layers: Optional[int] = None):
+                 num_temporal_attention_layers: Optional[int] = None,
+                 pack_min_side: int = 0):
         super().__init__()
         if downsample_output and upsample_output:
             raise ValueError("a stage either down- or upsamples")
@@ -528,6 +651,10 @@ class ResNetBlockStage(nn.Module):
         self.num_attention_layers = num_attention_layers
         self.downsample_output = downsample_output
         self.upsample_output = upsample_output
+        self.pack_min_side = pack_min_side
+        self.max_channels = max((rc.output_channels for rc in resnet_configs), default=0)
+        self.temporal = temporal_mode or bool(num_temporal_attention_layers)
+        self.kernels = True
         self.resnets = nn.ModuleList(
             ResNet(cfg, temporal_dim)
             for cfg in resnet_configs[:num_residual_blocks]
@@ -561,33 +688,85 @@ class ResNetBlockStage(nn.Module):
         elif upsample_output:
             self.resample = conv(out_ch, out_ch, 3, padding=1)
 
+    def packs_at(self, side: int) -> bool:
+        """Whether this stage runs packed at the (unpacked) image side."""
+        return stage_packs_at(side, self.max_channels, self.pack_min_side,
+                              self.num_attention_layers, self.temporal)
+
+    def _use_packing(self, x, packed_in: bool = False) -> bool:
+        m = 2 if packed_in else 1
+        h, w = x.shape[1] * m, x.shape[2] * m
+        return w % 2 == 0 and self.packs_at(min(h, w))
+
     def forward(self, x, temb, skip_activations: Optional[List[torch.Tensor]] = None,
-                conditioning=None, cond_mask=None):
+                conditioning=None, cond_mask=None, packed_in: bool = False,
+                packed_out: bool = False):
         """Returns (x, activations): the stage output and the activation
         after each ResNet (and after the resample) for the skip path."""
+        packed = self._use_packing(x, packed_in)
+        if packed_in and not packed:
+            raise ValueError("packed_in needs a stage that packs at this side")
+        side = min(x.shape[1], x.shape[2]) // (2 if packed and not packed_in else 1)
+        if self.training and self.remat_above is not None and side > self.remat_above:
+            return checkpoint(self._forward, x, temb, skip_activations, conditioning,
+                              cond_mask, packed, packed_in, packed_out, use_reentrant=False)
+        return self._forward(x, temb, skip_activations, conditioning, cond_mask, packed,
+                             packed_in, packed_out)
+
+    def _forward(self, x, temb, skip_activations, conditioning, cond_mask, packed: bool,
+                 packed_in: bool, packed_out: bool):
         activations = []
         skips = list(skip_activations) if skip_activations is not None else None
+        repack = packed and not packed_in  # pack here, unpack what leaves
+        if repack:
+            x = s2d.space_to_depth(x)
         for i in range(self.num_residual_blocks):
             if skips is not None:  # the skip concat, as operands of K2·N
-                x = (x, skips.pop(0))
-            x = self.resnets[i](x, temb)
+                skip = skips.pop(0)
+                x = (x, s2d.space_to_depth(skip) if repack else skip)
+            x = self.resnets[i](x, temb, packed=packed)
             n_attn = self.num_attention_layers
             for j in range(n_attn):
                 x = self.attn[i * n_attn + j](x, conditioning, cond_mask)
             n_tattn = self.num_temporal_attention_layers
             for j in range(n_tattn):
                 x = self.t_attn[i * n_tattn + j](x, temb)
-            activations.append(x)
+            activations.append(s2d.depth_to_space(x) if repack else x)
         if self.downsample_output or self.upsample_output:
-            if self.resample_frames:
-                b, (_, h, w, _) = temb.shape[0], x.shape
-                y = frames_to_tokens(x, b)
-                if self.upsample_output:
-                    y = y.repeat_interleave(2, dim=1)
-                x = tokens_to_frames(conv1d_nlc(y, self.resample, self.compute_dtype), b, h, w)
-            else:
-                if self.upsample_output:
-                    x = nearest_upsample_2x(x)
-                x = conv2d_nhwc(x, self.resample, self.compute_dtype)
+            x = self._resample(x, temb, packed, packed_out)
             activations.append(x)
+        elif packed and not packed_out:
+            x = s2d.depth_to_space(x)
+        elif packed_out and not packed:
+            x = s2d.space_to_depth(x)
         return x, activations
+
+    def _resample(self, x, temb, packed: bool, packed_out: bool):
+        dt = self.compute_dtype
+        if self.resample_frames:
+            b, (_, h, w, _) = temb.shape[0], x.shape
+            y = frames_to_tokens(x, b)
+            if self.upsample_output:
+                y = y.repeat_interleave(2, dim=1)
+            x = tokens_to_frames(conv1d_nlc(y, self.resample, dt), b, h, w)
+            return s2d.space_to_depth(x) if packed_out else x
+        if not (packed or packed_out):
+            if self.upsample_output:
+                x = nearest_upsample_2x(x)
+            return conv2d_nhwc(x, self.resample, dt)
+        # the exact packed rewrites of ops/space_to_depth.py, in the compute
+        # dtype, their kernels kept with gradients off (cached_weights)
+        x = x.to(dt or self.resample.weight.dtype)
+        k, bias = self.resample.weight.permute(2, 3, 1, 0), self.resample.bias
+        if self.downsample_output and not packed:  # unpacked producer, packed consumer
+            return s2d.space_to_depth(conv2d_nhwc(x, self.resample, dt))
+        if self.downsample_output:
+            pack = s2d.pack_strided_conv_kernel_p2p if packed_out else s2d.pack_strided_conv_kernel
+            conv = s2d.packed_strided_conv_p2p if packed_out else s2d.packed_strided_conv
+        else:  # the upsample: one convolution of x with the kernel summed
+            # over the 4 repeats of each channel of the packed upsampled image
+            pack, conv = s2d.upsample_fold_kernel, functools.partial(
+                s2d.packed_upsample_conv, in_packed=packed, out_packed=packed_out,
+                fast=self.kernels and not self.training)
+        pk = cached_weights(self, pack.__name__, [self.resample], lambda: pack(k))
+        return conv(x, k, bias, pk=pk)

@@ -11,6 +11,11 @@ same order. Every shell has its own time and micro-conditioning
 embeddings; the text conditioning is the innermost U-Net's, shared by all.
 When the high-resolution batch is smaller than the low-resolution one (a
 mixed batch), the inner U-Net's extra rows get zero features.
+
+The shell follows its own packing plan (``models/unet.py`` ``pack_plan``).
+When its bottom level ran packed, the adapters are the one place that
+needs the plain layout: the features are unpacked before ``in_adapter``
+and packed again after the inner U-Net's are added back.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn as nn
 
 from ml_mdm_tpu_torch.config import NestedUNetConfig
 from ml_mdm_tpu_torch.models.layers import conv2d_nhwc
+from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.models.unet import UNet
 
 
@@ -84,12 +90,16 @@ class NestedUNet(UNet):
         if cfg.nesting:
             x_t, x_feat = x_t
         bh, bl = x_t[0].shape[0], x_t[1].shape[0]
-        x = self.forward_input_layer(x_t[0], normalize=not cfg.skip_normalization)
+        plan = self._pack_plan(x_t[0])
+        x = self.forward_input_layer(x_t[0], normalize=not cfg.skip_normalization,
+                                     packed=plan[0])
         if x_feat is not None:
-            x = x + x_feat
+            x = x + x_feat  # plan[0] is False for an inner shell
         cm = cond_mask[:bh] if cond_mask is not None else None
         cond_hi = conditioning[:bh] if conditioning is not None else None
-        x, skips = self.forward_downsample(x, temb[:bh], cond_hi, cm)
+        x, skips = self.forward_downsample(x, temb[:bh], cond_hi, cm, plan)
+        if plan[-1]:
+            x = s2d.depth_to_space(x)
 
         dt = self.dtype
         x_inner = (conv2d_nhwc(x, self.in_adapter, dt) if hasattr(self, "in_adapter")
@@ -100,9 +110,11 @@ class NestedUNet(UNet):
         x_low, x_inner = self.inner_unet.forward_denoising(
             (list(x_t[1:]), x_inner), times, cond_emb, conditioning, cond_mask, micros)
         x = x + conv2d_nhwc(x_inner, self.out_adapter, dt)[:bh]
+        if plan[-1]:
+            x = s2d.space_to_depth(x)
 
-        x = self.forward_upsample(x, temb[:bh], cond_hi, cm, skips)
-        out = [self.forward_output_layer(x)]
+        x = self.forward_upsample(x, temb[:bh], cond_hi, cm, skips, plan)
+        out = [self.forward_output_layer(x, packed=plan[0])]
         out += x_low if isinstance(x_low, list) else [x_low]
         if cfg.nesting:
             return out, x

@@ -1,7 +1,7 @@
 """Text-conditioned diffusion U-Net of the port (NHWC, PyTorch).
 
-Counterpart of ``ml_mdm_tpu/models/unet.py`` ``UNet`` without packing:
-sinusoidal time embedding and its 2-layer MLP, the optional learned
+Counterpart of ``ml_mdm_tpu/models/unet.py`` ``UNet``: sinusoidal time
+embedding and its 2-layer MLP, the optional learned
 lm-head (self-attention blocks over the text features), pooled-text
 conditioning added to the time embedding, micro-conditioning
 (``scale:64``), the down path, two mid blocks, the up path with skip
@@ -13,6 +13,14 @@ layer), which ``models/nested_unet.py`` reuses for its shells. With
 ``nesting`` the U-Net is the inner level of a nested one: it takes
 ``(x_t, x_feat)``, adds the shell's features after its input layer, and
 returns ``(x_out, x)``, its output and its last features.
+
+Space-to-depth packing follows the JAX package's plan (``pack_plan``): a
+stage of at most 64 channels at a large side runs packed (``models/layers.py``
+``stage_packs_at``), and where stage i of the plan packs, its boundary
+tensors stay packed, so a packed stage 0 packs the image once before
+``conv_in`` and unpacks the prediction after ``conv_out``. A config with
+``pack_min_side = 0`` never packs. The port keeps the loss and the sampling
+carry unpacked: the model packs at its own entry.
 
 The U-Net computes in its ``dtype``: the compute dtype that
 ``set_compute_dtype`` sets (bf16 on f32 parameters for training, as the
@@ -36,9 +44,15 @@ from ml_mdm_tpu_torch.models.layers import (
     GroupNormF32,
     ResNetBlockStage,
     SelfAttention1DBlock,
+    cached_weights,
     conv2d_nhwc,
     dense,
+    group_norm_coeffs,
+    packed_struct_kernel,
+    stage_packs_at,
 )
+from ml_mdm_tpu_torch.ops import fused_resnet
+from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 
 
 def parse_micro_conditions(spec: Optional[str]) -> Optional[Dict[str, float]]:
@@ -47,6 +61,51 @@ def parse_micro_conditions(spec: Optional[str]) -> Optional[Dict[str, float]]:
     return {
         c.split(":")[0]: float(c.split(":")[1]) for c in str(spec).split(",")
     }
+
+
+def _n_attention(cfg: UNetConfig, level: int) -> int:
+    return cfg.num_attention_layers[level] if level in cfg.attention_levels else 0
+
+
+def _n_temporal_attention(cfg: UNetConfig, level: int) -> Optional[int]:
+    n = cfg.num_temporal_attention_layers
+    return None if n is None else n[level]
+
+
+def pack_plan(cfg: UNetConfig, h: int, w: int):
+    """The packed-execution plan of a forward at image size (h, w), one
+    flag per level (``UNet._pack_plan`` of the JAX package): level i runs
+    packed, and its boundary tensors (handoffs, skips, and for level 0 the
+    input and output layers) stay packed, when its stage packs at side
+    min(h, w) >> i, both sides halve evenly, and it is not the last level
+    of a U-Net with mid blocks (they need the plain layout; a nested shell
+    has none) nor level 0 of an inner U-Net (its features go back to the
+    shell unpacked). Computed from the config alone."""
+    side, n = min(h, w), len(cfg.resolution_channels)
+    return [
+        (i != n - 1 or cfg.skip_mid_blocks)
+        and (h >> i) % 2 == 0 and (w >> i) % 2 == 0
+        and stage_packs_at(side >> i, cfg.resolution_channels[i], cfg.pack_min_side,
+                           _n_attention(cfg, i),
+                           cfg.temporal_mode or bool(_n_temporal_attention(cfg, i)))
+        and not (i == 0 and cfg.nesting)
+        for i in range(n)
+    ]
+
+
+def packs_input(cfg: UNetConfig, side: int) -> bool:
+    """Whether a forward at ``side`` runs its level 0 packed by the JAX
+    package's ``UNet.packs_input`` (which sets the JAX sampling carry and
+    loss boundary packed): a 32-channel conv-only level 0 at or above
+    ``pack_min_side``, outside an inner U-Net. The port's plan agrees where
+    this holds; it does not use the packed carry."""
+    n_tattn0 = _n_temporal_attention(cfg, 0) or 0
+    return bool(
+        len(cfg.resolution_channels) > 1 and not cfg.nesting and side % 2 == 0
+        and cfg.pack_min_side > 0 and side >= cfg.pack_min_side
+        and cfg.resolution_channels[0] <= 32 and _n_attention(cfg, 0) == 0
+        and n_tattn0 == 0 and not cfg.temporal_mode
+    )
 
 
 def sinusoidal_frequencies(temporal_dim: int) -> np.ndarray:
@@ -126,7 +185,7 @@ class UNet(nn.Module):
                 resnet_configs=stage_cfgs,
                 conditioning_feature_dim=(
                     cond_dim if i in cfg.attention_levels else -1),
-                **self._temporal_args(i),
+                pack_min_side=cfg.pack_min_side, **self._temporal_args(i),
             ))
         self.down_blocks = nn.ModuleList(down)
 
@@ -155,7 +214,7 @@ class UNet(nn.Module):
                 resnet_configs=stage_cfgs,
                 conditioning_feature_dim=(
                     cond_dim if i in cfg.attention_levels else -1),
-                **self._temporal_args(i),
+                pack_min_side=cfg.pack_min_side, **self._temporal_args(i),
             ))
         self.up_blocks = nn.ModuleList(up)
 
@@ -166,20 +225,19 @@ class UNet(nn.Module):
         if self.has_cond and cfg.num_lm_head_layers:
             self.lm_head = nn.ModuleList(
                 SelfAttention1DBlock(cond_dim) for _ in range(cfg.num_lm_head_layers))
+        self.kernels = True
 
     def _temporal_args(self, level: int) -> dict:
         """What the down and up stages of ``level`` take of the temporal
         fields (the mid blocks take none)."""
         cfg = self.config
-        n = cfg.num_temporal_attention_layers
         return dict(temporal_mode=cfg.temporal_mode,
                     temporal_pos_emb=cfg.temporal_positional_encoding,
                     temporal_spatial_ds=cfg.temporal_spatial_ds,
-                    num_temporal_attention_layers=None if n is None else n[level])
+                    num_temporal_attention_layers=_n_temporal_attention(cfg, level))
 
     def _n_attn(self, level: int) -> int:
-        cfg = self.config
-        return cfg.num_attention_layers[level] if level in cfg.attention_levels else 0
+        return _n_attention(self.config, level)
 
     @property
     def temporal_dim(self) -> int:
@@ -216,8 +274,9 @@ class UNet(nn.Module):
         return self
 
     def use_kernels(self, enabled: bool = True) -> "UNet":
-        """Route the ResNet convs and 4-D bf16 GroupNorm statistics through
-        the hand kernels (the default) or through their plain versions."""
+        """Route the ResNet convs, the packed input, output and upsample
+        convs and the 4-D bf16 GroupNorm statistics through the hand kernels
+        (the default) or through their plain versions."""
         for m in self.modules():
             if hasattr(m, "kernels"):
                 m.kernels = enabled
@@ -274,38 +333,95 @@ class UNet(nn.Module):
             temb = temb + self.forward_micro_conditioning(times, micros or {})
         return temb
 
-    def forward_input_layer(self, x_t, normalize: bool = False):
+    def _pack_plan(self, x_t):
+        """``pack_plan`` of this U-Net's config at x_t's size (the first of
+        a list)."""
+        if isinstance(x_t, (list, tuple)):
+            x_t = x_t[0]
+        return pack_plan(self.config, x_t.shape[1], x_t.shape[2])
+
+    def packs_input(self, side: int) -> bool:
+        return packs_input(self.config, side)
+
+    def forward_input_layer(self, x_t, normalize: bool = False, packed: bool = False):
         """conv_in, after dividing each image by its standard deviation
-        (over H, W, C, ddof 1, in f32) when ``normalize``."""
+        (over H, W, C, ddof 1, in f32) when ``normalize``. ``packed``: the
+        image is packed first and conv_in runs on the packed tensor (3 -> 12
+        channels), through K2·struct when sampling; the output is packed."""
         if isinstance(x_t, (list, tuple)) and len(x_t) == 1:
             x_t = x_t[0]
         if normalize:
             std = x_t.float().std(dim=(1, 2, 3), keepdim=True, correction=1)
             x_t = x_t / std.to(x_t.dtype)
-        return conv2d_nhwc(x_t, self.conv_in, self.dtype)
+        if not packed:
+            return conv2d_nhwc(x_t, self.conv_in, self.dtype)
+        xp = s2d.space_to_depth(x_t.to(self.dtype))
+        k, fast = self.conv_in.weight.permute(2, 3, 1, 0), self.kernels and not self.training
+        # K2·struct takes the combined taps, the library conv the packed kernel
+        pk = cached_weights(self, ("conv_in", fast), [self.conv_in],
+                            lambda: (packed_struct_kernel if fast else s2d.pack_conv3x3_kernel)(k))
+        return s2d.packed_conv(xp, k, self.conv_in.bias, fast=fast, pk=pk)
 
-    def forward_downsample(self, x, temb, conditioning=None, cond_mask=None):
-        """The down path; returns (x, the skip activations)."""
+    def forward_downsample(self, x, temb, conditioning=None, cond_mask=None, plan=None):
+        """The down path; returns (x, the skip activations). ``plan``
+        (``_pack_plan``) says which levels run packed; the last level's
+        output keeps its own form."""
+        plan = plan or [False] * len(self.down_blocks)
         skips = [x]
-        for block in self.down_blocks:
-            x, acts = block(x, temb, conditioning=conditioning, cond_mask=cond_mask)
+        for i, block in enumerate(self.down_blocks):
+            x, acts = block(x, temb, conditioning=conditioning, cond_mask=cond_mask,
+                            packed_in=plan[i], packed_out=plan[min(i + 1, len(plan) - 1)])
             skips.extend(acts)
         return x, skips
 
-    def forward_upsample(self, x, temb, conditioning, cond_mask, skip_activations):
-        """The up path, each stage taking its skips in reverse order."""
+    def forward_upsample(self, x, temb, conditioning, cond_mask, skip_activations,
+                         plan=None):
+        """The up path, each stage taking its skips in reverse order; each
+        stage's output leaves in the form of the level below it (level 0's
+        in level 0's, for the output layer)."""
         skips = list(skip_activations)
         num_res = len(self.config.resolution_channels)
+        plan = plan or [False] * num_res
         for i, block in enumerate(self.up_blocks):
-            num_skip = self.config.num_resnets_per_resolution[num_res - 1 - i] + 1
+            ri = num_res - 1 - i
+            num_skip = self.config.num_resnets_per_resolution[ri] + 1
             skip_connections = skips[-num_skip:][::-1]
             del skips[-num_skip:]
             x, _ = block(x, temb, skip_activations=skip_connections,
-                         conditioning=conditioning, cond_mask=cond_mask)
+                         conditioning=conditioning, cond_mask=cond_mask,
+                         packed_in=plan[ri], packed_out=plan[max(ri - 1, 0)])
         return x
 
-    def forward_output_layer(self, x):
-        return conv2d_nhwc(F.silu(self.norm_out(x)), self.conv_out, self.dtype)
+    def forward_output_layer(self, x, packed: bool = False):
+        """norm_out, SiLU and conv_out. ``packed``: x is packed; the norm's
+        scale and bias are repeated, conv_out runs on the packed tensor (K2·
+        struct with the affine and SiLU fused in when sampling) and the
+        prediction is unpacked."""
+        if not packed:
+            return conv2d_nhwc(F.silu(self.norm_out(x)), self.conv_out, self.dtype)
+        n, vec = self.norm_out, s2d.pack_channel_vector
+        k, bias = self.conv_out.weight.permute(2, 3, 1, 0), self.conv_out.bias
+        fast = self.kernels and not self.training
+
+        def build():
+            if not fast:
+                return vec(n.weight), vec(n.bias), None, None
+            # the kernel stores whole groups of 8 output channels: the 12 of the
+            # packed image get zero weights up to 16, and the extra are dropped
+            wq, bq = packed_struct_kernel(k), vec(bias)
+            pad = -wq.shape[-1] % 8
+            return vec(n.weight), vec(n.bias), F.pad(wq, (0, pad)), F.pad(bq, (0, pad))
+
+        scale, shift, wq, bq = cached_weights(self, ("conv_out", fast), [n, self.conv_out], build)
+        a, b = group_norm_coeffs(x, scale, shift, n.num_groups, kernels=n.kernels)
+        if fast:
+            y = fused_resnet.affine_silu_conv3x3(x, a, b, wq, bq, packed_struct=True)
+            y = y[..., :4 * k.shape[-1]]
+        else:
+            dt = x.dtype
+            y = s2d.packed_conv(F.silu(x * a.to(dt)[:, None, None, :] + b.to(dt)[:, None, None, :]),
+                                k.to(self.dtype), bias)
+        return s2d.depth_to_space(y)
 
     def forward_denoising(self, x_t, times, cond_emb=None, conditioning=None,
                           cond_mask=None, micros=None):
@@ -313,16 +429,17 @@ class UNet(nn.Module):
         x_feat = None
         if self.config.nesting:
             x_t, x_feat = x_t
-        x = self.forward_input_layer(x_t)
+        plan = self._pack_plan(x_t)
+        x = self.forward_input_layer(x_t, packed=plan[0])
         if x_feat is not None:
-            x = x + x_feat
-        x, skips = self.forward_downsample(x, temb, conditioning, cond_mask)
+            x = x + x_feat  # plan[0] is False for an inner U-Net
+        x, skips = self.forward_downsample(x, temb, conditioning, cond_mask, plan)
         if not self.config.skip_mid_blocks:
             x, _ = self.mid_blocks[0](x, temb, conditioning=conditioning,
                                       cond_mask=cond_mask)
             x, _ = self.mid_blocks[1](x, temb)
-        x = self.forward_upsample(x, temb, conditioning, cond_mask, skips)
-        x_out = self.forward_output_layer(x)
+        x = self.forward_upsample(x, temb, conditioning, cond_mask, skips, plan)
+        x_out = self.forward_output_layer(x, packed=plan[0])
         if self.config.nesting:
             return x_out, x
         return x_out

@@ -14,18 +14,25 @@ code (the machine with the card may lack PyYAML).
   ``conditioning_feature_dim`` set to the T5-XL width 2048 as ``bench.py``
   sets it (without it the YAMLs give the model no text conditioning).
 
+- ``train_1024``: the JAX package's ``train_1024`` bench preset
+  (``bench.py`` ``train_1024``): cc12m_1024x1024 in training, batch 2,
+  lr 5e-5, warmup 10, clip 2.0, EMA, selective remat with save side 128,
+  images (2, 1024, 1024, 3) and text (2, 32, 2048).
+
 The released checkpoints and the T5 text tower are not in the repository,
 so weights are random, made from a seed. By default a preset samples: bf16
 weights and compute, ``eval()``. With ``train=True`` it trains as the JAX
 package's ``train_256`` bench preset does: the same seeded weights kept in
-f32, bf16 compute, ``train()``.
+f32, bf16 compute, ``train()``. The nested models pack their thin shells as
+the JAX package does (``UNetConfig.pack_min_side`` 512 on every level);
+``pack_min_side=0`` builds the same model with packing off.
 """
 from __future__ import annotations
 
 import copy
 import math
 import re
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +47,7 @@ from ml_mdm_tpu_torch.config import (
 from ml_mdm_tpu_torch.diffusion import Diffusion, NestedDiffusion
 from ml_mdm_tpu_torch.models.nested_unet import NestedUNet
 from ml_mdm_tpu_torch.models.unet import UNet
+from ml_mdm_tpu_torch.trainer import TrainerConfig
 
 # layers the JAX package initialises to zero (its output projections and
 # the nested adapters)
@@ -148,11 +156,27 @@ def _shell(channels, resnets, micro: str, temporal_dim: int, groups: int,
     )
 
 
-def nested_configs(name: str, scaled: bool = False
+def set_pack_min_side(cfg, value: int) -> None:
+    """Set ``pack_min_side`` on a U-Net config and every inner config."""
+    while cfg is not None:
+        cfg.pack_min_side = value
+        cfg = getattr(cfg, "inner_config", None)
+
+
+def nested_configs(name: str, scaled: bool = False, pack_min_side: Optional[int] = None
                    ) -> Tuple[NestedUNetConfig, NestedDiffusionConfig, int, int]:
     """(U-Net config, diffusion config, text width, image side) of a nested
     preset; ``scaled`` gives a tiny variant of the same structure (the
-    scaled flagship as its core, 16- and 8-channel shells)."""
+    scaled flagship as its core, 16- and 8-channel shells);
+    ``pack_min_side`` replaces the configs' 512 on every level (0: no
+    packing)."""
+    ucfg, dcfg, lm_dim, side = _nested_configs(name, scaled)
+    if pack_min_side is not None:
+        set_pack_min_side(ucfg, pack_min_side)
+    return ucfg, dcfg, lm_dim, side
+
+
+def _nested_configs(name: str, scaled: bool):
     if name not in NESTED_PRESETS:
         raise ValueError(f"unknown nested preset {name!r}; known: {NESTED_PRESETS}")
     core, _, lm_dim, core_side = flagship_configs(scaled)
@@ -187,12 +211,35 @@ def nested_configs(name: str, scaled: bool = False
 
 
 def nested_preset(name: str, device, seed: int = 0, scaled: bool = False,
-                  train: bool = False) -> Tuple[NestedDiffusion, int, int]:
+                  train: bool = False, pack_min_side: Optional[int] = None
+                  ) -> Tuple[NestedDiffusion, int, int]:
     """Build a nested preset on ``device`` with weights from ``seed`` (bf16,
-    or with ``train`` f32 weights and bf16 compute). Returns (pipeline,
-    text width, image side)."""
-    ucfg, dcfg, lm_dim, side = nested_configs(name, scaled)
+    or with ``train`` f32 weights and bf16 compute; ``pack_min_side`` as in
+    ``nested_configs``). Returns (pipeline, text width, image side)."""
+    ucfg, dcfg, lm_dim, side = nested_configs(name, scaled, pack_min_side)
     return NestedDiffusion(_build(NestedUNet, ucfg, device, seed, train), dcfg), lm_dim, side
+
+
+class TrainPreset(NamedTuple):
+    pipeline: NestedDiffusion
+    config: TrainerConfig
+    batch: int     # images a step
+    lm_dim: int    # text width
+    lm_len: int    # text tokens
+    side: int      # image side
+
+
+def train_1024(device, seed: int = 0) -> TrainPreset:
+    """The JAX package's ``train_1024`` bench preset: cc12m_1024x1024 with
+    f32 parameters and bf16 compute in training mode (480,970,057
+    parameters; with their gradients, Adam's two moments and the EMA about
+    20 bytes each, 9.6 GB before activations), batch 2 of (1024, 1024, 3)
+    images with (32, 2048) text, lr 5e-5, warmup 10, clip 2.0, EMA (decay
+    0.9999), selective remat keeping the stages of physical side <= 128."""
+    pipe, lm_dim, side = nested_preset("cc12m_1024x1024", device, seed, train=True)
+    cfg = TrainerConfig(lr=5e-5, warmup_steps=10, gradient_clip_norm=2.0, remat=True,
+                        remat_save_conv_max_side=128)
+    return TrainPreset(pipe, cfg, 2, lm_dim, 32, side)
 
 
 def cc12m_256x256(device, seed: int = 0) -> Tuple[NestedDiffusion, int, int]:

@@ -14,7 +14,19 @@ Semantics kept from the JAX package:
 - the EMA is updated inside the step, with the step before the increment
   as its warmup counter;
 - gradient accumulation over microbatches, a Python loop in place of
-  ``lax.scan``.
+  ``lax.scan``;
+- ``remat`` with ``remat_save_conv_max_side`` (selective rematerialisation,
+  the JAX ``make_remat_policy``): the forward of every U-Net stage
+  (``ResNetBlockStage``) whose convolutions run at a physical side above
+  ``remat_save_conv_max_side`` (a packed stage's is half its image side)
+  runs under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``
+  and is recomputed in the backward; the smaller stages keep their
+  activations. The JAX policy saves the conv outputs tagged with a side at
+  or below the threshold and every matmul output, and recomputes the rest of
+  the whole loss: the port recomputes whole large stages, matmuls inside
+  them too (their dense time layers), and keeps everything outside them (the
+  embeddings, the loss). At 0 every stage is recomputed, as the JAX
+  dots-only policy recomputes every convolution.
 
 The parameters are the module's own (f32 for training; the module's
 compute dtype, bf16 in the training presets, is what the convs and dense
@@ -55,6 +67,8 @@ class TrainerConfig:
     lr_scaling_factor: float = 1.0
     ema_decay: float = 0.9999
     ema_warmup_steps: int = 0
+    remat: bool = False
+    remat_save_conv_max_side: int = 128
 
 
 @dataclass
@@ -94,6 +108,14 @@ def adam_count(optimizer: torch.optim.Adam) -> int:
     return int(st["step"]) if st else 0
 
 
+def set_remat(module: torch.nn.Module, save_side: Optional[int]) -> None:
+    """Recompute in the backward every stage of ``module`` whose physical
+    side is above ``save_side`` (None: none)."""
+    for m in module.modules():
+        if hasattr(m, "remat_above"):
+            m.remat_above = save_side
+
+
 def weighted_loss(losses, weights, loss_factor: float = 1.0):
     if weights is None:
         loss = losses.mean()
@@ -126,8 +148,11 @@ def make_train_step(pipeline, config: TrainerConfig):
     > 1, B must be divisible by it; each microbatch's rows (and noise) go
     through loss and backward before one update. The batch is cast to the
     module's compute dtype. The state is updated in place; metrics are the
-    loss, the gradient norm and ``skipped``."""
+    loss, the gradient norm and ``skipped``. With ``config.remat`` it sets
+    the module's stages to recompute (``set_remat``)."""
     dtype = pipeline.vision_module.dtype
+    set_remat(pipeline.vision_module,
+              config.remat_save_conv_max_side if config.remat else None)
     schedule = make_schedule(config)
     ema_cfg = EmaConfig(config.ema_decay, config.ema_warmup_steps)
     accum = config.num_gradient_accumulations

@@ -17,12 +17,16 @@ loss within 1e-2 relative, gradient norm within 5e-2, cosine of the
 flattened gradients >= 0.99; K4 against its plain f32 version
 <= 2e-2 * max|ref| (the kernel rounds P to bf16 for the second product and
 the output once to bf16; the JAX package's own test of its kernel allows the
-same).
+same). K2·struct and its backward: as K2 and K3. K2·pipe against the serial
+K2: y and the shortcut bitwise equal (the same activated values, the same
+chunk and tap order), the stats <= 1e-5 * max|ref| (f32 atomics in another
+order).
 """
 import pytest
 import torch
 
 from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
+from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
 
 SAMPLING_MODES = ("K2", "K2·N", "K2·proj")  # K3 launches only in a backward
@@ -136,6 +140,141 @@ def test_affine_silu_conv3x3_operands_and_shortcut(dev, h, w, cs, cout, proj, st
     assert after["K2·proj"] == before["K2·proj"] + proj
 
 
+def _struct_inputs(dev, bsz, h, w, cs, cout, residual, proj, seed=7):
+    """Packed operands (B, h, w, 4 C_k) of random images, per-operand packed
+    (3, 3, 4 C_k, 4 Cout) kernels of random HWIO kernels, (B, 4 C_k)
+    coefficients, packed bias, residual and block-diagonal shortcut."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    ctot = sum(cs)
+    xs = tuple(s2d.space_to_depth(torch.randn((bsz, 2 * h, 2 * w, c), generator=g, device=dev))
+               .to(bf) for c in cs)
+    a_s = tuple(torch.randn((bsz, 4 * c), generator=g, device=dev) * 0.2 + 1.0 for c in cs)
+    b_s = tuple(torch.randn((bsz, 4 * c), generator=g, device=dev) * 0.3 for c in cs)
+    ws = tuple(s2d.pack_conv3x3_kernel(torch.randn((3, 3, c, cout), generator=g, device=dev)
+                                       / (9 * ctot) ** 0.5).to(bf) for c in cs)
+    bias = torch.randn((4 * cout,), generator=g, device=dev) * 0.1
+    res = (torch.randn((bsz, h, w, 4 * cout), generator=g, device=dev).to(bf)
+           if residual else None)
+    kw = {}
+    if proj:
+        kw["proj_kernel"] = tuple(
+            s2d.pack_conv1x1_kernel(torch.randn((1, 1, c, cout), generator=g, device=dev)
+                                    / ctot ** 0.5)[0, 0].to(bf) for c in cs)
+        kw["proj_bias"] = torch.randn((4 * cout,), generator=g, device=dev) * 0.1
+    return xs, a_s, b_s, ws, bias, res, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cs,cout,residual,proj,stats", [
+    (2, 256, 256, (32,), 32, False, False, True),      # the 1024px shell's stage 0, packed
+    (2, 128, 128, (32, 32), 32, False, True, True),    # its stage-1 up path: N = 2 + shortcut
+    (2, 64, 64, (64,), 64, True, False, False),        # stage 2 (64 channels), residual
+    (1, 12, 20, (8, 16), 24, True, True, True),        # ragged tile, two operands
+])
+def test_struct_kernel(dev, b, h, w, cs, cout, residual, proj, stats):
+    """K2·struct (4 products per chunk over the combined taps) against its
+    plain version, with both weight forms."""
+    xs, a_s, b_s, ws, bias, res, kw = _struct_inputs(dev, b, h, w, cs, cout, residual, proj)
+    before = dict(fused_resnet.launch_counts)
+    out = fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, ws, bias, res, emit_stats=stats,
+                                           packed_struct=True, **kw)
+    combined = tuple(fused_resnet.struct_weights(wk) for wk in ws)
+    out_q = fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, combined, bias, res, emit_stats=stats,
+                                             packed_struct=True, **kw)
+    torch.cuda.synchronize()
+    ref = fused_resnet.affine_silu_conv3x3_plain(xs, a_s, b_s, ws, bias, res, emit_stats=stats,
+                                                 packed_struct=True, **kw)
+    out, out_q, ref = ((o if isinstance(o, tuple) else (o,)) for o in (out, out_q, ref))
+    assert len(out) == len(ref) == 1 + 2 * stats + proj
+    for o, q, r in zip(out, out_q, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert _rel(o, r) <= 2e-2
+        assert _rel(q, r) <= 2e-2
+    assert fused_resnet.launch_counts["K2·struct"] == before["K2·struct"] + 2
+
+
+@pytest.mark.cuda
+def test_struct_conv3x3_fast_pads_the_packed_image(dev):
+    """The packed input layer: 12 channels padded to one chunk of 32."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = s2d.space_to_depth(torch.randn((2, 64, 64, 3), generator=g, device=dev)).to(torch.bfloat16)
+    k = torch.randn((3, 3, 3, 32), generator=g, device=dev) / 5.0
+    y = s2d.packed_conv(x, k, None, fast=True)
+    torch.cuda.synchronize()
+    ref = s2d.packed_conv(x.float(), k, None)
+    assert y.shape == ref.shape and _rel(y, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cs,cout,proj,stats,struct", [
+    (2, 32, 32, (64,), 64, False, True, False),
+    (2, 16, 16, (256, 256), 256, True, True, False),
+    (2, 24, 40, (48, 40), 64, True, False, False),     # partial chunks
+    (2, 64, 64, (32,), 32, False, True, True),         # packed 128 -> 128
+    (2, 32, 32, (32, 32), 32, True, True, True),
+])
+def test_pipelined_matches_serial(dev, b, h, w, cs, cout, proj, stats, struct):
+    """K2·pipe against the serial K2 on the same inputs."""
+    if struct:
+        xs, a_s, b_s, ws, bias, res, kw = _struct_inputs(dev, b, h, w, cs, cout, True, proj)
+    else:
+        xs, a_s, b_s, ws, bias, res, kw = _conv_inputs(dev, b, h, w, cs, cout, True, proj)
+    before = dict(fused_resnet.launch_counts)
+    outs = [fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, ws, bias, res, emit_stats=stats,
+                                             pipelined=pipe, packed_struct=struct, **kw)
+            for pipe in (True, False)]
+    torch.cuda.synchronize()
+    assert fused_resnet.launch_counts["K2·pipe"] == before["K2·pipe"] + 1
+    got, ref = ((o if isinstance(o, tuple) else (o,)) for o in outs)
+    assert torch.equal(got[0], ref[0])
+    if proj:
+        assert torch.equal(got[-1], ref[-1])
+    if stats:
+        assert _rel(got[1], ref[1]) <= 1e-5 and _rel(got[2], ref[2]) <= 1e-5
+    plain = fused_resnet.affine_silu_conv3x3_plain(xs, a_s, b_s, ws, bias, res,
+                                                   packed_struct=struct, **kw)
+    assert _rel(got[0], plain[0] if proj else plain) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,cout,stats,residual", [
+    (2, 256, 256, 32, 32, True, False),    # the 1024px shell's stage 0, packed (128 -> 128)
+    (2, 64, 64, 64, 64, False, True),      # stage 2 (256 -> 256)
+])
+def test_struct_backward_kernel(dev, b, h, w, c, cout, stats, residual):
+    """K3 with ``packed_struct`` (data gradient through K2·struct, weight
+    gradient by the 4 products) against autograd of the plain version; dw is
+    the UNPACKED kernel's gradient."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = s2d.space_to_depth(torch.randn((b, 2 * h, 2 * w, c), generator=g, device=dev))
+    ins = [x.to(torch.bfloat16), torch.randn((b, 4 * c), generator=g, device=dev) * 0.2 + 1.0,
+           torch.randn((b, 4 * c), generator=g, device=dev) * 0.3,
+           torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5,
+           torch.randn((4 * cout,), generator=g, device=dev) * 0.1,
+           torch.randn((b, h, w, 4 * cout), generator=g, device=dev).to(torch.bfloat16)
+           if residual else None]
+    cots = [torch.randn((b, h, w, 4 * cout), generator=g, device=dev).to(torch.bfloat16),
+            torch.randn((b, 4 * cout), generator=g, device=dev) * 1e-3,
+            torch.randn((b, 4 * cout), generator=g, device=dev) * 1e-4]
+
+    def packed(fn):
+        def run(x, a, bb, w, bias, res, emit_stats):
+            return fn(x, a, bb, s2d.pack_conv3x3_kernel(w), bias, res, emit_stats=emit_stats,
+                      packed_struct=True)
+        return run
+
+    before = dict(fused_resnet.launch_counts)
+    got = _grads(packed(fused_resnet.affine_silu_conv3x3_vjp), ins, cots, stats)
+    torch.cuda.synchronize()
+    assert fused_resnet.launch_counts["K3"] == before["K3"] + 1
+    assert fused_resnet.launch_counts["K2·struct"] == before["K2·struct"] + 2
+    ref = _grads(packed(fused_resnet.affine_silu_conv3x3_plain), ins, cots, stats)
+    for name, o, r in zip(["dx", "da", "db", "dw", "dbias", "dres"], got, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        assert _rel(o, r) <= 2e-2, name
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
     x = torch.zeros((1, 8, 8, 12), device=dev, dtype=torch.bfloat16)
@@ -152,6 +291,10 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
         fused_resnet.affine_silu_conv3x3(
             (x8,) * 5, (ab[:, :8],) * 5, (ab[:, :8],) * 5,
             (torch.zeros((3, 3, 8, 8), device=dev),) * 5, torch.zeros(8, device=dev))
+    with pytest.raises(ValueError):  # packed: whole chunks of 32 channels
+        fused_resnet.affine_silu_conv3x3(
+            x8, ab[:, :8], ab[:, :8], torch.zeros((2, 2, 8, 8), device=dev),
+            torch.zeros(8, device=dev), packed_struct=True)
 
 
 @pytest.mark.cuda
@@ -196,6 +339,31 @@ def test_tiny_nested_kernel_path_matches_plain_path(dev, name):
         assert _rel(o, r) <= 5e-2
 
 
+@pytest.mark.cuda
+def test_tiny_packed_nested2_kernel_path_matches_plain_path(dev):
+    """The scaled nested2 model with packing from side 8: every shell packs
+    (K2·struct in the ResNets, the packed input, output and upsample
+    convolutions)."""
+    pipe, lm_dim, side = nested_preset("cc12m_1024x1024", dev, seed=0, scaled=True,
+                                       pack_min_side=8)
+    unet = pipe.vision_module
+    assert all(unet._pack_plan(torch.zeros(1, side, side, 3)))
+    g = torch.Generator(device=dev).manual_seed(3)
+    xs = pipe.get_noise(2, side, g)
+    t = torch.tensor([10, 700], device=dev)
+    lm = torch.randn((2, 8, lm_dim), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((2, 8), device=dev, dtype=torch.bfloat16)
+    counts = dict(fused_resnet.launch_counts)
+    with torch.no_grad():
+        got = unet(xs, t, lm, mask, {})
+        for mode in SAMPLING_MODES + ("K2·struct",):
+            assert fused_resnet.launch_counts[mode] > counts[mode], mode
+        ref = unet.use_kernels(False)(xs, t, lm, mask, {})
+    for o, r, x in zip(got, ref, xs):
+        assert o.shape == x.shape and torch.isfinite(o).all()
+        assert _rel(o, r) <= 5e-2
+
+
 def _grads(fn, ins, cots, stats):
     ins = [t.clone().requires_grad_(True) if t is not None else None for t in ins]
     out = fn(*ins, emit_stats=stats)
@@ -230,8 +398,14 @@ def test_k3_backward_kernel(dev, b, h, w, c, cout, stats, residual):
 
 
 @pytest.mark.cuda
-def test_tiny_nested_training_step_kernel_path_matches_plain_path(dev):
-    pipe, lm_dim, side = nested_preset("cc12m_256x256", dev, seed=0, scaled=True, train=True)
+@pytest.mark.parametrize("name,pack", [("cc12m_256x256", None), ("cc12m_1024x1024", 8)])
+def test_tiny_nested_training_step_kernel_path_matches_plain_path(dev, name, pack):
+    """One step of the scaled 256px model, and of the scaled 1024px model
+    packed from side 8 with every stage recomputed (remat, save side 0)."""
+    from ml_mdm_tpu_torch import trainer
+
+    pipe, lm_dim, side = nested_preset(name, dev, seed=0, scaled=True, train=True,
+                                       pack_min_side=pack)
     unet = pipe.vision_module
     g = torch.Generator(device=dev).manual_seed(6)
     b = 3
@@ -242,6 +416,7 @@ def test_tiny_nested_training_step_kernel_path_matches_plain_path(dev):
     time = torch.tensor([10, 400, 900], device=dev)
     eps = [torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
            for x in pipe.get_noise(b, side, g)]
+    trainer.set_remat(unet, 0 if pack else None)
     results = []
     for kernels in (True, False):
         unet.use_kernels(kernels).zero_grad()
@@ -251,7 +426,7 @@ def test_tiny_nested_training_step_kernel_path_matches_plain_path(dev):
         torch.cuda.synchronize()
         if kernels:
             assert gn_stats.launch_count > counts[0]
-            for mode in ("K2", "K3"):
+            for mode in ("K2", "K3") + (("K2·struct",) if pack else ()):
                 assert fused_resnet.launch_counts[mode] > counts[1][mode], mode
         grads = torch.cat([p.grad.flatten() for p in unet.parameters() if p.grad is not None])
         results.append((float(loss.detach()), grads))
