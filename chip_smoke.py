@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand kernels from the sources in this checkout (K2 and K4 with
-nvcc, one background thread each, while Triton compiles K1), then drives
-each of the port's paths with random weights from a seed:
+Builds the hand kernels from the sources in this checkout (K2, K4 and the
+probes' kernel with nvcc, one background thread each, while Triton compiles
+K1), then drives each of the port's paths with random weights from a seed:
 
   1. cc12m_64x64 (``Diffusion.sample``): every kernel launch shape of a
      batch-64 forward held against its plain version and timed beside its
@@ -55,8 +55,17 @@ each of the port's paths with random weights from a seed:
      attention and the frame resample, and ``temporal_spatial_ds``) and a
      U-Net with a learned lm-head of two layers, one forward each with K1
      and K2 under them, against their ``use_kernels(False)`` forward.
-     Then K2 at the one shape of the JAX package's cost-decomposition
-     probes (``tools/probe_kernel_anatomy*.py``), beside its bound.
+  7. The cost-decomposition probes P1 and P2 (``ml_mdm_tpu_torch/tools/
+     probe_kernel_anatomy{,2}.py``, the Hopper counterparts of the JAX
+     package's ``tools/probe_kernel_anatomy*.py``) at their one shape, B = 4,
+     512 x 512, 128 channels, bf16: K2 itself there, beside its bound; the
+     two probes' tables through their entry points; then each of their 16
+     variants held against its plain version (the double buffers bitwise
+     against their single buffers; a zero fill bitwise its variant without
+     it off the cells it reaches, and on them different from it and within
+     two bf16 ULPs of the plain version) and timed beside its bound, K2's
+     time, the same products as one cuBLAS matmul and, for P1's 1-tap
+     product and its copy, the one PyTorch call that computes the same.
 
 The nested models pack their thin shells as the JAX package does, so the
 256px and 1024px phases launch K2·struct too; K2·pipe runs wherever a
@@ -70,8 +79,8 @@ power limit are printed near the top; the line before the last names
 every kernel with its launches (K1 and K2 during the nested matmul-route
 requests, K2·struct and K2·pipe during the train_1024 preset's timed steps,
 K3 during the train_256 preset's timed steps, K4 during the flash-route
-requests), its error and its times; the last line is one JSON object with
-"ok" and the device.
+requests, P1 and P2 during the probes' tables), its error and its times;
+the last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
 
@@ -92,6 +101,11 @@ LM_LEN = 32
 # tolerances (bf16 working type), each relative to max|plain|:
 K1_TOL = 1e-5    # f32 sums in another order
 K2_TOL = 2e-2    # two bf16 ULPs: fast exp in SiLU and sum order can flip a rounding
+# a zero-filled probe cell against its plain version: 2 bf16 ULPs of the
+# cell itself, plus 5e-4 max|ref| for a cell near 0, where one activation
+# rounded the other way (fast exp, fused multiply-add) moves the sum by up
+# to about 3e-4; the zero fill moves a cell by about 6e-3 (0.0101 sum w)
+FILL_ULPS, FILL_FLOOR = 2, 5e-4
 UNET_TOL = 5e-2  # those flips carried through the full U-Net (one forward)
 SAMPLE_MEAN_TOL = 1e-2  # 4-step sample, mean |kernel - plain| over pixels in [-1, 1]
 SAMPLE_MAX_TOL = 0.25   # 4-step sample, max |kernel - plain|
@@ -592,20 +606,21 @@ TRAIN_1024_KERNELS = TRAINING_KERNELS + ("K2·struct",)
 
 
 def reset_counts():
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
 
     gn_stats.launch_count = 0
     attention.launch_count = 0
     fused_resnet.reset_launch_counts()
+    kernel_anatomy.reset_launch_counts()
 
 
 def read_counts(what: str, required=SAMPLING_KERNELS):
     """The launch counts since reset_counts(); fails if a kernel of the path
     (``required``) never launched."""
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
 
     counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts,
-              "K4": attention.launch_count}
+              "K4": attention.launch_count, **kernel_anatomy.launch_counts}
     log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
     if missing:
@@ -1016,8 +1031,9 @@ def library_k3_backward(x, a, b, w16, dy, y=None, ds1=None, ds2=None):
 def check_k3(keys, dev, label: str = "256px train"):
     """Each K3 launch shape: the Function's backward against autograd of the
     plain version (K2_TOL), then the backward's time, the plain
-    backward's, the library's, the weight re-layout's and the bound.
-    Returns the totals."""
+    backward's, the library's, the weight re-layout's and the bound. At a
+    packed shape also the weight gradient's four products alone (kept in
+    f32). Returns the totals."""
     import torch
 
     from ml_mdm_tpu_torch.ops import fused_resnet
@@ -1026,6 +1042,7 @@ def check_k3(keys, dev, label: str = "256px train"):
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     tot = _new_totals()
     relayout_ms = 0.0
+    packed = dict.fromkeys(("shapes", "ms", "dw_ms"), 0.0)
     for key in keys:
         bsz, h, w, c, cout, residual, stats, struct = key
         ins, cots = _k3_inputs(key, dev, g)
@@ -1048,15 +1065,27 @@ def check_k3(keys, dev, label: str = "256px train"):
         relayout_ms += rms
         bound, by = k3_bound(key)
         flops = 4 * bsz * h * w * 9 * c * cout / (4 if struct else 1)
+        extra = ""
+        if struct:
+            v = ins[0].float() * ins[1][:, None, None, :] + ins[2][:, None, None, :]
+            s16, dy16 = (v * torch.sigmoid(v)).to(torch.bfloat16), cots[0]
+            dw_ms = cuda_ms(lambda: fused_resnet.struct_wgrad(s16, dy16))
+            for k, t in (("shapes", 1), ("ms", ms), ("dw_ms", dw_ms)):
+                packed[k] += t
+            extra = f" dw products {dw_ms:.4f} ms"
         log(f"{label} K3 B={bsz} {h}x{w} {c}->{cout}{' residual' if residual else ''}"
             f"{' stats' if stats else ''}{' packed' if struct else ''}: rel_errs (dx, da, db, "
             f"dw, dbias{', dres' if residual else ''}) {', '.join(f'{e:.3e}' for e in errs)} "
             f"backward {ms:.4f} ms ({flops / ms / 1e9:.1f} unpacked TFLOP/s) plain {pms:.4f} ms "
-            f"library {lms:.4f} ms weight re-layout {rms:.4f} ms bound {bound:.4f} ms ({by})")
+            f"library {lms:.4f} ms weight re-layout {rms:.4f} ms bound {bound:.4f} ms ({by})"
+            + extra)
         _add(tot, max(abs_err(o, r) for o, r in zip(got, ref)), ms, pms, lms, bound, by)
     log(f"{label} K3 over {tot['shapes']} shapes: backward {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms; the data gradient's weight re-layout {relayout_ms:.4f} ms")
+    if packed["shapes"]:
+        log(f"{label} K3 over its {packed['shapes']:.0f} packed shapes: backward {packed['ms']:.4f} "
+            f"ms, the weight gradient's f32 products alone {packed['dw_ms']:.4f} ms")
     return tot
 
 
@@ -1517,6 +1546,163 @@ def path_new_modules(dev):
             raise AssertionError(f"{what}: kernel path disagrees with plain path")
 
 
+# -- the cost-decomposition probes P1 and P2 ------------------------------------
+
+def probe_bound(v, shape):
+    """(least ms, what bounds it) for one probe variant over x of ``shape``
+    (B, H, W, C) on the H100: x read once, the weights read once and y
+    written once over HBM, the products 2 B H W C^2 n over the dense bf16
+    peak. The halo rows are rows of x, so they add nothing: that the tiling
+    reads them twice is the kernel's cost (``halo_reread_ms``), not the
+    function's."""
+    bsz, h, w, c = shape
+    px = bsz * h * w
+    nbytes = 2 * px * c * 2 + 2 * v.n_taps * c * c
+    t_ops, t_bytes = 2 * px * c * c * v.n_taps / PEAK_BF16_TENSOR, nbytes / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def halo_reread_ms(shape) -> float:
+    """The ms at the memory rate of reading the two halo rows of every band
+    of ``kernel_anatomy.TH`` rows once more, as the halo variants' tiling does."""
+    from ml_mdm_tpu_torch.ops import kernel_anatomy
+
+    bsz, h, w, c = shape
+    return 1e3 * 2 * bsz * h * w * c * 2 / kernel_anatomy.TH / PEAK_HBM
+
+
+def bf16_ulp_excess(got, ref) -> float:
+    """max over cells of |got - ref| / (FILL_ULPS bf16 ULPs of the cell's
+    own magnitude + FILL_FLOOR max|ref|): 1 or less passes."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    mag = torch.maximum(g.abs(), r.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - r).abs() / (FILL_ULPS * ulp + FILL_FLOOR * r.abs().max())).max())
+
+
+def check_fill(label, v, got, twin, x, w):
+    """A zero-filling variant ``v`` (output ``got``) against ``twin``, the
+    output of its variant without the zero fill and the double buffer:
+    bitwise equal off ``kernel_anatomy.fill_cells``, different on them, and
+    there each of the two within FILL_ULPS of its plain version."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import kernel_anatomy as ka
+
+    fill = ka.fill_cells(v, *x.shape[1:3]).to(x.device)
+    if torch.equal(got[:, fill], twin[:, fill]):
+        raise AssertionError(f"probe {label}: the zero fill changes no cell it reaches")
+    base = v._replace(zero=False, dbuf=False)
+    excess = max(bf16_ulp_excess(out[:, fill], ka.anatomy_plain(x, w, u)[:, fill])
+                 for out, u in ((got, v), (twin, base)))
+    if not excess <= 1:
+        raise AssertionError(f"probe {label}: on the cells the zero fill reaches, {excess:.3f} "
+                             f"times the tolerance of {FILL_ULPS} bf16 ULPs from the plain version")
+    return excess
+
+
+def path_probes(dev, k2_ms: float):
+    """The two probes' tables through their entry points (at their modules'
+    shape, B = 4, 512 x 512, 128 channels, bf16) between a count reset and a
+    count read, then each variant at that shape against its plain version
+    (K2_TOL; a double buffer bitwise against its single buffer) and timed
+    beside its bound, K2's time ``k2_ms`` and the same products as one
+    cuBLAS matmul of (B H W, C) by (C, n C), the products' yardstick (no
+    PyTorch call computes a probe). Returns per-probe totals and the launch
+    counts of the tables."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import kernel_anatomy as ka
+    from ml_mdm_tpu_torch.tools import probe_kernel_anatomy, probe_kernel_anatomy2
+
+    with phase("probes P1 and P2: the two tables through their entry points"):
+        reset_counts()
+        probe_kernel_anatomy.main(n=10)
+        probe_kernel_anatomy2.main(n=10)
+        torch.cuda.synchronize()
+        counts = read_counts("the probes' tables", ("P1", "P2"))
+    tot = {"P1": _new_totals(), "P2": _new_totals()}
+    cublas_ms = {"P1": 0.0, "P2": 0.0}
+    library_kernel_ms = {"P1": 0.0, "P2": 0.0}
+    labels = [label for label, _ in ka.P1_ROWS + ka.P2_ROWS]
+    with phase("probes P1 and P2: each variant against its plain version, timed"):
+        outs = {}
+        for label, v in zip(labels, ka.VARIANTS):
+            x, w = probe_kernel_anatomy.inputs(v.n_taps)
+            got, ref = ka.anatomy(x, w, v), ka.anatomy_plain(x, w, v)
+            err = rel_err(got, ref)
+            if not err <= K2_TOL:
+                raise AssertionError(f"probe {label} {v}: rel err {err} > {K2_TOL}")
+            outs[v] = got
+            extra = ""
+            if v.dbuf or v.zero:
+                # bitwise the variant without the double buffer where one is
+                # a row of the probe, else without the zero fill too, on the
+                # cells that the zero fill does not reach
+                twin = v._replace(dbuf=False)
+                twin = twin if twin in outs and twin != v else twin._replace(zero=False)
+                same = torch.ones(x.shape[1:3], dtype=torch.bool, device=dev)
+                if v.zero != twin.zero:
+                    same = ~ka.fill_cells(v, *x.shape[1:3]).to(dev)
+                if not torch.equal(got[:, same], outs[twin][:, same]):
+                    raise AssertionError(f"probe {label}: differs from {twin} where the zero "
+                                         f"fill does not reach")
+                extra = f" bitwise equal to {labels[ka.VARIANTS.index(twin)]!r}"
+                if v.zero and not twin.zero:
+                    excess = check_fill(label, v, got, outs[twin], x, w)
+                    extra += (f" off the zero-filled cells, differs on them, and there "
+                              f"{excess:.3f} of the {FILL_ULPS}-ULP tolerance from plain")
+            ms = cuda_ms(lambda: ka.anatomy(x, w, v))
+            pms = cuda_ms(lambda: ka.anatomy_plain(x, w, v), warmup=1, reps=3)
+            cms = lms = None
+            if v.n_taps:
+                a = x.reshape(-1, x.shape[-1])
+                wc = w.permute(1, 0, 2).reshape(x.shape[-1], -1).contiguous()
+                cms = cuda_ms(lambda: a @ wc)
+            library = probe_library(v, x, w)
+            if library is not None:
+                lib_err = rel_err(library(), ref)
+                if not lib_err <= K2_TOL:
+                    raise AssertionError(f"probe {label}: the library call's rel err {lib_err}")
+                lms = cuda_ms(library)
+                library_kernel_ms[f"P{v.probe}"] += ms
+            bound, by = probe_bound(v, x.shape)
+            if v.halos:
+                extra += f" (the halo rows' re-read {halo_reread_ms(x.shape):.4f} ms at HBM rate)"
+            name = f"P{v.probe}"
+            log(f"probe {name} {label}: rel_err {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+                f"library {'none' if lms is None else f'{lms:.4f} ms'} bound {bound:.4f} ms "
+                f"({by}) K2 {k2_ms:.4f} ms cuBLAS products "
+                f"{'none' if cms is None else f'{cms:.4f} ms'}{extra}")
+            _add(tot[name], abs_err(got, ref), ms, pms, lms, bound, by)
+            cublas_ms[name] += cms or 0.0
+            del got, ref, x, w
+        for name, t in tot.items():
+            t["cublas_products_ms"] = cublas_ms[name]
+            t["library_kernel_ms"] = library_kernel_ms[name]
+            t["k2_ms"] = k2_ms
+            log(f"probe {name} over {t['shapes']} variants: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, cuBLAS products "
+                f"{t['cublas_products_ms']:.4f} ms; "
+                + (f"where one library call computes the variant, library "
+                   f"{t['library_ms']:.4f} ms against the kernel's {t['library_kernel_ms']:.4f} ms"
+                   if t["library_kernel_ms"] else "no library call computes a variant"))
+    return tot, counts
+
+
+def probe_library(v, x, w):
+    """One PyTorch call that computes probe variant ``v`` on (x, w), where
+    there is one: P1's one unshifted product of x (a matmul) and its copy
+    of x; else None."""
+    if v.probe != 1 or v.act:
+        return None
+    if v.n_taps == 1:
+        return lambda: (x.reshape(-1, x.shape[-1]) @ w[0]).reshape(x.shape)
+    return x.clone if v.n_taps == 0 else None
+
+
 def nvcc_report(lib_path, name: str):
     """Log what ptxas said of each kernel in a built library: registers and
     spills, with the head width of a templated instance."""
@@ -1530,9 +1716,12 @@ def nvcc_report(lib_path, name: str):
         elif "Compiling entry function" in line:
             m = re.search(r"flash_attention_kernelILi(\d+)E", line)
             k2 = re.search(r"affine_silu_conv3x3_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+            pr = re.search(r"kernel_anatomyI((?:Li\d+E){9})", line)
             width = (f"D={m.group(1)}: " if m else
                      f"shortcut {k2.group(1)} packed {k2.group(2)} pipelined {k2.group(3)}: "
-                     if k2 else "")
+                     if k2 else
+                     "P{} taps {} act {} silu {} stage {} halos {} selects {} zero {} dbuf {}: "
+                     .format(*re.findall(r"\d+", pr.group(1))) if pr else "")
         elif "spill" in line or "registers" in line:
             lines.append(width + line.replace("ptxas info    :", "").strip())
             if "registers" in line:
@@ -1545,7 +1734,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's check runs only on a GPU")
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
 
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -1555,7 +1744,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    with phase("build the kernels (one nvcc each for K2 and K4, beside Triton's K1 compile)"):
+    with phase("build the kernels (one nvcc each for K2, K4 and P1/P2, beside Triton's K1 "
+               "compile)"):
         built, errors = {}, {}
 
         def build(name, module):
@@ -1565,7 +1755,7 @@ def main() -> int:
                 errors[name] = e
 
         threads = [threading.Thread(target=build, args=a)
-                   for a in (("K2", fused_resnet), ("K4", attention))]
+                   for a in (("K2", fused_resnet), ("K4", attention), ("P1/P2", kernel_anatomy))]
         t0 = time.perf_counter()
         for thread in threads:
             thread.start()
@@ -1579,8 +1769,9 @@ def main() -> int:
             raise e
         fused_resnet.load_library()
         attention.load_library()
-        log(f"K2 and K4 build (nvcc, sm_90a) + load: {time.perf_counter() - t0:.3f} s -> "
-            f"{built['K2'].name}, {built['K4'].name}")
+        kernel_anatomy.load_library()
+        log(f"K2, K4 and P1/P2 build (nvcc, sm_90a) + load: {time.perf_counter() - t0:.3f} s -> "
+            f"{built['K2'].name}, {built['K4'].name}, {built['P1/P2'].name}")
         for name, lib_path in built.items():
             nvcc_report(lib_path, name)
 
@@ -1597,13 +1788,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("new attention modules on the card"):
         path_new_modules(dev)
-    with phase("K2 at the shape of the TPU cost-decomposition probes"):
-        # tools/probe_kernel_anatomy*.py take the Pallas conv apart at B=4,
-        # 512 x 512, 128 -> 128 channels, bf16; their Hopper counterpart is
-        # still to write, so K2 itself is timed there beside its bound
-        check_kernels([K2Key(4, 512, 512, (128,), 128, False, False, False, True, False,
-                             fused_resnet.pipelines((128,), 4, 512, 512, 128))], [], dev,
-                      "probe shape")
+    with phase("K2 at the shape of the cost-decomposition probes"):
+        # the probes P1 and P2 take K2 apart at B=4, 512 x 512, 128 -> 128
+        # channels, bf16: K2 itself there, beside its bound
+        tot_k2_probe = check_kernels(
+            [K2Key(4, 512, 512, (128,), 128, False, False, False, True, False,
+                   fused_resnet.pipelines((128,), 4, 512, 512, 128))], [], dev, "probe shape")
+    torch.cuda.empty_cache()
+    tot_probes, counts_probes = path_probes(dev, tot_k2_probe["K2"]["ms"])
 
     # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
     # slices), K2·struct and K2·pipe over those and the train_1024 step's
@@ -1612,13 +1804,16 @@ def main() -> int:
         totals[mode] = merge_totals(tot_256, tot_1024, tot_t1024)[mode]
     totals["K3"] = tot_k3
     totals["K4"] = merge_totals({"K4": tot_k4_64}, {"K4": tot_k4_256})["K4"]
+    totals.update(tot_probes)
     launches = {k: counts_256[k] + counts_1024[k] for k in ("K1", "K2", "K2·N", "K2·proj")}
     launches.update({k: counts_t1024[k] for k in ("K2·struct", "K2·pipe")})
     launches["K3"] = counts_train["K3"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
+    launches.update({k: counts_probes[k] for k in ("P1", "P2")})
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
         f"train_1024 preset's timed steps (K2·struct, K2·pipe), the train_256 preset's timed "
-        f"steps (K3) and the flash-route requests (64px and 256px; K4): {launches}")
+        f"steps (K3), the flash-route requests (64px and 256px; K4) and the probes' tables "
+        f"(P1, P2): {launches}")
     log(f"K3 over the train_1024 step's shapes: backward {tot_k3_1024['ms']:.4f} ms, plain "
         f"{tot_k3_1024['plain_ms']:.4f} ms, library {tot_k3_1024['library_ms']:.4f} ms, bound "
         f"{tot_k3_1024['bound_ms']:.4f} ms")
@@ -1653,6 +1848,17 @@ def main() -> int:
               "ml_mdm_tpu/ops/fused_resnet.py:744"),
         entry("flash_attention", "K4", "cuda", "ml_mdm_tpu_torch/csrc/flash_attention.cu",
               "ml_mdm_tpu/ops/attention.py:130"),
+        # one PyTorch call computes two of P1's variants (its 1-tap product
+        # and its copy): library_ms sums those, library_kernel_ms is the
+        # kernel's time on the same two; none computes a P2 variant. The
+        # products' cuBLAS time stands beside every probe as a yardstick
+        entry("kernel_anatomy (probe P1, 9 variants)", "P1", "cuda",
+              "ml_mdm_tpu_torch/csrc/kernel_anatomy.cu", "tools/probe_kernel_anatomy.py:29",
+              k2_ms="k2_ms", cublas_products_ms="cublas_products_ms",
+              library_kernel_ms="library_kernel_ms"),
+        entry("kernel_anatomy (probe P2, 7 variants)", "P2", "cuda",
+              "ml_mdm_tpu_torch/csrc/kernel_anatomy.cu", "tools/probe_kernel_anatomy2.py:28",
+              library=False, k2_ms="k2_ms", cublas_products_ms="cublas_products_ms"),
     ]
     print(json.dumps({"kernels": kernels}, ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {

@@ -147,6 +147,16 @@ def _struct_buffers(s: torch.Tensor):
     return out
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated and returned in f32 (``preferred_element_type=
+    jnp.float32``): on the card cuBLAS's bf16 product with an f32 output,
+    elsewhere the product of the f32 upcasts (the same products: a bf16
+    value is exact in f32)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def struct_wgrad(s: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The packed kernel's (3, 3, C, Cout) cotangent from 4 products (the
     JAX ``_struct_wgrad``): s (B, H, W, C) the activated input, dy (B, H, W,
@@ -154,10 +164,12 @@ def struct_wgrad(s: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dy over the pixels; ``struct_weights``' transpose copies it to every
     packed tap it sums. Right on ``pack_conv3x3_kernel``'s image only: pull
     it back through that transform before comparing it with a dense
-    gradient. In s's dtype (products accumulated in f32)."""
+    gradient. In f32, as the JAX products are kept: the products of s's and
+    dy's dtype accumulated in f32 and never rounded to bf16 (the caller
+    casts to the weights' dtype)."""
     c, cout = s.shape[-1], dy.shape[-1]
     d2 = dy.reshape(-1, cout)
-    ac, ab, bc, bb = (buf.reshape(-1, c).t() @ d2 for buf in _struct_buffers(s))
+    ac, ab, bc, bb = (_mm_f32(buf.reshape(-1, c).t(), d2) for buf in _struct_buffers(s))
     return torch.stack([torch.stack([bb, bc, bb]), torch.stack([ab, ac, ab]),
                         torch.stack([bb, bc, bb])])
 
@@ -292,9 +304,10 @@ class _AffineSiluConv3x3(torch.autograd.Function):
             da = (dv * x.float()).sum(dim=(1, 2)).to(a.dtype)
             db = dv.sum(dim=(1, 2)).to(b.dtype)
             dbias = dy.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
-            # weight gradient, in x's dtype (f32 accumulation inside): the
-            # library's conv weight-gradient of the stored activation against
-            # dy, or packed the 4 products of the combined taps
+            # weight gradient: the library's conv weight-gradient of the
+            # stored activation against dy, in x's dtype (f32 accumulation
+            # inside), or packed the 4 products of the combined taps, kept
+            # in f32 (as the JAX package's two branches)
             with record_function("K3 dw (library)"):
                 s_x, dy_x = s_store.to(x.dtype), dy.to(x.dtype)
                 if ctx.packed_struct:

@@ -20,12 +20,17 @@ the output once to bf16; the JAX package's own test of its kernel allows the
 same). K2·struct and its backward: as K2 and K3. K2·pipe against the serial
 K2: y and the shortcut bitwise equal (the same activated values, the same
 chunk and tap order), the stats <= 1e-5 * max|ref| (f32 atomics in another
-order).
+order). ``struct_wgrad`` of bf16 operands on the card against the f32
+products of the same values: <= 1e-5 * max|ref| (both f32 sums). The probes
+P1 and P2 (``ops/kernel_anatomy.py``) against their plain versions:
+<= 2e-2 * max|ref| (as K2); a double-buffered probe against its single
+buffer: bitwise equal; a zero-filled probe on the cells its fill reaches:
+within 2 bf16 ULPs of each cell + 5e-4 * max|ref|.
 """
 import pytest
 import torch
 
-from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats
+from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
 
@@ -35,6 +40,16 @@ SAMPLING_MODES = ("K2", "K2·N", "K2·proj")  # K3 launches only in a backward
 def _rel(got, ref) -> float:
     got, ref = got.float(), ref.float()
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _bf16_ulp_excess(got, ref) -> float:
+    """max |got - ref| over cells in units of 2 bf16 ULPs of the cell's
+    own magnitude + 5e-4 max|ref| (one activation rounded the other way
+    moves a cell near 0 by up to about 3e-4)."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - ref).abs() / (2 * ulp + 5e-4 * ref.abs().max())).max())
 
 
 @pytest.fixture
@@ -273,6 +288,66 @@ def test_struct_backward_kernel(dev, b, h, w, c, cout, stats, residual):
     for name, o, r in zip(["dx", "da", "db", "dw", "dbias", "dres"], got, ref):
         assert o.shape == r.shape and o.dtype == r.dtype, name
         assert _rel(o, r) <= 2e-2, name
+
+
+@pytest.mark.cuda
+def test_struct_wgrad_keeps_f32_on_the_card(dev):
+    """The packed weight gradient's products of bf16 operands stay f32."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    s, dy = (torch.randn((2, 64, 64, 128), generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    got = fused_resnet.struct_wgrad(s, dy)
+    assert got.dtype == torch.float32
+    assert _rel(got, fused_resnet.struct_wgrad(s.float(), dy.float())) <= 1e-5
+
+
+def _probe_id(v):
+    return "-".join(f"{k}{int(x)}" for k, x in v._asdict().items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", kernel_anatomy.VARIANTS, ids=_probe_id)
+def test_kernel_anatomy_kernel(dev, v):
+    """Each probe variant at a small shape with a partial block of output
+    channels (96 = 64 + 32) against its plain version; a double buffer
+    bitwise equal to its single buffer; a zero fill bitwise equal to its
+    variant without it (and without the double buffer) off the cells the
+    fill reaches, and on them different from it and, like it, within two
+    bf16 ULPs of the plain version."""
+    b, h, w, c = 2, 32, 24, 96
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn((b, h, w, c), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    wt = (torch.randn((max(v.n_taps, 1), c, c), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    before = dict(kernel_anatomy.launch_counts)
+    got = kernel_anatomy.anatomy(x, wt, v)
+    torch.cuda.synchronize()
+    assert kernel_anatomy.launch_counts[f"P{v.probe}"] == before[f"P{v.probe}"] + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert _rel(got, kernel_anatomy.anatomy_plain(x, wt, v)) <= 2e-2
+    if v.dbuf and v._replace(dbuf=False) in kernel_anatomy.VARIANTS:
+        assert torch.equal(got, kernel_anatomy.anatomy(x, wt, v._replace(dbuf=False)))
+    if v.zero:
+        base = v._replace(zero=False, dbuf=False)
+        twin = kernel_anatomy.anatomy(x, wt, base)
+        fill = kernel_anatomy.fill_cells(v, h, w).to(dev)
+        assert torch.equal(got[:, ~fill], twin[:, ~fill])
+        assert not torch.equal(got[:, fill], twin[:, fill])
+        for out, u in ((got, v), (twin, base)):
+            assert _bf16_ulp_excess(out[:, fill],
+                                    kernel_anatomy.anatomy_plain(x, wt, u)[:, fill]) <= 1
+
+
+@pytest.mark.cuda
+def test_kernel_anatomy_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((1, 16, 8, 32), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((4, 32, 32), device=dev, dtype=torch.bfloat16)
+    v = kernel_anatomy.p2_variant(True, False, False, False)
+    with pytest.raises(ValueError):  # not a row of the probes
+        kernel_anatomy.anatomy(x, w, v._replace(zero=True))
+    with pytest.raises(ValueError):  # H a multiple of the 16-row band
+        kernel_anatomy.anatomy(x[:, :8], w, v)
+    with pytest.raises(TypeError):  # bf16 only
+        kernel_anatomy.anatomy(x.float(), w, v)
 
 
 @pytest.mark.cuda

@@ -269,6 +269,36 @@ def test_remat_matches_no_remat(packed_pair, monkeypatch):
     _assert_grads_close(g_on, g_off, 1e-6)
 
 
+def test_packed_loss_and_grads_match_jax(packed_pair, monkeypatch):
+    """One packed loss and backward (the port's training mode, no remat)
+    against ``jax.value_and_grad`` of the JAX nested ``get_loss`` (level 0
+    in its flat packed form) from the same weights, with the timesteps and
+    noise the JAX loss draws fed to the port: the loss 1e-4 relative, every
+    parameter's gradient 1e-4 of its max plus 1e-7 of the largest (as the
+    packed against unpacked test); parameters the port's loss does not reach
+    have zero JAX gradients."""
+    for k, v in PACK_ENV.items():
+        monkeypatch.setenv(k, v)
+    jpipe, params, side = packed_pair["jpipe"], packed_pair["params"], packed_pair["side"]
+    batch, key = _batch(23, side=side), jax.random.PRNGKey(7)
+
+    def jloss(p):
+        losses, _, _, _, _, weights = jpipe.get_loss(
+            p, {k: jnp.asarray(v) for k, v in batch.items()}, key, train=True)
+        return jtrainer.weighted_loss(losses.astype(jnp.float32),
+                                      None if weights is None else weights.astype(jnp.float32))
+
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(jloss))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    ref = params_from_jax(jax.device_get(ref_grads))
+    loss, grads = _loss_and_grads(packed_pair["pipe"], {k: torch.from_numpy(v) for k, v in batch.items()},
+                                  _jax_packed_noise(jpipe, key, batch["images"]))
+    packed_pair["pipe"].vision_module.eval()
+    assert abs(loss - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+    assert all(float(ref[k].abs().max()) == 0.0 for k in ref.keys() - grads.keys())
+    _assert_grads_close(grads, {k: ref[k] for k in grads}, 1e-4)
+
+
 @pytest.mark.slow
 def test_three_remat_steps_match_jax(packed_pair, monkeypatch):
     """Three steps of ``make_train_step`` with remat on (save side 8) from
