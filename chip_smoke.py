@@ -10,14 +10,16 @@ K1), then drives each of the port's paths with random weights from a seed:
   1. cc12m_64x64 (``Diffusion.sample``): every kernel launch shape of a
      batch-64 forward held against its plain version and timed beside its
      bound and the library call (the shortcut's shapes also without the
-     stats); batch 4, 4 DDIM steps, kernel path against
+     stats; K1's sums also held bitwise equal across two calls, with their
+     GB/s and share of the bound); batch 4, 4 DDIM steps, kernel path against
      plain path; one batch-64 DDIM-50 request (the bench preset); one
      batch-8 request with classifier-free guidance 5; one profiled forward.
      Then the flash route (``use_flash(True)``: every self-attention of
      the U-Net through K4): K4 at every self-attention launch shape of that
      forward, on the chunked views the model hands it, held against its
      plain version and timed beside the matmul route, the library call
-     (``scaled_dot_product_attention``) and the bound; batch 4, flash path
+     (``scaled_dot_product_attention``) and the bound, with its TFLOP/s,
+     its launches a request and launches x (time - bound); batch 4, flash path
      against matmul path (one forward, DDIM-4); two batch-64 DDIM-50
      requests; one profiled forward.
   2. cc12m_256x256 (``NestedDiffusion.sample``, a 256px shell around the
@@ -151,7 +153,11 @@ _FLUSH = []
 
 def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     """Median milliseconds of fn() over reps, from CUDA events, with the
-    50 MB L2 cache overwritten before each timed run."""
+    50 MB L2 cache overwritten before each timed run and the device then
+    kept busy for ~1 ms (``torch.cuda._sleep``), so that the host has
+    enqueued fn's launches before the device reaches them: the events time
+    the device's work, not the host's (a kernel wrapper's host cost is the
+    profiles' enqueue time)."""
     import torch
 
     if not _FLUSH:
@@ -161,6 +167,7 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     times = []
     for _ in range(reps):
         _FLUSH[0].zero_()
+        torch.cuda._sleep(2_000_000)  # cycles: ~1 ms at the H100's clocks
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -364,6 +371,10 @@ def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
     for key in k1_keys:
         x = (torch.randn(key, generator=g, device=dev) + 0.25).to(torch.bfloat16)
         s1, s2 = gn_stats.spatial_sums(x)
+        t1, t2 = gn_stats.spatial_sums(x)
+        if not (torch.equal(s1, t1) and torch.equal(s2, t2)):
+            raise AssertionError(f"K1 spatial_sums {key}: two calls differ (the sums must be "
+                                 "the same bit for bit)")
         p1, p2 = gn_stats.spatial_sums_plain(x)
         err = max(rel_err(s1, p1), rel_err(s2, p2))
         if not err <= K1_TOL:
@@ -373,9 +384,11 @@ def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
         # one library call that computes these sums
         pms = cuda_ms(lambda: gn_stats.spatial_sums_plain(x), reps=3)
         bound, by = k1_bound(key)
-        log(f"{label} K1 spatial_sums {key}: rel_err {err:.3e} kernel {ms:.4f} ms "
-            f"({x.numel() * 2 / ms / 1e6:.0f} GB/s) plain (= library) {pms:.4f} ms "
-            f"bound {bound:.4f} ms ({by})")
+        plan = gn_stats.plan(*key, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        log(f"{label} K1 spatial_sums {key} ({x.numel() * 2 / 2**20:.1f} MiB, {plan.splits} "
+            f"spans): rel_err {err:.3e}, two calls bitwise equal, kernel {ms:.4f} ms "
+            f"({x.numel() * 2 / ms / 1e6:.0f} GB/s, {bound / ms:.3f} of the bound) plain "
+            f"(= library) {pms:.4f} ms bound {bound:.4f} ms ({by})")
         _add(tot["K1"], max(abs_err(s1, p1), abs_err(s2, p2)), ms, pms, pms, bound, by)
     for key in k2_keys:
         xs, a, b, wk, bias, res, kw = _conv_inputs(key, dev, g)
@@ -479,20 +492,21 @@ def flash_route():
 
 def record_k4_shapes(run):
     """Run ``run()`` with the flash route on and K4's wrapper wrapped, and
-    return the distinct launch shapes it gave it, (B, Lq, Lk, H, D), after
-    checking that each operand was a strided view (a chunk of the qkv
-    tensor), not a copy."""
+    return its launch shapes, (B, Lq, Lk, H, D), each with its launches in
+    the run, after checking that each operand was a strided view (a chunk
+    of the qkv tensor), not a copy."""
     import torch
 
     from ml_mdm_tpu_torch.ops import attention
 
-    keys = set()
+    keys = {}
     flash = attention.flash_attention
 
     def rec(q, k, v):
         if q.is_contiguous() or k.is_contiguous() or v.is_contiguous():
             raise AssertionError("K4 was handed a contiguous copy, not the qkv chunks")
-        keys.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3])
+        keys[key] = keys.get(key, 0) + 1
         return flash(q, k, v)
 
     attention.flash_attention = rec
@@ -502,7 +516,7 @@ def record_k4_shapes(run):
         torch.cuda.synchronize()
     finally:
         attention.flash_attention = flash
-    return sorted(keys)
+    return dict(sorted(keys.items()))
 
 
 def k4_bound(key):
@@ -515,13 +529,15 @@ def k4_bound(key):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_k4(keys, dev, label: str):
-    """Each launch shape, on the chunks of one (B, L, 3 H D) tensor as the
-    model hands them over: K4 against its plain version (K4_TOL of
-    max|plain|), then K4's time beside the plain version's, the matmul
-    route's (what the flag replaces), the library call's
-    (``scaled_dot_product_attention`` on the same views, timed only) and
-    the bound. Returns the totals."""
+def check_k4(keys, dev, label: str, steps: int):
+    """Each launch shape (``keys``: shape -> launches in one forward), on
+    the chunks of one (B, L, 3 H D) tensor as the model hands them over:
+    K4 against its plain version (K4_TOL of max|plain|), then K4's time,
+    TFLOP/s and share of the bound beside the plain version's time, the
+    matmul route's (what the flag replaces), the library call's
+    (``scaled_dot_product_attention`` on the same views, timed only), and
+    the launches of a request of ``steps`` steps with launches x (time -
+    bound). Returns the totals."""
     import torch
     import torch.nn.functional as F
 
@@ -529,8 +545,8 @@ def check_k4(keys, dev, label: str):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     tot = _new_totals()
-    tot["matmul_ms"] = 0.0
-    for key in keys:
+    tot["matmul_ms"] = tot["excess_ms"] = 0.0
+    for key, per_forward in keys.items():
         bsz, lq, lk, heads, d = key
         if lq != lk:
             raise AssertionError(f"K4 {key}: the model's self-attention has Lq == Lk")
@@ -551,15 +567,21 @@ def check_k4(keys, dev, label: str):
                       .transpose(1, 2))
         bound, by = k4_bound(key)
         tflops = 4 * bsz * heads * lq * lk * d / ms / 1e9
+        launches = per_forward * steps
         log(f"{label} K4 B={bsz} L={lq} H={heads} D={d}: rel_err {err:.3e} (the matmul route's "
             f"against the same plain version: {route_err:.3e}) kernel {ms:.4f} ms "
-            f"({tflops:.1f} TFLOP/s) plain {pms:.4f} ms matmul route {mms:.4f} ms "
-            f"library {lms:.4f} ms bound {bound:.4f} ms ({by})")
+            f"({tflops:.1f} TFLOP/s, {bound / ms:.3f} of the bound) plain {pms:.4f} ms matmul "
+            f"route {mms:.4f} ms library {lms:.4f} ms ({ms / lms:.3f}x) bound {bound:.4f} ms "
+            f"({by}); {launches} launches a request ({per_forward} a forward x {steps} steps), "
+            f"launches x (kernel - bound) {launches * (ms - bound):.3f} ms")
         _add(tot, abs_err(out, ref), ms, pms, lms, bound, by)
         tot["matmul_ms"] += mms
+        tot["excess_ms"] += launches * (ms - bound)
     log(f"{label} K4 over {tot['shapes']} shapes: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, matmul route {tot['matmul_ms']:.4f} ms, library "
-        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+        f"{tot['library_ms']:.4f} ms ({tot['ms'] / tot['library_ms']:.3f}x), bound "
+        f"{tot['bound_ms']:.4f} ms; launches x (kernel - bound) a request "
+        f"{tot['excess_ms']:.3f} ms")
     return tot
 
 
@@ -821,8 +843,8 @@ def path_64(dev):
         n_attn = self_attention_count(pipe.vision_module)
         k4_keys = record_k4_shapes(forward)
         log(f"cc12m_64x64 has {n_attn} self-attention modules; K4 launch shapes of a "
-            f"batch-64 forward (B, Lq, Lk, H, D): {k4_keys}")
-        totals = check_k4(k4_keys, dev, "64px")
+            f"batch-64 forward (B, Lq, Lk, H, D) and their launches: {k4_keys}")
+        totals = check_k4(k4_keys, dev, "64px", bench["num_inference_steps"])
     with phase("64px: flash path vs matmul path"):
         flash_vs_matmul(pipe, dev, lm_dim, side, "64px")
     with phase("64px: two batch-64 DDIM-50 requests, flash route"):
@@ -866,8 +888,9 @@ def path_256(dev):
         profile_forward(forward, "256px B=8")
     with phase("256px flash route: K4 at the forward's shapes, one request"):
         k4_keys = record_k4_shapes(forward)
-        log(f"K4 launch shapes of the 256px request's forward (B, Lq, Lk, H, D): {k4_keys}")
-        totals_k4 = check_k4(k4_keys, dev, "256px")
+        log(f"K4 launch shapes of the 256px request's forward (B, Lq, Lk, H, D) and their "
+            f"launches: {k4_keys}")
+        totals_k4 = check_k4(k4_keys, dev, "256px", 50)
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
         counts_k4, outs = run_requests(pipe, dev, "256px flash", 1, batch, side, cond, gen,
                                        flash=True, required=NESTED_KERNELS,
@@ -1817,9 +1840,15 @@ def main() -> int:
     log(f"K3 over the train_1024 step's shapes: backward {tot_k3_1024['ms']:.4f} ms, plain "
         f"{tot_k3_1024['plain_ms']:.4f} ms, library {tot_k3_1024['library_ms']:.4f} ms, bound "
         f"{tot_k3_1024['bound_ms']:.4f} ms")
-    log(f"K4 over the 64px and 256px forwards' shapes: kernel {totals['K4']['ms']:.4f} ms, "
-        f"matmul route {totals['K4']['matmul_ms']:.4f} ms, library "
-        f"{totals['K4']['library_ms']:.4f} ms")
+    t4 = totals["K4"]
+    log(f"K4 over the 64px and 256px forwards' shapes: kernel {t4['ms']:.4f} ms, matmul route "
+        f"{t4['matmul_ms']:.4f} ms, library {t4['library_ms']:.4f} ms "
+        f"({t4['ms'] / t4['library_ms']:.3f}x the library), bound {t4['bound_ms']:.4f} ms; "
+        f"launches x (kernel - bound) over a 64px and a 256px request {t4['excess_ms']:.3f} ms")
+    t1 = totals["K1"]
+    log(f"K1 over the nested forwards' {t1['shapes']} shapes: kernel {t1['ms']:.4f} ms, plain "
+        f"(= library) {t1['plain_ms']:.4f} ms ({t1['ms'] / t1['plain_ms']:.3f}x), bound "
+        f"{t1['bound_ms']:.4f} ms ({t1['bound_ms'] / t1['ms']:.3f} of it)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
 
     def entry(name, mode, route, source, replaces, library=True, **extra):

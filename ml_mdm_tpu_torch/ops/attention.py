@@ -124,10 +124,11 @@ def flash_attention(q, k, v):
 
 
 def _addressable(t: torch.Tensor) -> torch.Tensor:
-    """t as the kernel can address it: the last axis contiguous, the other
-    strides multiples of 8 elements and the base 16-byte aligned (it loads 8
-    bf16 at a time). The model's views are; anything else is copied."""
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
+    """t as the kernel's tensor maps can address it: the last axis
+    contiguous, the other strides positive multiples of 8 elements (TMA
+    takes strides in multiples of 16 bytes) and the base 16-byte aligned.
+    The model's views are; anything else is copied."""
+    if t.stride(-1) != 1 or any(s % 8 or s <= 0 for s in t.stride()[:-1]):
         t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
@@ -162,6 +163,10 @@ def _launch(q, k, v):
             bsz, lq, lk, heads, d, *strides, d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err == -1:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused the operands "
+                           f"(q {tuple(q.shape)} strides {q.stride()}, k {tuple(k.shape)} "
+                           f"strides {k.stride()}, v strides {v.stride()})")
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err} at launch "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)})")

@@ -1,15 +1,17 @@
 """Builds the port's CUDA sources with ``nvcc`` for ``sm_90a`` at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
-library in ``ml_mdm_tpu_torch/_build/``, named by the hash of its source and
-the flags, so an edited source rebuilds; the kernel modules load it with
-ctypes. ``<library>.log`` keeps nvcc's output (``-Xptxas -v``: registers,
+library in ``ml_mdm_tpu_torch/_build/``, named by the hash of its source,
+of every header it includes with ``#include "..."`` (and those include) and
+of the flags, so an edited source or header rebuilds; the kernel modules
+load it with ctypes. ``<library>.log`` keeps nvcc's output (``-Xptxas -v``: registers,
 shared memory and spills of every kernel).
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,13 +39,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def build_tag(source: Path, flags=NVCC_FLAGS) -> str:
+    """16 hex digits of the hash of ``source``, of the local headers it
+    includes (``#include "..."``, found beside the file that names them,
+    each once, in the order first included) and of ``flags``."""
+    h = hashlib.sha256()
+    seen, todo = set(), [Path(source).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(str(len(text)).encode() + b":" + text)
+        todo += [(path.parent / m.decode()).resolve() for m in _INCLUDE.findall(text)
+                 if (path.parent / m.decode()).is_file()]
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into the build directory, unless that
-    source with these flags is built already. Returns the shared library's
-    path."""
+    source with its headers and these flags is built already. Returns the
+    shared library's path."""
     source = source_path(name)
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{tag}.so"
+    out = BUILD_DIR / f"{name}_{build_tag(source)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

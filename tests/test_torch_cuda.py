@@ -6,23 +6,24 @@ without this directory's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances, bf16 (the working type): K1 sums <= 1e-5 * max|ref| (f32 sums
-in another order); K2 output, stats and shortcut, and K3's gradients
-against autograd of the plain version, <= 2e-2 * max|ref| (two bf16 ULPs:
-the kernel's SiLU uses the fast exponential and sums in another order, so
-a rounding can flip); the tiny U-Net and nested U-Net kernel paths against
+Tolerances, bf16 (the working type): K1 sums <= 1e-5 * max|ref| (f32 sums in
+another order); K2 output, stats and shortcut, and K3's gradients against
+autograd of the plain version, <= 2e-2 * max|ref| (two bf16 ULPs: the
+kernel's SiLU uses the fast exponential and sums in another order, so a
+rounding can flip); the tiny U-Net and nested U-Net kernel paths against
 their plain paths <= 5e-2 * max|ref| (those flips, carried through ~20-40
-layers); one tiny nested training step, kernel path against plain path:
-loss within 1e-2 relative, gradient norm within 5e-2, cosine of the
-flattened gradients >= 0.99; K4 against its plain f32 version
-<= 2e-2 * max|ref| (the kernel rounds P to bf16 for the second product and
-the output once to bf16; the JAX package's own test of its kernel allows the
-same). K2·struct and its backward: as K2 and K3. K2·pipe against the serial
-K2: y and the shortcut bitwise equal (the same activated values, the same
-chunk and tap order), the stats <= 1e-5 * max|ref| (f32 atomics in another
-order). ``struct_wgrad`` of bf16 operands on the card against the f32
-products of the same values: <= 1e-5 * max|ref| (both f32 sums). The probes
-P1 and P2 (``ops/kernel_anatomy.py``) against their plain versions:
+layers); one tiny nested training step, kernel path against plain path: loss
+within 1e-2 relative, gradient norm within 5e-2, cosine of the flattened
+gradients >= 0.99; K4 against its plain f32 version <= 2e-2 * max|ref| (the
+kernel rounds P to bf16 for the second product and the output once to bf16;
+the JAX package's own test of its kernel allows the same), and <= 1e-2
+against the f32 result before its rounding; K1's split sums bitwise equal
+from call to call. K2·struct and its backward: as K2 and K3. K2·pipe against
+the serial K2: y and the shortcut bitwise equal (the same activated values,
+the same chunk and tap order), the stats <= 1e-5 * max|ref| (f32 atomics in
+another order). ``struct_wgrad`` of bf16 operands on the card against the
+f32 products of the same values: <= 1e-5 * max|ref| (both f32 sums). The
+probes P1 and P2 (``ops/kernel_anatomy.py``) against their plain versions:
 <= 2e-2 * max|ref| (as K2); a double-buffered probe against its single
 buffer: bitwise equal; a zero-filled probe on the cells its fill reaches:
 within 2 bf16 ULPs of each cell + 5e-4 * max|ref|.
@@ -92,6 +93,33 @@ def test_spatial_sums_kernel(dev, side, c):
     n = gn_stats.launch_count
     s1, s2 = gn_stats.spatial_sums(x)
     assert gn_stats.launch_count == n + 1
+    p1, p2 = gn_stats.spatial_sums_plain(x)
+    assert _rel(s1, p1) <= 1e-5
+    assert _rel(s2, p2) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 512, 512, 128),    # the packed 1024px shell, batch 4
+    (4, 1024, 1024, 32),   # the same, unpacked
+    (2, 512, 512, 128),    # train_1024's batch
+    (4, 128, 128, 512),    # 64 MiB: the largest narrow-spatial shape
+    (3, 37, 53, 64),       # ragged H*W: the last span is partial
+    (2, 12, 12, 40),       # C = 40: a masked channel block
+    (1, 1024, 1024, 12),   # C = 12 in a 16-channel block, many spans
+    (64, 8, 8, 1536),      # the 64px core's innermost level: one span
+])
+def test_spatial_sums_kernel_splits_deterministic(dev, shape):
+    """The H*W split of ``gn_stats.plan`` against the plain version, and
+    two calls bitwise equal (partial sums finished in a fixed order, no
+    atomics)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.3).to(torch.bfloat16)
+    n = gn_stats.launch_count
+    s1, s2 = gn_stats.spatial_sums(x)
+    t1, t2 = gn_stats.spatial_sums(x)
+    assert gn_stats.launch_count == n + 2
+    assert torch.equal(s1, t1) and torch.equal(s2, t2)
     p1, p2 = gn_stats.spatial_sums_plain(x)
     assert _rel(s1, p1) <= 1e-5
     assert _rel(s2, p2) <= 1e-5
@@ -551,6 +579,52 @@ def test_flash_attention_kernel(dev, b, heads, d, lq, lk, chunked):
     # rounding to bf16, the error stays at a few bf16 roundings of the output
     q32, k32, v32 = (t.float() for t in (q, k, v))
     assert _rel(out, attention.reference_flash_attention(q32, k32, v32)) <= 1e-2
+
+
+def _check_flash(q, k, v):
+    n = attention.launch_count
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.launch_count == n + 1
+    ref = attention.reference_flash_attention(q, k, v)
+    assert out.shape == ref.shape == q.shape and out.dtype == torch.bfloat16
+    assert out.is_contiguous() and torch.isfinite(out).all()
+    assert _rel(out, ref) <= 2e-2
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    assert _rel(out, attention.reference_flash_attention(q32, k32, v32)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("lq,lk", [(200, 72), (40, 300), (128, 128), (257, 129), (130, 600)])
+def test_flash_attention_kernel_every_width(dev, d, lq, lk):
+    """Every head width the kernel takes (128-, 64- and 32-byte swizzled
+    regions), Lq below one tile, ragged lengths, one to five key tiles (the
+    three-stage ring wraps)."""
+    _check_flash(*_qkv(dev, 2, lq, lk, 3, d, chunked=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,d", [(64, 1024, 8, 64), (64, 256, 8, 96),
+                                         (8, 1024, 8, 64), (8, 256, 8, 96)])
+def test_flash_attention_kernel_model_shapes(dev, b, l, heads, d):
+    """The flash route's four launch shapes (64px batch 64, the 256px
+    request's 8 rows), as the chunked views the model hands over."""
+    _check_flash(*_qkv(dev, b, l, l, heads, d, chunked=True))
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_strided_layouts(dev):
+    """Operands whose strides do not grow with the axis (views of (B, H, L,
+    D) tensors) and a view whose base is not 16-byte aligned (copied)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((2, 4, l, 64), generator=g, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for l in (160, 96, 96))
+    _check_flash(q, k, v)
+    flat = torch.randn((2 * 128 * 4 * 32 + 4,), generator=g, device=dev).to(torch.bfloat16)
+    q = flat[4:].view(2, 128, 4, 32)  # 8 bytes past an aligned base
+    assert q.data_ptr() % 16 == 8
+    _check_flash(q, q, q)
 
 
 @pytest.mark.cuda
