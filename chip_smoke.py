@@ -5,7 +5,8 @@
 
 Builds the hand kernels from the sources in this checkout (K2, K4 and the
 probes' kernel with nvcc, one background thread each, while Triton compiles
-K1), then drives each of the port's paths with random weights from a seed:
+K1 and K3's two passes), then drives each of the port's paths with random
+weights from a seed:
 
   1. cc12m_64x64 (``Diffusion.sample``): every kernel launch shape of a
      batch-64 forward held against its plain version and timed beside its
@@ -39,7 +40,8 @@ K1), then drives each of the port's paths with random weights from a seed:
      launch shape of a batch-16 step, its backward held against autograd
      of the plain version and timed beside the plain backward, the
      library's (cuDNN's dgrad and wgrad with the same elementwise chain)
-     and the bound; one batch-4 step's loss and gradients, kernel path
+     and the bound, and its two passes (K3·A, K3·B) held against their
+     plain versions and timed; one batch-4 step's loss and gradients, kernel path
      against plain path; the ``train_256`` preset of ``bench.py`` (batch
      16, lr 5e-5, warmup 10, clip 2.0, no remat): one untimed and five
      timed steps; one profiled step; then cc12m_64x64 (``Diffusion.
@@ -69,20 +71,27 @@ K1), then drives each of the port's paths with random weights from a seed:
      time, the same products as one cuBLAS matmul and, for P1's 1-tap
      product and its copy, the one PyTorch call that computes the same.
 
-The nested models pack their thin shells as the JAX package does, so the
-256px and 1024px phases launch K2·struct too; K2·pipe runs wherever a
-launch has at least two channel chunks and 4096 thread blocks (every path
-but the 64px CFG request's 16 rows). Before each request or training
-phase every launch count is set to 0 and read just after it; a kernel of
-the path that never launched fails the run. Every phase that fails
-raises, and the script exits non-zero. It
-needs a CUDA device and never falls back to the CPU. The card's name and
-power limit are printed near the top; the line before the last names
-every kernel with its launches (K1 and K2 during the nested matmul-route
-requests, K2·struct and K2·pipe during the train_1024 preset's timed steps,
-K3 during the train_256 preset's timed steps, K4 during the flash-route
-requests, P1 and P2 during the probes' tables), its error and its times;
-the last line is one JSON object with "ok" and the device.
+Every unpacked K2 launch runs the implicit-GEMM kernel on wgmma (its
+``conv_plan`` and the ptxas line of its instance are logged beside each
+launch shape); the nested models pack their thin shells as the JAX package
+does, so the 256px and 1024px phases launch K2·struct too, and K2·pipe
+wherever a packed launch has at least two channel chunks and 4096 thread
+blocks. K3's backward runs its data gradient through K2's identity
+prologue and its chain as two Triton passes (K3·A with the stats, K3·B),
+each held against its plain version and timed in the K3 phases. Before
+each request or training phase every launch count is set to 0 and read
+just after it; a kernel of the path that never launched fails the run, and
+so does a packed mode launched on a path that packs nothing. The kernels a
+path must launch are read from the launch shapes recorded on it. Every
+phase that fails raises, and the script exits non-zero. It needs a CUDA
+device and never falls back to the CPU. The card's name and power limit
+are printed near the top; the line before the last names every kernel with
+its launches (K1 and K2 during the nested matmul-route requests, K2 again
+over the 64px forward's shapes with the launches of the 64px batch-64
+request, K2·struct and K2·pipe during the train_1024 preset's timed steps,
+K3 and its passes during the train_256 preset's timed steps, K4 during the
+flash-route requests, P1 and P2 during the probes' tables), its error and
+its times; the last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
 
@@ -112,6 +121,7 @@ UNET_TOL = 5e-2  # those flips carried through the full U-Net (one forward)
 SAMPLE_MEAN_TOL = 1e-2  # 4-step sample, mean |kernel - plain| over pixels in [-1, 1]
 SAMPLE_MAX_TOL = 0.25   # 4-step sample, max |kernel - plain|
 K4_TOL = 2e-2    # P and the output rounded to bf16; the JAX test of its kernel allows the same
+K3_SUM_TOL = 1e-4  # K3's pass sums (da, db, dbias): the same f32 values summed in another order
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_TENSOR = 989e12  # FLOP/s
@@ -183,7 +193,9 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
 
 class K2Key(NamedTuple):
     """One K2 launch shape: operand channels ``cs`` and ``cout`` as the
-    kernel sees them (packed channels when ``struct``)."""
+    kernel sees them (packed channels when ``struct``). ``silu`` False: the
+    identity prologue (``conv3x3_fast``, K3's data gradient), the only way
+    the port runs K2 without the SiLU."""
     b: int
     h: int
     w: int
@@ -218,12 +230,13 @@ def record_launch_shapes(run, grad: bool = False):
     def conv_rec(x, a, b, w, bias, residual=None, **kw):
         xs = x if isinstance(x, (tuple, list)) else (x,)
         cs = tuple(xi.shape[-1] for xi in xs)
-        cout = (w[0] if isinstance(w, (tuple, list)) else w).shape[-1]
+        cout = fused_resnet._kernels(w)[0].shape[-1]
+        packed = bool(kw.get("packed_struct"))
         k2.add(K2Key(*xs[0].shape[:3], cs, cout,
                      residual is not None, bool(kw.get("emit_stats")),
                      kw.get("proj_kernel") is not None, kw.get("apply_silu", True),
-                     bool(kw.get("packed_struct")),
-                     fused_resnet.pipelines(cs, *xs[0].shape[:3], cout, kw.get("pipelined"))))
+                     packed, fused_resnet.pipelines(cs, *xs[0].shape[:3], cout,
+                                                    kw.get("pipelined"), packed)))
         return conv(x, a, b, w, bias, residual, **kw)
 
     def sums_rec(x):
@@ -265,11 +278,14 @@ def k1_bound(key):
 
 
 def _conv_inputs(key: K2Key, dev, g):
-    """Random bf16 operands and residual, f32 coefficients and bias, bf16
-    weights for a launch shape. Packed: the weights are the packed kernels
-    of random unpacked ones in their combined form (as the model hands them
-    over), and ``kw["dense"]`` keeps their (3, 3) form for the library
-    call; the shortcut is the block-diagonal packed 1x1 kernel."""
+    """Random bf16 operands and residual, f32 coefficients (None for the
+    identity prologue) and bias, bf16 weights for a launch shape. Packed:
+    the weights are the packed kernels of random unpacked ones in their
+    combined form (as the model hands them over), and ``kw["dense"]`` keeps
+    their (3, 3) form for the library call; the shortcut is the
+    block-diagonal packed 1x1 kernel. Unpacked: the weights and the
+    shortcut's matrices as ``K2Weights`` (sampling keeps them so), and
+    ``kw["dense"]`` the plain tuple."""
     import torch
 
     from ml_mdm_tpu_torch.ops import fused_resnet
@@ -293,23 +309,34 @@ def _conv_inputs(key: K2Key, dev, g):
         kw["proj_kernel"] = tuple((s2d.pack_conv1x1_kernel(p) if key.struct else p)[0, 0].to(bf)
                                   for p in pk)
         kw["proj_bias"] = torch.randn((cout,), generator=g, device=dev) * 0.1
+    if not key.silu:
+        a = b = None
     if key.struct:
         dense = tuple(s2d.pack_conv3x3_kernel(wi).to(bf) for wi in wk)
         return xs, a, b, tuple(fused_resnet.struct_weights(d) for d in dense), bias, res, \
             dict(kw, packed_struct=True, dense=dense)
-    return xs, a, b, tuple(wi.to(bf) for wi in wk), bias, res, kw
+    wk = tuple(wi.to(bf) for wi in wk)
+    if key.proj:
+        kw["proj_kernel"] = fused_resnet.K2Weights(kw["proj_kernel"])
+    return xs, a, b, fused_resnet.K2Weights(wk), bias, res, dict(kw, dense=wk)
 
 
 def library_conv(xs, a, b, wk, bias, res, stats, proj_kernel=None, proj_bias=None):
     """The same function from PyTorch's own calls, for timing only:
-    elementwise affine + SiLU per operand, torch.cat, cuDNN's bf16 3x3 conv,
-    the residual add, the stats sums and cuDNN's bf16 1x1 conv."""
+    elementwise affine + SiLU per operand (none for the identity prologue,
+    a None), torch.cat, cuDNN's bf16 3x3 conv, the residual add, the stats
+    sums and cuDNN's bf16 1x1 conv."""
     import torch
     import torch.nn.functional as F
 
+    from ml_mdm_tpu_torch.ops import fused_resnet
+
     bf = torch.bfloat16
-    v = torch.cat([F.silu(x.float() * ak[:, None, None, :] + bk[:, None, None, :]).to(bf)
-                   for x, ak, bk in zip(xs, a, b)], dim=-1).permute(0, 3, 1, 2)
+    if a is None:
+        v = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
+    else:
+        v = torch.cat([F.silu(x.float() * ak[:, None, None, :] + bk[:, None, None, :]).to(bf)
+                       for x, ak, bk in zip(xs, a, b)], dim=-1).permute(0, 3, 1, 2)
     w = torch.cat(wk, dim=2).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     y = F.conv2d(v, w, bias.to(bf), padding=1)
     if res is not None:
@@ -320,7 +347,7 @@ def library_conv(xs, a, b, wk, bias, res, stats, proj_kernel=None, proj_bias=Non
         out += [yf.sum(dim=(2, 3)), yf.square().sum(dim=(2, 3))]
     if proj_kernel is not None:
         raw = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
-        pw = torch.cat(proj_kernel, dim=0).t()[:, :, None, None].contiguous(
+        pw = torch.cat(fused_resnet._kernels(proj_kernel), dim=0).t()[:, :, None, None].contiguous(
             memory_format=torch.channels_last)
         out.append(F.conv2d(raw, pw, proj_bias.to(bf)))
     return out
@@ -367,6 +394,7 @@ def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
     from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tot = {m: _new_totals() for m in ("K1",) + K2_MODES}
     for key in k1_keys:
         x = (torch.randn(key, generator=g, device=dev) + 0.25).to(torch.bfloat16)
@@ -410,11 +438,17 @@ def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
             raise AssertionError(f"K2 {_key_label(key)}: rel errs {errs} > {K2_TOL}")
         ms = cuda_ms(kernel, reps=reps)
         pms = cuda_ms(plain, warmup=1, reps=3)
-        lms = (cuda_ms(lambda: library_conv(xs, a, b, dense, bias, res, key.stats,
-                                            **{k: v for k, v in kw.items() if k.startswith("proj")}),
-                       reps=reps) if key.silu else None)
+        lms = cuda_ms(lambda: library_conv(xs, a, b, dense, bias, res, key.stats,
+                                           **{k: v for k, v in kw.items() if k.startswith("proj")}),
+                      reps=reps)
         bound, by = k2_bound(key)
         extra, sms, ums = "", 0.0, 0.0
+        if not key.struct:
+            p = fused_resnet.conv_plan(key.b, key.h, key.w, key.cs, key.cout, n_sms, key.proj)
+            extra += (f" plan: tile {p.th}x{p.tw} N {p.bn} (m64 tiles {p.mt} a warpgroup), "
+                      f"{p.stages} stages, {p.smem} B shared, grid {p.grid}, "
+                      f"L2 {p.l2_bytes / 2**20:.1f} MiB; ptxas "
+                      f"{PTXAS.get((p.bn, p.mt, int(key.proj)), 'not in the build log')}")
         if key.pipe:
             serial = kernel(pipelined=False)
             serial = serial if isinstance(serial, tuple) else (serial,)
@@ -424,6 +458,7 @@ def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
         ukey = key.unpacked()
         if key.struct and ukey.cout % 8 == 0 and all(c % 8 == 0 for c in ukey.cs):
             uxs, ua, ub, uwk, ubias, ures, ukw = _conv_inputs(ukey, dev, g)
+            ukw.pop("dense")
             ums = cuda_ms(lambda: fused_resnet.affine_silu_conv3x3(
                 uxs, ua, ub, uwk, ubias, ures, emit_stats=key.stats, apply_silu=key.silu, **ukw),
                 reps=reps)
@@ -620,15 +655,24 @@ def check_images(out, shape, what: str):
         f"share of pixels inside (-1, 1): {inner:.4f}")
 
 
-SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj", "K2·pipe")
-NESTED_KERNELS = SAMPLING_KERNELS + ("K2·struct",)  # the nested models pack a shell
+# the kernels a path must launch: the 64px model never packs, so its
+# paths launch only the unpacked K2 (no K2·struct, no K2·pipe); the nested
+# paths add the packed modes their recorded launch shapes have (``modes``)
+SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj")
 FLASH_KERNELS = SAMPLING_KERNELS + ("K4",)
-TRAINING_KERNELS = ("K1", "K2", "K2·pipe", "K3")
-TRAIN_1024_KERNELS = TRAINING_KERNELS + ("K2·struct",)
+TRAINING_KERNELS = ("K1", "K2", "K3", "K3·A", "K3·B")
+PACKED_MODES = ("K2·struct", "K2·pipe")
+
+
+def modes(k2_keys):
+    """The packed modes among recorded K2 launch shapes."""
+    return tuple(m for m, on in (("K2·struct", any(k.struct for k in k2_keys)),
+                                 ("K2·pipe", any(k.pipe for k in k2_keys))) if on)
 
 
 def reset_counts():
     from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
+    # fused_resnet's reset also sets K3's passes (ops/k3_passes.py) to 0
 
     gn_stats.launch_count = 0
     attention.launch_count = 0
@@ -638,15 +682,22 @@ def reset_counts():
 
 def read_counts(what: str, required=SAMPLING_KERNELS):
     """The launch counts since reset_counts(); fails if a kernel of the path
-    (``required``) never launched."""
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
+    (``required``) never launched, or a packed mode not in ``required``
+    launched (a path that packs nothing runs every K2 launch on the unpacked
+    kernel)."""
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, k3_passes, kernel_anatomy
 
     counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts,
-              "K4": attention.launch_count, **kernel_anatomy.launch_counts}
+              **k3_passes.launch_counts, "K4": attention.launch_count,
+              **kernel_anatomy.launch_counts}
     log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels of the path never launched: {missing}")
+    stray = [k for k in PACKED_MODES if k not in required and counts[k]]
+    if stray or counts["K2·pipe"] > counts["K2·struct"]:
+        raise AssertionError(f"{what}: packed modes launched off the packed shapes: "
+                             f"{[(k, counts[k]) for k in PACKED_MODES]}")
     if "K4" not in required and counts["K4"]:
         raise AssertionError(f"{what}: K4 launched {counts['K4']} times off the flash route")
     return counts
@@ -818,21 +869,21 @@ def path_64(dev):
         n_params = sum(p.numel() for p in pipe.vision_module.parameters())
         log(f"cc12m_64x64 built on {dev}: {n_params} parameters (bf16)")
         k2_keys, k1_keys = record_launch_shapes(forward_inputs(pipe, dev, 64, side, lm_dim))
-        check_kernels(k2_keys, k1_keys, dev, "64px")
+        if modes(k2_keys):
+            raise AssertionError(f"64px: packed launch shapes {modes(k2_keys)}")
+        tot_64 = check_kernels(k2_keys, k1_keys, dev, "64px")
     with phase("64px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "64px")
     bench = dict(num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
     with phase("64px: one batch-64 DDIM-50 request, matmul route"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 3)
         cond = text_conditioning(dev, 64, lm_dim, gen)
-        _, outs = run_requests(pipe, dev, "64px", 1, 64, side, cond, gen, **bench)
+        counts_64, outs = run_requests(pipe, dev, "64px", 1, 64, side, cond, gen, **bench)
         check_images(outs[0], (64, side, side, 3), "64px request 0")
     with phase("64px: CFG request"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 4)
         cond = text_conditioning(dev, 16, lm_dim, gen)
-        # 16 rows: every launch has fewer thread blocks than K2·pipe's rule asks
         _, outs = run_requests(pipe, dev, "64px CFG", 1, 8, side, cond, gen,
-                               required=tuple(k for k in SAMPLING_KERNELS if k != "K2·pipe"),
                                num_inference_steps=50, resample_steps=True, ddim_eta=0.0,
                                guidance_scale=5.0)
         check_images(outs[0], (8, side, side, 3), "64px CFG request")
@@ -857,7 +908,7 @@ def path_64(dev):
     with phase("64px: profile, flash route"):
         with flash_route():
             profile_forward(forward, "64px B=64 flash route")
-    return totals, counts
+    return totals, counts, tot_64, counts_64
 
 
 def path_256(dev):
@@ -872,6 +923,8 @@ def path_256(dev):
         log(f"cc12m_256x256 built on {dev}: {n_params} parameters (bf16), scales {pipe.scales}")
         k2_keys, k1_keys = record_launch_shapes(
             forward_inputs(pipe, dev, 2 * batch, side, lm_dim))
+        required = SAMPLING_KERNELS + modes(k2_keys)
+        log(f"256px: the request's forward launches {required}")
         totals = check_kernels(k2_keys, k1_keys, dev, "256px")
     with phase("256px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "256px", batch=2)
@@ -879,7 +932,7 @@ def path_256(dev):
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
         cond = text_conditioning(dev, 2 * batch, lm_dim, gen)
         counts, outs = run_requests(pipe, dev, "256px", 2, batch, side, cond, gen,
-                                    required=NESTED_KERNELS, num_inference_steps=50,
+                                    required=required, num_inference_steps=50,
                                     resample_steps=True, ddim_eta=0.0, guidance_scale=guidance)
         for i, out in enumerate(outs):
             check_images(out, (batch, side, side, 3), f"256px request {i}")
@@ -893,7 +946,7 @@ def path_256(dev):
         totals_k4 = check_k4(k4_keys, dev, "256px", 50)
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
         counts_k4, outs = run_requests(pipe, dev, "256px flash", 1, batch, side, cond, gen,
-                                       flash=True, required=NESTED_KERNELS,
+                                       flash=True, required=required + ("K4",),
                                        num_inference_steps=50, resample_steps=True,
                                        ddim_eta=0.0, guidance_scale=guidance)
         check_images(outs[0], (batch, side, side, 3), "256px flash request 0")
@@ -914,6 +967,8 @@ def path_1024(dev):
         k2_keys, k1_keys = record_launch_shapes(forward)
         if not any(k.struct and k.w == side // 2 for k in k2_keys):
             raise AssertionError("K2·struct never launched on the packed 1024px shell (W = 512)")
+        required = SAMPLING_KERNELS + modes(k2_keys)
+        log(f"1024px: the request's forward launches {required}")
         totals = check_kernels(k2_keys, k1_keys, dev, "1024px")
     with phase("1024px: one untimed forward, then the sample_1024 request"):
         torch.cuda.synchronize()
@@ -927,7 +982,7 @@ def path_1024(dev):
         gen = torch.Generator(device=dev).manual_seed(SEED + 7)
         cond = text_conditioning(dev, batch, lm_dim, gen)
         counts, outs = run_requests(pipe, dev, f"1024px DDIM-{steps}", 1, batch, side, cond,
-                                    gen, required=NESTED_KERNELS, num_inference_steps=steps,
+                                    gen, required=required, num_inference_steps=steps,
                                     resample_steps=True, ddim_eta=1.0)
         check_images(outs[0], (batch, side, side, 3), "1024px request")
     with phase("1024px: output_inner"):
@@ -1051,19 +1106,66 @@ def library_k3_backward(x, a, b, w16, dy, y=None, ds1=None, ds2=None):
     return dx, (dv * x.float()).sum(dim=(1, 2)), dv.sum(dim=(1, 2)), dw, dy.float().sum(dim=(0, 1, 2))
 
 
+def pass_bound(px: int, c: int, bsz: int, a_pass: bool):
+    """(least ms, what bounds it) for one of K3's passes over px pixels of c
+    channels: pass A reads dy and y (bf16) and writes dy', pass B reads x and
+    the data gradient and writes dx and the activation, each with its (B, C)
+    f32 vectors; about 6 (A) or 16 (B) f32 operations an element outside
+    the tensor cores."""
+    nbytes = 2 * px * c * (3 if a_pass else 4) + 4 * bsz * c * (3 if a_pass else 4)
+    t_bytes, t_ops = nbytes / PEAK_HBM, px * c * (6 if a_pass else 16) / PEAK_F32
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def check_passes(key, ins, cots, y, dev, g, tot_a, tot_b):
+    """K3's passes at one K3 launch shape: each against its plain version
+    (dy', dx and the activation within K2_TOL, the sums within K3_SUM_TOL,
+    the sums the same bits in two calls), then timed beside its plain
+    version and its bound. Returns a log fragment."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import k3_passes
+
+    bsz, h, w, c, cout, _, stats, _ = key
+    x, a, b = ins[:3]
+    ds = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    out = []
+    for name, tot, run, plain, sums, ch in (
+            ("pass A", tot_a, lambda: k3_passes.fold(cots[0], y, cots[1], cots[2]),
+             lambda: k3_passes.fold_plain(cots[0], y, cots[1], cots[2]), (1,), cout),
+            ("pass B", tot_b, lambda: k3_passes.chain(x, ds, a, b),
+             lambda: k3_passes.chain_plain(x, ds, a, b), (2, 3), c)):
+        if name == "pass A" and not stats:
+            continue
+        got, again, ref = run(), run(), plain()
+        errs = [rel_err(o, r) for o, r in zip(got, ref)]
+        if not all(e <= (K3_SUM_TOL if i in sums else K2_TOL) for i, e in enumerate(errs)):
+            raise AssertionError(f"K3 {name} {key}: rel errs {errs}")
+        if not all(torch.equal(got[i], again[i]) for i in sums):
+            raise AssertionError(f"K3 {name} {key}: two calls give other sums")
+        ms = cuda_ms(run)
+        pms = cuda_ms(plain, warmup=1, reps=3)
+        bound, by = pass_bound(bsz * h * w, ch, bsz, name == "pass A")
+        _add(tot, max(abs_err(o, r) for o, r in zip(got, ref)), ms, pms, None, bound, by)
+        out.append(f"{name} {ms:.4f} ms (plain {pms:.4f} ms, bound {bound:.4f} ms, {by}; "
+                   f"rel errs {', '.join(f'{e:.2e}' for e in errs)}, sums bitwise equal)")
+    return "; ".join(out)
+
+
 def check_k3(keys, dev, label: str = "256px train"):
     """Each K3 launch shape: the Function's backward against autograd of the
     plain version (K2_TOL), then the backward's time, the plain
-    backward's, the library's, the weight re-layout's and the bound. At a
-    packed shape also the weight gradient's four products alone (kept in
-    f32). Returns the totals."""
+    backward's, the library's, the weight re-layout's and the bound; its two
+    passes alone (``check_passes``). At a packed shape also the weight
+    gradient's four products alone (kept in f32). Returns the totals of
+    K3 and of its passes K3·A and K3·B."""
     import torch
 
     from ml_mdm_tpu_torch.ops import fused_resnet
     from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    tot = _new_totals()
+    tot, tot_a, tot_b = _new_totals(), _new_totals(), _new_totals()
     relayout_ms = 0.0
     packed = dict.fromkeys(("shapes", "ms", "dw_ms"), 0.0)
     for key in keys:
@@ -1083,8 +1185,9 @@ def check_k3(keys, dev, label: str = "256px train"):
         lms = cuda_ms(lambda: library_k3_backward(ins[0], ins[1], ins[2], w16, cots[0], *extra))
         # the data gradient's weights as K2's wrapper lays them out per call
         wt = wf.flip(0, 1).transpose(2, 3)
-        rms = cuda_ms(lambda: (fused_resnet.struct_weights(wt) if struct else wt)
-                      .to(torch.bfloat16).permute(3, 0, 1, 2).reshape(c, -1).contiguous())
+        rms = cuda_ms(lambda: (fused_resnet.struct_weights(wt).to(torch.bfloat16).permute(
+            3, 0, 1, 2).reshape(c, -1).contiguous() if struct
+            else fused_resnet.conv_weight_layout((wt,))))
         relayout_ms += rms
         bound, by = k3_bound(key)
         flops = 4 * bsz * h * w * 9 * c * cout / (4 if struct else 1)
@@ -1096,6 +1199,8 @@ def check_k3(keys, dev, label: str = "256px train"):
             for k, t in (("shapes", 1), ("ms", ms), ("dw_ms", dw_ms)):
                 packed[k] += t
             extra = f" dw products {dw_ms:.4f} ms"
+        extra += "; " + check_passes(key, ins, cots, outs[0].detach() if stats else None, dev, g,
+                                     tot_a, tot_b)
         log(f"{label} K3 B={bsz} {h}x{w} {c}->{cout}{' residual' if residual else ''}"
             f"{' stats' if stats else ''}{' packed' if struct else ''}: rel_errs (dx, da, db, "
             f"dw, dbias{', dres' if residual else ''}) {', '.join(f'{e:.3e}' for e in errs)} "
@@ -1109,7 +1214,10 @@ def check_k3(keys, dev, label: str = "256px train"):
     if packed["shapes"]:
         log(f"{label} K3 over its {packed['shapes']:.0f} packed shapes: backward {packed['ms']:.4f} "
             f"ms, the weight gradient's f32 products alone {packed['dw_ms']:.4f} ms")
-    return tot
+    for name, t in (("pass A (fold)", tot_a), ("pass B (chain)", tot_b)):
+        log(f"{label} K3 {name} over {t['shapes']} shapes: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    return {"K3": tot, "K3·A": tot_a, "K3·B": tot_b}
 
 
 def train_batch(dev, rows: int, side: int, lm_dim: int, gen):
@@ -1184,9 +1292,9 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
                        label: str = "256px train"):
     """One training step under the profiler: the device's busy and idle
     share, the top device time by kernel, and the device time of K3's
-    backward split into its data gradient (K2 and the weights' re-layout),
-    its weight gradient and its elementwise chain, and of Adam and the
-    EMA."""
+    backward split into its data gradient (K2 and the weights' layout), its
+    weight gradient, its two passes (the chain) and the rest, and of Adam
+    and the EMA."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1227,14 +1335,28 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
         return sum(e.device_time_total for e in events
                    if e.name == name and e.device_type == DeviceType.CPU)
 
-    k2_us = sum(tot for name, (tot, _) in by_name.items() if "affine_silu_conv3x3" in name)
-    parts = {"K3 backward (all)": range_us("K3 backward"),
-             "K3 data gradient, ATen part (re-layout, ones/zeros)": range_us("K3 dx (K2)"),
-             "K3 weight gradient (cuDNN)": range_us("K3 dw (library)"),
+    def name_us(*names):
+        """Device time of the kernels whose names contain one of ``names``."""
+        return sum(tot for name, (tot, _) in by_name.items() if any(n in name for n in names))
+
+    # the ranges hold the kernels launched through the CUDA runtime; K3's
+    # Triton passes (launched by Triton's own launcher) the profiler attributes to
+    # their ranges only in part, so they are counted by name, and the chain
+    # (the passes and their partial sums) lies between the larger of the two
+    # and their sum
+    parts = {"K3 backward (the range)": range_us("K3 backward"),
+             "K3 data gradient (K2 and its weight layout)": range_us("K3 dx (K2)"),
+             "K3 weight gradient (cuDNN or struct_wgrad)": range_us("K3 dw (library)"),
+             "K3 pass ranges A and B (partial sums, attributed launches)":
+                 range_us("K3 pass A (fold)") + range_us("K3 pass B (chain)"),
+             "K3 pass A (fold, Triton, by name)": name_us("k3_fold_kernel"),
+             "K3 pass B (chain, Triton, by name)": name_us("k3_chain_kernel"),
              "Adam": range_us("trainer: Adam"), "EMA": range_us("trainer: EMA"),
-             "K2 kernel, forward and backward (by name)": k2_us}
-    parts["K3 elementwise chain"] = (parts["K3 backward (all)"] - parts["K3 weight gradient (cuDNN)"]
-                                     - parts["K3 data gradient, ATen part (re-layout, ones/zeros)"])
+             "K2 kernels, forward and backward (by name)": name_us("conv3x3_wgmma_kernel",
+                                                                   "struct_conv_kernel")}
+    parts["K3 chain, at most (the Triton passes and the pass ranges)"] = (
+        parts["K3 pass A (fold, Triton, by name)"] + parts["K3 pass B (chain, Triton, by name)"]
+        + parts["K3 pass ranges A and B (partial sums, attributed launches)"])
     for name, us in parts.items():
         log(f"  {name}: {us / 1e3:.3f} ms device, {100 * us / busy:.1f}% of busy")
     return busy / 1e3, window / 1e3
@@ -1267,7 +1389,12 @@ def path_train(dev):
             unet.zero_grad(set_to_none=True)
             pipe.get_loss(data, gen)[0].mean().backward()
 
-        keys = record_k3_shapes(one_backward)
+        k3_box = []
+        k2_keys, _ = record_launch_shapes(lambda: k3_box.append(record_k3_shapes(one_backward)),
+                                          grad=True)
+        keys = k3_box[0]
+        required = TRAINING_KERNELS + modes(k2_keys)
+        log(f"256px train: a step launches {required}")
         with_grad = {k for k, p in unet.named_parameters()
                      if p.grad is not None and bool((p.grad != 0).any())}
         log(f"{len(with_grad)} of {len(list(unet.parameters()))} parameter tensors get a "
@@ -1288,7 +1415,7 @@ def path_train(dev):
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         times = run_train_steps(step, state, pipe, dev, "256px train", 5, batch, side, lm_dim, gen)
-        counts = read_counts("the train_256 preset's timed steps", TRAINING_KERNELS)
+        counts = read_counts("the train_256 preset's timed steps", required)
         dt = sum(times) / len(times)
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"256px train (batch {batch}, 10 rows at 256px, {batch} at 64px): "
@@ -1462,7 +1589,8 @@ def path_train_1024(dev):
         reset_counts()
         k2_keys, k1_keys = record_launch_shapes(
             lambda: k3_box.append(record_k3_shapes(one_backward)), grad=True)
-        read_counts("one train_1024 loss and backward (the recorded step)", TRAIN_1024_KERNELS)
+        required = TRAINING_KERNELS + modes(k2_keys)
+        read_counts("one train_1024 loss and backward (the recorded step)", required)
         k3_keys = k3_box[0]
         unet.zero_grad(set_to_none=True)
         del data
@@ -1483,7 +1611,7 @@ def path_train_1024(dev):
         reset_counts()
         times = run_train_steps(step, state, pipe, dev, "1024px train", 3, batch, side, lm_dim,
                                 gen)
-        counts = read_counts("the train_1024 preset's timed steps", TRAIN_1024_KERNELS)
+        counts = read_counts("the train_1024 preset's timed steps", required)
         dt = sum(times) / len(times)
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"1024px train (batch {batch}; 1024px, 256px and 64px levels, remat above side "
@@ -1726,29 +1854,39 @@ def probe_library(v, x, w):
     return x.clone if v.n_taps == 0 else None
 
 
+# ptxas's line for each unpacked K2 instance, (N tile, m64 tiles, shortcut)
+# -> "registers, spills", from the build log (``nvcc_report``)
+PTXAS = {}
+
+
 def nvcc_report(lib_path, name: str):
     """Log what ptxas said of each kernel in a built library: registers and
-    spills, with the head width of a templated instance."""
+    spills, with the template arguments of an instance; keep the unpacked
+    K2 instances' lines in PTXAS."""
     build_log = lib_path.with_name(lib_path.name + ".log")
     if not build_log.exists():
         return
-    lines, width = [], ""
+    lines, width, key = [], "", None
     for line in build_log.read_text().splitlines():
         if "built in" in line:
             log(f"  nvcc {name}: {line.strip()}")
         elif "Compiling entry function" in line:
             m = re.search(r"flash_attention_kernelILi(\d+)E", line)
-            k2 = re.search(r"affine_silu_conv3x3_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+            wg = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)E", line)
+            k2 = re.search(r"struct_conv_kernelILb(\d)ELb(\d)E", line)
             pr = re.search(r"kernel_anatomyI((?:Li\d+E){9})", line)
+            key = tuple(int(v) for v in wg.groups()) if wg else None
             width = (f"D={m.group(1)}: " if m else
-                     f"shortcut {k2.group(1)} packed {k2.group(2)} pipelined {k2.group(3)}: "
-                     if k2 else
+                     "unpacked, N {} m64 tiles {} shortcut {}: ".format(*wg.groups()) if wg else
+                     f"packed, shortcut {k2.group(1)} pipelined {k2.group(2)}: " if k2 else
                      "P{} taps {} act {} silu {} stage {} halos {} selects {} zero {} dbuf {}: "
                      .format(*re.findall(r"\d+", pr.group(1))) if pr else "")
         elif "spill" in line or "registers" in line:
-            lines.append(width + line.replace("ptxas info    :", "").strip())
+            lines.append(line.replace("ptxas info    :", "").strip())
             if "registers" in line:
-                log(f"  nvcc {name}: " + "; ".join(lines))
+                log(f"  nvcc {name}: {width}" + "; ".join(lines))
+                if key is not None:
+                    PTXAS[key] = "; ".join(lines)
                 lines = []
 
 
@@ -1757,7 +1895,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's check runs only on a GPU")
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, k3_passes, kernel_anatomy
 
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -1767,8 +1905,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    with phase("build the kernels (one nvcc each for K2, K4 and P1/P2, beside Triton's K1 "
-               "compile)"):
+    with phase("build the kernels (one nvcc each for K2, K4 and P1/P2, beside Triton's K1 and "
+               "K3·A/K3·B compiles)"):
         built, errors = {}, {}
 
         def build(name, module):
@@ -1784,8 +1922,12 @@ def main() -> int:
             thread.start()
         probe = torch.ones((1, 8, 8, 64), device=dev, dtype=torch.bfloat16)
         gn_stats.spatial_sums(probe)
+        ab = torch.ones((1, 64), device=dev)
+        k3_passes.fold(probe, probe, ab, ab)
+        k3_passes.chain(probe, probe, ab, ab)
         torch.cuda.synchronize()
-        log(f"K1 first launch (Triton compile): {time.perf_counter() - t0:.3f} s")
+        log(f"K1's and K3's passes' first launches (Triton compiles): "
+            f"{time.perf_counter() - t0:.3f} s")
         for thread in threads:
             thread.join()
         for e in errors.values():
@@ -1798,7 +1940,7 @@ def main() -> int:
         for name, lib_path in built.items():
             nvcc_report(lib_path, name)
 
-    tot_k4_64, counts_k4_64 = path_64(dev)
+    tot_k4_64, counts_k4_64, tot_64, counts_64 = path_64(dev)
     torch.cuda.empty_cache()
     tot_256, counts_256, tot_k4_256, counts_k4_256 = path_256(dev)
     torch.cuda.empty_cache()
@@ -1816,7 +1958,8 @@ def main() -> int:
         # channels, bf16: K2 itself there, beside its bound
         tot_k2_probe = check_kernels(
             [K2Key(4, 512, 512, (128,), 128, False, False, False, True, False,
-                   fused_resnet.pipelines((128,), 4, 512, 512, 128))], [], dev, "probe shape")
+                   fused_resnet.pipelines((128,), 4, 512, 512, 128, None, False))], [], dev,
+            "probe shape")
     torch.cuda.empty_cache()
     tot_probes, counts_probes = path_probes(dev, tot_k2_probe["K2"]["ms"])
 
@@ -1825,21 +1968,29 @@ def main() -> int:
     totals = merge_totals(tot_256, tot_1024)
     for mode in ("K2·struct", "K2·pipe"):
         totals[mode] = merge_totals(tot_256, tot_1024, tot_t1024)[mode]
-    totals["K3"] = tot_k3
+    totals.update(tot_k3)
+    totals["K2 64px"] = tot_64["K2"]
     totals["K4"] = merge_totals({"K4": tot_k4_64}, {"K4": tot_k4_256})["K4"]
     totals.update(tot_probes)
     launches = {k: counts_256[k] + counts_1024[k] for k in ("K1", "K2", "K2·N", "K2·proj")}
     launches.update({k: counts_t1024[k] for k in ("K2·struct", "K2·pipe")})
-    launches["K3"] = counts_train["K3"]
+    launches.update({k: counts_train[k] for k in ("K3", "K3·A", "K3·B")})
+    launches["K2 64px"] = counts_64["K2"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
     launches.update({k: counts_probes[k] for k in ("P1", "P2")})
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
-        f"train_1024 preset's timed steps (K2·struct, K2·pipe), the train_256 preset's timed "
-        f"steps (K3), the flash-route requests (64px and 256px; K4) and the probes' tables "
-        f"(P1, P2): {launches}")
-    log(f"K3 over the train_1024 step's shapes: backward {tot_k3_1024['ms']:.4f} ms, plain "
-        f"{tot_k3_1024['plain_ms']:.4f} ms, library {tot_k3_1024['library_ms']:.4f} ms, bound "
-        f"{tot_k3_1024['bound_ms']:.4f} ms")
+        f"64px batch-64 request (K2 64px), the train_1024 preset's timed steps (K2·struct, "
+        f"K2·pipe), the train_256 preset's timed steps (K3, K3·A, K3·B), the flash-route "
+        f"requests (64px and 256px; K4) and the probes' tables (P1, P2): {launches}")
+    for what, t in (("64px forward's", totals["K2 64px"]), ("nested forwards'", totals["K2"])):
+        log(f"K2 over the {what} {t['shapes']} shapes: kernel {t['ms']:.4f} ms "
+            f"({t['ms'] / t['library_ms']:.3f}x the library), library {t['library_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_ms'] / t['ms']:.3f} of it)")
+    for what, t in (("train_256 step's", tot_k3["K3"]), ("train_1024 step's", tot_k3_1024["K3"])):
+        log(f"K3 over the {what} {t['shapes']} shapes: backward {t['ms']:.4f} ms "
+            f"({t['ms'] / t['library_ms']:.3f}x the library), plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
     t4 = totals["K4"]
     log(f"K4 over the 64px and 256px forwards' shapes: kernel {t4['ms']:.4f} ms, matmul route "
         f"{t4['matmul_ms']:.4f} ms, library {t4['library_ms']:.4f} ms "
@@ -1865,6 +2016,8 @@ def main() -> int:
         entry("spatial_sums", "K1", "triton", "ml_mdm_tpu_torch/ops/gn_stats.py",
               "ml_mdm_tpu/ops/gn_stats.py:62"),
         entry("affine_silu_conv3x3", "K2", "cuda", cu, "ml_mdm_tpu/ops/fused_resnet.py:481"),
+        entry("affine_silu_conv3x3 (64px main path)", "K2 64px", "cuda", cu,
+              "ml_mdm_tpu/ops/fused_resnet.py:141"),
         entry("affine_silu_conv3x3 (N operands)", "K2·N", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:515"),
         entry("affine_silu_conv3x3 (shortcut)", "K2·proj", "cuda", cu,
@@ -1875,6 +2028,10 @@ def main() -> int:
               "ml_mdm_tpu/ops/fused_resnet.py:318", serial_ms="serial_ms"),
         entry("affine_silu_conv3x3_vjp (backward)", "K3", "cuda", cu,
               "ml_mdm_tpu/ops/fused_resnet.py:744"),
+        entry("k3_passes.fold (K3 pass A)", "K3·A", "triton", "ml_mdm_tpu_torch/ops/k3_passes.py",
+              "ml_mdm_tpu/ops/fused_resnet.py:782", library=False),
+        entry("k3_passes.chain (K3 pass B)", "K3·B", "triton", "ml_mdm_tpu_torch/ops/k3_passes.py",
+              "ml_mdm_tpu/ops/fused_resnet.py:782", library=False),
         entry("flash_attention", "K4", "cuda", "ml_mdm_tpu_torch/csrc/flash_attention.cu",
               "ml_mdm_tpu/ops/attention.py:130"),
         # one PyTorch call computes two of P1's variants (its 1-tap product

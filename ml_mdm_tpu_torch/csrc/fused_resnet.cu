@@ -1,6 +1,6 @@
 // Fused GroupNorm-affine + SiLU + 3x3 convolution for Hopper (kernel K2),
 // with N operands (K2·N), the 1x1 shortcut as a second output (K2·proj), the
-// space-to-depth packed mode (K2·struct) and the software-pipelined variant
+// space-to-depth packed mode (K2·struct) and its software-pipelined variant
 // (K2·pipe).
 //
 // Replaces ml_mdm_tpu/ops/fused_resnet.py::affine_silu_conv3x3 (the Pallas
@@ -12,97 +12,727 @@
 //
 // over NHWC bf16 activations, with a and b per-(batch, channel) f32
 // coefficients (GroupNorm with FiLM folded in), f32 accumulation and one
-// rounding to bf16 at each store. The concatenation never exists in memory:
-// the reduction walks the channel chunks of operand 0, then operand 1, ...,
-// into the same accumulators. With stats != nullptr it also adds the f32
-// sum and sum of squares of the STORED (rounded) y, per (batch, output
-// channel), into two zeroed (B, Cout) buffers.
+// rounding to bf16 at each store. The activation is rounded to bf16 once per
+// element. The concatenation never exists in memory: the reduction walks the
+// channel chunks of operand 0, then operand 1, ..., into the same
+// accumulators. With stats != nullptr it also adds the f32 sum and sum of
+// squares of the STORED (rounded) y, per (batch, output channel), into two
+// zeroed (B, Cout) buffers. Without a and b (null) the prologue is the
+// identity: conv3x3_fast and K3's data gradient.
 //
-// What bounds it on the H100: compute. Every output pixel takes 9*C*Cout
-// multiply-adds against about 2*(C + Cout) bytes of activation traffic,
-// which is over 1,000 operations per byte at the wide shapes, far above the
-// card's ~295 bf16 operations per byte of HBM bandwidth. The thinnest
-// shells (C = 32-64) sit near that line, and at Cout = 32 half of the
-// 64-channel output tile is idle; packed, those shells run at 128-256
-// channels.
+// Two kernels. Every unpacked launch runs `conv3x3_wgmma_kernel`; packed
+// launches (K2·struct, and K2·pipe, its pipelined form) run
+// `struct_conv_kernel`, the earlier mma.sync design, until the packing decision.
 //
-// Design: a direct (implicit-GEMM) convolution on bf16 tensor cores
-// (mma.sync m16n8k16, f32 accumulators). A block of 8 warps owns a 2-D
-// tile of TH x TW output pixels (TW = min(W, 32), TH = 128 / TW, so up to
-// BM = 128 pixels) of one image times BN = 64 output channels. For each
-// chunk of BK = 32 channels of one operand the block
-//   1. stages the (TH + 2) x (TW + 2) input pixels its tile touches (one
-//      halo row and column each side, never whole rows, so any width
-//      launches), applying x*a+b and SiLU in f32 and rounding to bf16 once
-//      per element (not once per tap). Out-of-image pixels are stored as 0:
-//      the convolution pads the ACTIVATED tensor, so the border is 0 and
-//      not silu(0*a+b);
-//   2. stages the chunk's weights for all taps;
-//   3. runs the taps as shifted reads of the staged activations.
-// After y is stored, the shortcut runs as a second, short reduction over
-// the same chunks: the tile's RAW pixels and the chunk's slice of P are
-// staged and multiplied into the same (now free) accumulators. Keeping one
-// accumulator set keeps the kernel at ~100 registers and two blocks per SM;
-// a second set beside the first took 146 and one block per SM. The second
-// pass re-reads 1/9 of what the first staged, mostly from L2.
-// Padding each staged pixel to KP = 40 bf16 (80 bytes) makes the fragment
-// loads of 8 consecutive pixels hit 32 distinct banks. The weights are
-// staged unpadded, 64 bytes an output channel, with the four 16-byte groups
-// of channel n stored at group v ^ ((n >> 1) & 3): the B-fragment loads of
-// 8 consecutive output channels then hit 32 distinct banks too, in 20% less
-// shared memory (two pipelined buffers of 9 taps fit two blocks on an SM).
+// == The unpacked kernel: implicit GEMM on wgmma ==
 //
-// K2·struct (STRUCT): x is a space-to-depth packed tensor (channel c*4 +
-// ei*2 + ej holds sub-pixel (ei, ej) of unpacked channel c) and w the
-// packed kernel collapsed to 4 combined taps (the JAX `_struct_weights`):
-// the packed 3x3 kernel is 75% structural zeros, so its 9 taps reduce to 4
-// products over the same staged tile: centre x centre, centre x column
-// select, row select x centre, row select x column select. A row select
-// reads, for each channel, the pixel above when its ei bit is 1 and the one
-// below when it is 0; a column select the pixel left (ej = 1) or right
-// (ej = 0). One 32-bit A-fragment register holds two adjacent channels,
-// which differ in ej, so the staging permutes each chunk's 32 channels by
-// parity class: staged position code*8 + i holds channel i*4 + code, with
-// code = ei*2 + ej. Each k16 step then sees one ei (0 for k 0-15, 1 for
-// 16-31), each fragment half one ej, and every 32-bit load reads one pixel.
-// The host lays the combined weights out in the same order. Every operand
-// of a STRUCT launch has a multiple of 32 channels. 4 products per chunk
-// against 9 is 16/9 of an unpacked launch's tensor-core work on the same
-// image, at full tile width.
+// What bounds it on the H100: operations. At the 64px model's shapes every
+// output pixel takes 9 C Cout multiply-adds against 2 (C + Cout) bytes, over
+// 1,000 operations a byte against the card's ~295 (the 15 launch shapes of
+// the batch-64 forward are all bound by operations). The mma.sync kernel ran
+// there at about 12% of that bound, and the cost-decomposition probes (P1,
+// P2) split its time at B = 4, 512^2, 128 channels into products 45% (at 26%
+// of the tensor cores' peak), SiLU 20%, padding and halos 14%, the rest of
+// the tile and epilogue 20%; its 128-pixel blocks also re-read the whole
+// weight tensor from L2 once per 128 output pixels. The design answers each:
 //
-// K2·pipe (PIPE): the counterpart of `_kernel_pipelined`, over channel
-// chunks in place of the TPU's row blocks. Two shared-memory buffers: while
-// the tensor cores run chunk q from one, cp.async brings chunk q+1's raw
-// tile, halo and weights into the other (out-of-image cells and weights
-// past Cout are zero-filled, src-size 0); then the block waits and applies
-// affine and SiLU to chunk q+1 in place, masking out-of-image cells to 0
-// AFTER the activation. y, the stats and the shortcut are the serial
-// kernel's: the same activated values in the same chunk and tap order. The
-// JAX variant's garbage first step and NaN-safe stats reset have no
-// counterpart; the caller zeroes the stats.
+//   - products: wgmma.m64nNk16, A from registers (ldmatrix from the
+//     activated tile in shared memory, one row address a thread, so the 9
+//     shifted taps, ragged tiles and rows narrower than the tile read the
+//     same tile), B the weights read from shared memory by descriptor,
+//     K-major with the 128-byte swizzle. A block is two warpgroups; each
+//     owns MT x 64 output pixels by BN output channels
+//     (BN = 64, 128 or 256, MT x BN <= 256: at most 128 f32 accumulators a
+//     thread). Each k-step of 16 channels is one commit group, and the A
+//     fragments of two k-steps alternate, so a warpgroup keeps a group in
+//     flight while it loads the next k-step's fragments; the other
+//     warpgroup's products share the tensor cores.
+//   - SiLU: a pixel is activated once per BN = 128-256 output channels (the
+//     mma.sync kernel: once per 64), and under the products: two activated
+//     tiles alternate by chunk; while the tensor cores run chunk q's taps
+//     from one, each thread activates its cells of chunk q + 1 into the
+//     other, from a raw tile it copied by cp.async during chunk q - 1, with
+//     a and b staged in shared memory (x*a+b and SiLU once per element,
+//     out-of-image cells masked to 0 AFTER the activation: the convolution
+//     pads the activated tensor). The warpgroups take turns, warpgroup 0 at
+//     taps 1-4 and warpgroup 1 at taps 5-8, so one has the tensor cores
+//     while the other stages. A thread activates only the cells it copied,
+//     so the raw tile needs no barrier, and a chunk one. The SiLU is
+//     h + h tanh(h), h = u / 2: one SFU operation.
+//   - padding and halos: the tile is 8 x 32 (or 16 x 16, 32 x 8) output
+//     pixels at M = 256, so the halo adds 33% (the mma.sync 4 x 32 tile:
+//     59%); the activated and raw tiles are swizzled (16-byte group j of
+//     pixel p at j ^ (p mod 8)), so the ldmatrix reads of 8 consecutive
+//     pixels hit 32 distinct banks.
+//   - weight traffic: one thread of the block streams the weights into a
+//     ring of STAGES slots of one tap's (BN x 64) slice each, by bulk copies
+//     that complete on mbarriers; each warpgroup hands a slot back on
+//     another. (No producer warpgroup: a third warpgroup would cap every
+//     thread at 168 registers, and the accumulators alone take 128.) A
+//     32-channel chunk's 9 taps at N = 256 would take 147 KB, so the ring's
+//     unit is one tap, never a chunk. The host lays the weights out in the
+//     order the ring reads them, already swizzled ((chunk, tap, Cout, 64)
+//     with 16-byte group j of output channel n at j ^ (n mod 8)), so each
+//     slot is one contiguous copy. At M = 256 a launch at (64, 64^2,
+//     256 -> 256) reads its weights from L2 1,024 times, not 2,048. The
+//     block index runs over the N tiles fastest, so the blocks sharing an
+//     activation tile run together and read it from L2.
+//   - the shortcut (K2·proj) is a second, short pass after y is stored:
+//     the raw tile of each chunk (no affine) times the chunk's slice of P
+//     through the centre tap, into the same accumulators; a second
+//     accumulator set would not fit beside the first at 128 a thread.
+//   - the epilogue adds bias and residual in f32 and rounds once; the stats
+//     are taken from the stored bf16 values in f32: per-warp shuffles, one
+//     shared-memory atomic a warp and column, then one global f32 atomic a
+//     block and column. Atomic order varies between runs, so the stats agree
+//     with a sequential sum to f32 rounding of the total, not bitwise.
 //
-// The Pallas kernel accumulated the stats in one output block that the
-// sequential TPU grid revisits. Hopper blocks run in no order, so here each
-// warp reduces its partial sums with shuffles and adds them to the (B, Cout)
-// buffers with f32 atomics. Atomic order varies between runs, so the stats
-// agree with a sequential sum to f32 rounding of the total, not bitwise.
+//   - the prologue and the grid: persistent, one block an SM walks the
+//     output tiles; the next tile's first chunk is staged under this tile's
+//     last products, so only the epilogue stands between two tiles.
 //
-// No TMA and no wgmma yet: this is the simple, right version; making it
-// fast is later work.
+// The host's `conv_plan` (ops/fused_resnet.py) picks (BN, MT), the tile
+// (TH x TW pixels, TW = min(W, 32)), the ring's depth and the grid for a
+// launch, and says how much each launch reads from L2; this side checks and
+// follows it.
+//
+// == The packed kernel (K2·struct, K2·pipe): mma.sync ==
+//
+// x is a space-to-depth packed tensor (channel c*4 + ei*2 + ej holds
+// sub-pixel (ei, ej) of unpacked channel c) and w the packed kernel
+// collapsed to 4 combined taps (the JAX `_struct_weights`): the packed 3x3
+// kernel is 75% structural zeros, so its 9 taps reduce to 4 products over
+// the same staged tile: centre x centre, centre x column select, row select
+// x centre, row select x column select. A row select reads, for each
+// channel, the pixel above when its ei bit is 1 and the one below when it
+// is 0; a column select the pixel left (ej = 1) or right (ej = 0). A block
+// of 8 warps owns a 2-D tile of TH x TW output pixels (TW = min(W, 32), TH
+// = 128 / TW) times 64 output channels, on mma.sync m16n8k16. One 32-bit
+// A-fragment register holds two adjacent channels, which differ in ej, so
+// the staging permutes each 32-channel chunk by parity class: staged
+// position code*8 + i holds channel i*4 + code, with code = ei*2 + ej. Each
+// k16 step then sees one ei (0 for k 0-15, 1 for 16-31), each fragment half
+// one ej, and every 32-bit load reads one pixel. The host lays the combined
+// weights out in the same order. Every operand has a multiple of 32
+// channels. Staged pixels are padded to KP = 40 bf16 (conflict-free
+// fragment loads); the weights are staged unpadded with the four 16-byte
+// groups of output channel n at group v ^ ((n >> 1) & 3). K2·pipe (PIPE),
+// the counterpart of `_kernel_pipelined` over channel chunks: two buffers;
+// while the tensor cores run chunk q from one, cp.async brings chunk q+1's
+// raw tile, halo and weights into the other, which is then activated in
+// place. Its y, stats and shortcut are the serial kernel's. The shortcut
+// runs as a second short reduction over the same chunks, into the same
+// accumulators; the stats as in the unpacked kernel (per-warp shuffles and
+// f32 atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+constexpr int MAX_OPS = 4;  // operands of one launch
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 stores zeros
+// and reads nothing.
+__device__ __forceinline__ void cp_async_16(uint32_t smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 8 bf16 values in one 16-byte register group.
+union Pack8 {
+  uint4 u;
+  unsigned short h[8];
+};
+
+// tanh on the SFU (one MUFU.TANH, relative error below 2^-10.9)
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x*a+b (and SiLU) of 8 raw channels in f32, rounded to bf16 once. The
+// SiLU as u sigmoid(u) = h + h tanh(h) with h = u / 2: one SFU operation
+// and a short dependency chain (the staging runs at few warps an SM, so
+// its latency, not its throughput, is what costs).
+__device__ __forceinline__ uint4 act8(const uint4 rawv, const float (&av)[8],
+                                      const float (&bv)[8], int apply_silu) {
+  Pack8 r, o;
+  r.u = rawv;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float u = __bfloat162float(__ushort_as_bfloat16(r.h[j])) * av[j] + bv[j];
+    if (apply_silu) {
+      const float h = 0.5f * u;
+      u = fmaf(h, tanh_approx(h), h);
+    }
+    o.h[j] = __bfloat16_as_ushort(__float2bfloat16_rn(u));
+  }
+  return o.u;
+}
+
+// ===========================================================================
+// The unpacked kernel (wgmma)
+// ===========================================================================
+
+constexpr int WG_BK = 64;                    // input channels a chunk: one 128-byte row
+constexpr int WG_THREADS = 256;              // two warpgroups
+constexpr int WG_MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;           // dynamic shared memory a block may have
+
+struct ConvParams {
+  const __nv_bfloat16* x[MAX_OPS];  // (B, H, W, c[k])
+  int c[MAX_OPS];                   // channels of operand k
+  int off[MAX_OPS];                 // its first channel in the concatenation (a, b)
+  int q0[MAX_OPS + 1];              // its first chunk of 64 channels; q0[n_ops] = n_q
+  int n_ops, n_q, ctot;
+  const float* a;                   // (B, ctot) f32, or null with b: the identity prologue
+  const float* b;
+  int apply_silu;
+  const __nv_bfloat16* wt;          // (n_q, 9, cpad, 64) bf16, swizzled (see the header)
+  const __nv_bfloat16* pw;          // (n_q, cpad, 64) bf16, swizzled, or null
+  const float* bias;                // (Cout) or null
+  const float* pbias;               // (Cout) with pw
+  const __nv_bfloat16* residual;    // (B, H, W, Cout) or null
+  __nv_bfloat16* y;
+  __nv_bfloat16* proj;
+  float* s1;
+  float* s2;
+  int B, H, W, Cout, cpad;
+  int TH, TW, tiles_w, tiles_per_image, n_ntiles, stages;
+};
+
+// d += A B for one k-step of 16: A (64 x 16) from registers (an m16 x k16
+// fragment a warp), B (16 x N) from shared memory through its descriptor,
+// K-major (no transpose).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<64>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<128>(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<256>(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Keep the compiler from moving accesses of the A fragments across the
+// asynchronous products that read them.
+template <int MT>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[m][i])::"memory");
+}
+
+// Operand and first channel of chunk q.
+__device__ __forceinline__ void wg_chunk_of(const ConvParams& p, int q, int& k, int& c0) {
+  k = 0;
+  while (k < p.n_ops - 1 && q >= p.q0[k + 1]) ++k;
+  c0 = (q - p.q0[k]) * WG_BK;
+}
+
+template <int BN, int MT, bool PROJ>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    conv3x3_wgmma_kernel(const __grid_constant__ ConvParams p) {
+  constexpr uint32_t SLOT = BN * 128;           // bytes of one tap's (BN x 64) weights
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = base + ((1024 - (base & 1023)) & 1023);  // 1024-aligned: the swizzle
+  const int SW = p.TW + 2;                      // staged row width
+  const int n_stage = (p.TH + 2) * SW;          // staged pixels (tile and halo)
+  const uint32_t tile_bytes = n_stage * 128;    // one staged tile: [n_stage][64], swizzled
+  const uint32_t act0 = ring + p.stages * SLOT; // two activated tiles, by chunk parity
+  const uint32_t raw = act0 + 2 * tile_bytes;   // the raw tile
+  const uint32_t bars = raw + tile_bytes;       // full[stages], then empty[stages]
+  const uint32_t coef = bars + 16 * p.stages;   // a and b of a chunk, by parity: [2][2][64] f32
+  float* stat = reinterpret_cast<float*>(smem_raw + (coef + 1024 - base));  // [2][BN]
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (p.stages + s); };
+  const int tid = threadIdx.x;
+
+  // Persistent: block b takes the output tiles b, b + gridDim.x, ...; a
+  // tile is (pixel tile, N tile), the N tiles of one pixel tile adjacent,
+  // so the blocks at work share their activation tiles and weights in L2.
+  const int n_tiles = p.n_ntiles * p.tiles_per_image * p.B;
+  const int n_mine_tiles = max(0, (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                                      (int)gridDim.x);
+  struct Geo {
+    int img, r0, col0, n0;
+  };
+  auto geo = [&](int i) {  // the block's i-th tile
+    const int tl = blockIdx.x + i * gridDim.x;
+    const int mtile = tl / p.n_ntiles, t = mtile % p.tiles_per_image;
+    return Geo{mtile / p.tiles_per_image, (t / p.tiles_w) * p.TH, (t % p.tiles_w) * p.TW,
+               (tl % p.n_ntiles) * BN};
+  };
+  const int n_q = p.n_q;
+  const int n_u = PROJ ? 2 * n_q : n_q;         // chunks of a tile over both passes
+  const int n_chunks = n_mine_tiles * n_u;      // chunks of the block, in order
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival per warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.s1 != nullptr)
+    for (int i = tid; i < 2 * BN; i += WG_THREADS) stat[i] = 0.f;
+  __syncthreads();
+
+  // Thread 0 keeps the weight ring full: it issues slice j into slot
+  // j % stages once both warpgroups have handed back slice j - stages. When
+  // the block takes slice j (a tap) it blocks until slice j + stages - 2 is
+  // out: that slot's last slice is the tap before the current one, which
+  // its own warpgroup has handed back already, so it waits on the other
+  // warpgroup alone, which never waits on it within a chunk; beyond that it
+  // issues what is free without waiting. (A producer
+  // warpgroup of its own would cap every thread at 168 registers, 65,536 /
+  // 384; two warpgroups leave 255.) The slices come in the order the
+  // warpgroups take them: tile by tile, (chunk, tap), then the shortcut's
+  // chunks; a tile's last N tile copies only the channels that exist, and
+  // the rest of its slot is never stored from.
+  const int per_tile = n_q * (PROJ ? 10 : 9);
+  const int n_slices = n_mine_tiles * per_tile;
+  int issued = 0;
+  auto produce = [&](int need) {
+    if (tid != 0) return;
+    while (issued < n_slices) {
+      const int slot = issued % p.stages, phase = ((issued / p.stages) & 1) ^ 1;
+      if (issued < need)
+        mbar_wait(empty(slot), phase);  // the first round passes at once
+      else if (!mbar_test_wait(empty(slot), phase))
+        break;
+      const int jl = issued % per_tile, n0 = geo(issued / per_tile).n0;
+      const uint32_t bytes = (uint32_t)min(BN, p.cpad - n0) * 128;
+      const __nv_bfloat16* src =
+          jl < 9 * n_q ? p.wt + ((size_t)jl * p.cpad + n0) * 64
+                       : p.pw + ((size_t)(jl - 9 * n_q) * p.cpad + n0) * 64;
+      mbar_expect_tx(full(slot), bytes);
+      bulk_load(ring + slot * SLOT, src, bytes, full(slot));
+      ++issued;
+    }
+  };
+  auto take = [&](int j) {  // slice j out and landed
+    produce(j + p.stages - 1);
+    mbar_wait(full(j % p.stages), (j / p.stages) & 1);
+  };
+
+  // warpgroup wg owns the tile's pixels [wg MT 64, (wg + 1) MT 64)
+  const int wg = tid / 128, wl = tid % 128;
+  const int lane = tid % 32, wwarp = wl / 32;
+  const int tile_px = p.TH * p.TW;
+  const int khalf = lane >> 4;  // lanes 16-31 give the rows of k 8-15
+  // staged pixel of this thread's ldmatrix row in each m64 tile, at tap
+  // (0, 0); rows past the tile repeat its last pixel and are never stored
+  int p0[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int m = min((wg * MT + mt) * 64 + wwarp * 16 + (lane & 15), tile_px - 1);
+    p0[mt] = (m / p.TW) * SW + m % p.TW;
+  }
+
+  // Staging. Thread tid owns the cells i = tid + 256 k of a staged tile:
+  // 16-byte group j8 = tid % 8 (8 channels of the chunk) of staged pixel
+  // i / 8. It copies its cells of a chunk's raw tile and halo by cp.async
+  // and later activates the same cells, so the raw tile needs no barrier:
+  // a thread reads only what it copied itself. The halo and the channels
+  // past an operand are zero-filled; x*a+b (and SiLU) is applied once per
+  // element and cells outside the image are 0 after it; the shortcut pass
+  // and the identity prologue copy the raw values. Chunk U of the block is
+  // chunk U % n_u of its tile U / n_u.
+  const int j8 = tid & 7;
+  const int n_mine = max(0, (n_stage * 8 - tid + WG_THREADS - 1) / WG_THREADS);
+  int cur_k = 0, cur_row = 0, cur_col = 0;  // the activation's cursor over the cells
+  auto cursor_reset = [&]() {
+    cur_k = 0;
+    cur_row = (tid >> 3) / SW;
+    cur_col = (tid >> 3) % SW;
+  };
+  auto cursor_step = [&]() {  // each thread's cells are 32 pixels apart
+    ++cur_k;
+    for (cur_col += WG_THREADS / 8; cur_col >= SW; cur_col -= SW) ++cur_row;
+  };
+  auto load_raw = [&](int U) {
+    const Geo g = geo(U / n_u);
+    const int u = U % n_u;
+    int k, c0;
+    wg_chunk_of(p, u < n_q ? u : u - n_q, k, c0);
+    const int ck = p.c[k], c = c0 + 8 * j8;
+    const __nv_bfloat16* xk = p.x[k] + (size_t)g.img * p.H * p.W * ck;
+    for (cursor_reset(); cur_k < n_mine; cursor_step()) {
+      const int px = (tid >> 3) + cur_k * (WG_THREADS / 8);
+      const int ih = g.r0 - 1 + cur_row, iw = g.col0 - 1 + cur_col;
+      const bool in = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W && c < ck;
+      cp_async_16(raw + px * 128 + ((j8 ^ (px & 7)) << 4),
+                  in ? xk + (((size_t)ih * p.W + iw) * ck + c) : xk, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  // chunk U's a and b into the coefficient buffer of its parity (threads
+  // 0-127: a then b, one channel each; 0 past the operand)
+  auto load_coef = [&](int U) {
+    const int u = U % n_u;
+    if (u >= n_q || p.a == nullptr || tid >= 128) return;
+    int k, c0;
+    wg_chunk_of(p, u, k, c0);
+    const int c = c0 + (tid & 63);
+    const float* src = tid < 64 ? p.a : p.b;
+    const float v = c < p.c[k] ? src[(size_t)geo(U / n_u).img * p.ctot + p.off[k] + c] : 0.f;
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(coef + ((U & 1) * 128 + tid) * 4), "f"(v)
+                 : "memory");
+  };
+  // activate this thread's cells of chunk U, the cursor's next ones up to
+  // cell k_end, into the activated tile of U's parity
+  auto activate = [&](int U, int k_end) {
+    const Geo g = geo(U / n_u);
+    const int u = U % n_u;
+    int k, c0;
+    wg_chunk_of(p, u < n_q ? u : u - n_q, k, c0);
+    const bool affine = u < n_q && p.a != nullptr && c0 + 8 * j8 < p.c[k];
+    const uint32_t dst = act0 + (U & 1) * tile_bytes;
+    float av[8], bv[8];
+    if (affine && cur_k < k_end) {
+      const uint32_t ca = coef + ((U & 1) * 128 + 8 * j8) * 4;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(av[0]), "=f"(av[1]), "=f"(av[2]), "=f"(av[3]) : "r"(ca) : "memory");
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(av[4]), "=f"(av[5]), "=f"(av[6]), "=f"(av[7]) : "r"(ca + 16) : "memory");
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(bv[0]), "=f"(bv[1]), "=f"(bv[2]), "=f"(bv[3]) : "r"(ca + 256) : "memory");
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(bv[4]), "=f"(bv[5]), "=f"(bv[6]), "=f"(bv[7]) : "r"(ca + 272) : "memory");
+    }
+    for (; cur_k < min(k_end, n_mine); cursor_step()) {
+      const int px = (tid >> 3) + cur_k * (WG_THREADS / 8);
+      const uint32_t o = px * 128 + ((j8 ^ (px & 7)) << 4);
+      uint4 v;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(raw + o)
+                   : "memory");
+      if (affine) {
+        const int ih = g.r0 - 1 + cur_row, iw = g.col0 - 1 + cur_col;
+        v = (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W) ? act8(v, av, bv, p.apply_silu)
+                                                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + o), "r"(v.x),
+                   "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
+    }
+  };
+
+  // the part of chunk U + 1's staging done at tap `tap` of chunk U. The
+  // two warpgroups take turns: warpgroup 0 activates its cells at taps 1-4
+  // and warpgroup 1 at taps 5-8, so that while one stages, the other's
+  // products have the tensor cores; each first waits for its raw cells and
+  // after its last part sends for chunk U + 2's raw tile (and warpgroup 0
+  // for its coefficients). At a tile's last chunk this stages the next
+  // tile's first. A chunk of one tap (the shortcut) stages all at once.
+  auto stage_next = [&](int U, int tap, int n_taps) {
+    if (U + 1 >= n_chunks) return;
+    int part, n_parts = 1;
+    if (n_taps == 1) {
+      part = 0;
+    } else {
+      part = tap - 1 - 4 * wg;
+      n_parts = 4;
+      if (part < 0 || part >= 4) return;
+    }
+    if (part == 0) {
+      cp_async_wait_all();
+      cursor_reset();
+    }
+    activate(U + 1, (n_mine * (part + 1) + n_parts - 1) / n_parts);
+    if (part == n_parts - 1 && U + 2 < n_chunks) {
+      load_raw(U + 2);
+      load_coef(U + 2);
+    }
+  };
+  // the A fragments of k-step ks of one tap (staged offset toff) for each
+  // m64 tile. The row's 128 bytes start at a multiple of 128 (the tile is
+  // 1024-aligned), so row + (((2 ks + khalf) ^ (px & 7)) << 4) is a base
+  // XOR (ks << 5)
+  auto load_a = [&](uint32_t (&af)[MT][4], uint32_t tile, int toff, int ks) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int px = p0[mt] + toff;
+      ldmatrix_x4(af[mt], ((tile + px * 128 + ((px & 7) << 4)) ^ (khalf << 4)) ^ (ks << 5));
+    }
+  };
+  auto issue = [&](float (&acc)[MT][BN / 2], uint32_t (&af)[MT][4], int slot, int ks) {
+    const uint64_t db = make_desc(ring + slot * SLOT + ks * 32, 16, 1024, 1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) wgmma_rs_k<BN>(acc[mt], af[mt], db);
+  };
+
+  float acc[MT][BN / 2];
+  uint32_t af[2][MT][4];  // the A fragments of two k-steps
+  int s = 0;  // weight slices taken so far
+  produce(0);
+  if (n_chunks > 0) {
+    load_raw(0);
+    load_coef(0);
+    named_sync(1, WG_THREADS);  // chunk 0's coefficients
+    cp_async_wait_all();
+    cursor_reset();
+    activate(0, n_mine);
+    if (n_chunks > 1) {
+      load_raw(1);
+      load_coef(1);
+    }
+  }
+  for (int i = 0; i < n_mine_tiles; ++i) {
+    const Geo g = geo(i);
+    for (int pass = 0; pass < (PROJ ? 2 : 1); ++pass) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) acc[mt][e] = 0.f;
+      const int n_taps = pass == 0 ? 9 : 1;
+      for (int q = 0; q < n_q; ++q) {
+        const int U = i * n_u + pass * n_q + q;
+        const uint32_t tile = act0 + (U & 1) * tile_bytes;
+        // chunk U's activated tile and chunk U + 1's coefficients complete;
+        // both warpgroups done with the other tile, which chunk U + 1's
+        // activation now fills
+        named_sync(1, WG_THREADS);
+        // k-step kk = 4 tap + ks of the chunk is one commit group; before
+        // the A fragments of k-step kk + 1 go into the buffer that k-step
+        // kk - 1 read, that group is waited for, so that two groups are in
+        // flight while the next fragments load. A tap's slot is handed back
+        // once its last group is done (at the next tap's first k-step).
+        take(s);
+        load_a(af[0], tile, pass == 0 ? 0 : SW + 1, 0);
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          if (tap >= n_taps) break;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            const int kk = 4 * tap + ks, b = kk & 1;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+            fence_frags<MT>(af[b]);
+            wgmma_fence();
+            issue(acc, af[b], (s + tap) % p.stages, ks);
+            wgmma_commit();
+            if (ks == 1) stage_next(U, tap, n_taps);  // under the products in flight
+            wgmma_wait<1>();  // k-step kk - 1 done: buffer b ^ 1 is free
+            fence_frags<MT>(af[b ^ 1]);
+            if (ks == 0 && tap > 0 && wl == 0) mbar_arrive(empty((s + tap - 1) % p.stages));
+            if (kk + 1 < 4 * n_taps) {
+              const int nt = (kk + 1) / 4;
+              if (ks == 3) take(s + nt);
+              load_a(af[b ^ 1], tile, pass == 0 ? (nt / 3) * SW + nt % 3 : SW + 1, (kk + 1) % 4);
+            }
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+        fence_frags<MT>(af[0]);
+        fence_frags<MT>(af[1]);
+        if (wl == 0) mbar_arrive(empty((s + n_taps - 1) % p.stages));
+        s += n_taps;
+      }
+
+      // epilogue. Accumulator entry 4 i + r of m64 tile mt holds row
+      // (wg MT + mt) 64 + 16 warp + lane/4 + 8 (r / 2) and column
+      // 8 i + 2 (lane % 4) + r % 2.
+      const bool y_pass = pass == 0;
+      const bool stats = y_pass && p.s1 != nullptr;
+      __nv_bfloat16* out = y_pass ? p.y : p.proj;
+      const float* ob = y_pass ? p.bias : p.pbias;
+      size_t rowoff[MT][2];
+      bool rowok[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = (wg * MT + mt) * 64 + wwarp * 16 + h * 8 + (lane >> 2);
+          const int oh = g.r0 + m / p.TW, ow = g.col0 + m % p.TW;
+          rowok[mt][h] = m < tile_px && oh < p.H && ow < p.W;
+          rowoff[mt][h] = (((size_t)g.img * p.H + oh) * p.W + ow) * p.Cout;
+        }
+#pragma unroll
+      for (int e = 0; e < BN / 8; ++e) {
+        const int n = g.n0 + 8 * e + 2 * (lane & 3);
+        const bool colok = n < p.Cout;
+        float bias0 = 0.f, bias1 = 0.f;
+        if (colok && ob != nullptr) bias0 = ob[n], bias1 = ob[n + 1];
+        float t1a = 0.f, t1b = 0.f, t2a = 0.f, t2b = 0.f;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (!(colok && rowok[mt][h])) continue;
+            float v0 = acc[mt][4 * e + 2 * h] + bias0;
+            float v1 = acc[mt][4 * e + 2 * h + 1] + bias1;
+            const size_t o = rowoff[mt][h] + n;
+            if (y_pass && p.residual != nullptr) {
+              const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(p.residual + o);
+              v0 += __low2float(r);
+              v1 += __high2float(r);
+            }
+            const __nv_bfloat162 st = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(out + o) = st;
+            const float q0 = __low2float(st), q1 = __high2float(st);
+            t1a += q0, t1b += q1, t2a += q0 * q0, t2b += q1 * q1;
+          }
+        if (stats) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {  // over the rows (lane / 4)
+            t1a += __shfl_xor_sync(0xffffffffu, t1a, off);
+            t1b += __shfl_xor_sync(0xffffffffu, t1b, off);
+            t2a += __shfl_xor_sync(0xffffffffu, t2a, off);
+            t2b += __shfl_xor_sync(0xffffffffu, t2b, off);
+          }
+          if (lane < 4 && colok) {
+            const int nl = 8 * e + 2 * lane;
+            atomicAdd(stat + nl, t1a);
+            atomicAdd(stat + nl + 1, t1b);
+            atomicAdd(stat + BN + nl, t2a);
+            atomicAdd(stat + BN + nl + 1, t2b);
+          }
+        }
+      }
+      if (stats) {
+        // the tile's sums out, and the buffer zeroed by the thread that read
+        // it, for the block's next tile
+        named_sync(1, WG_THREADS);
+        if (tid < BN) {
+          if (g.n0 + tid < p.Cout) {
+            atomicAdd(p.s1 + (size_t)g.img * p.Cout + g.n0 + tid, stat[tid]);
+            atomicAdd(p.s2 + (size_t)g.img * p.Cout + g.n0 + tid, stat[BN + tid]);
+          }
+          stat[tid] = stat[BN + tid] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of an unpacked launch: the ring, the two activated
+// tiles and the raw tile, the barriers, two chunks' coefficients, the stats
+// and the slack that aligns the ring.
+size_t wg_smem_bytes(int bn, int th, int tw, int stages) {
+  return 1024 + (size_t)stages * bn * 128 + 3 * (size_t)(th + 2) * (tw + 2) * 128 +
+         16 * (size_t)stages + 1024 + 8 * (size_t)bn;
+}
+
+typedef void (*WgKernel)(const ConvParams);
+
+template <bool PROJ>
+WgKernel pick_wgmma(int bn, int mt) {
+  if (bn == 256 && mt == 1) return conv3x3_wgmma_kernel<256, 1, PROJ>;
+  if (bn == 128 && mt == 2) return conv3x3_wgmma_kernel<128, 2, PROJ>;
+  if (bn == 128 && mt == 1) return conv3x3_wgmma_kernel<128, 1, PROJ>;
+  if (bn == 64 && mt == 2) return conv3x3_wgmma_kernel<64, 2, PROJ>;
+  if (bn == 64 && mt == 1) return conv3x3_wgmma_kernel<64, 1, PROJ>;
+  return nullptr;
+}
+
+// ===========================================================================
+// The packed kernel (mma.sync), K2·struct and K2·pipe
+// ===========================================================================
 
 constexpr int BM = 128;      // output pixels per block (at most)
 constexpr int BN = 64;       // output channels per block
 constexpr int BK = 32;       // input channels per reduction chunk
 constexpr int KP = BK + 8;   // staged pixel stride (bf16 elements)
 constexpr int THREADS = 256; // 8 warps: 4 along M x 2 along N, 32x32 each
-constexpr int MAX_OPS = 4;   // operands of one launch
 constexpr int MAX_TW = 32;   // tile width in pixels
+constexpr int NT = 4;        // combined taps (products) per chunk
 
 struct Operands {
   const __nv_bfloat16* x[MAX_OPS];  // (B, H, W, c[k])
@@ -125,29 +755,9 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 stores zeros
-// and reads nothing.
-__device__ __forceinline__ void cp_async_16(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
-                                            int src_bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(s), "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // One k16 step of the warp's 32x32 product. A rows at offsets `k0` (k
 // 0-7 of the step) and `k1` (k 8-15), per m16 tile and half (pixel rows g
-// and g + 8); B from `bsm`. Unpacked taps read one pixel for both halves;
-// K2·struct's column select reads another pixel per half.
+// and g + 8); B from `bsm`. A column select reads another pixel per half.
 __device__ __forceinline__ void warp_mma_k16(float (&acc)[2][4][4],
                                              const __nv_bfloat16* asm_,
                                              const int (&k0)[2][2], const int (&k1)[2][2],
@@ -172,15 +782,11 @@ __device__ __forceinline__ void warp_mma_k16(float (&acc)[2][4][4],
   }
 }
 
-// 8 bf16 values in one 16-byte register group.
-union Pack8 {
-  uint4 u;
-  unsigned short h[8];
-};
-
-// x*a+b (and SiLU) of 8 raw channels in f32, rounded to bf16 once.
-__device__ __forceinline__ uint4 act8(const uint4 rawv, const float* ap, const float* bp,
-                                      int apply_silu) {
+// x*a+b (and SiLU) of 8 raw channels at coefficient pointers ap, bp, or the
+// raw values when ap is null (the identity prologue).
+__device__ __forceinline__ uint4 act8p(const uint4 rawv, const float* ap, const float* bp,
+                                       int apply_silu) {
+  if (ap == nullptr) return rawv;
   Pack8 r, o;
   r.u = rawv;
 #pragma unroll
@@ -192,65 +798,42 @@ __device__ __forceinline__ uint4 act8(const uint4 rawv, const float* ap, const f
   return o.u;
 }
 
-// Store the 8 activated channels v*8 .. v*8+7 of a chunk into a staged
-// pixel: in place, or for K2·struct at their parity-class positions
-// (channel i*4 + code -> code*8 + i; channels j and j + 4 of the 8 share a
-// class and land side by side).
-template <bool STRUCT>
+// Store the 8 activated channels v*8 .. v*8+7 of a chunk into a staged pixel
+// at their parity-class positions (channel i*4 + code -> code*8 + i;
+// channels j and j + 4 of the 8 share a class and land side by side).
 __device__ __forceinline__ void store8(__nv_bfloat16* cell, int v, const uint4 val) {
-  if (STRUCT) {
-    Pack8 p;
-    p.u = val;
+  Pack8 p;
+  p.u = val;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<uint32_t*>(cell + j * 8 + 2 * v) =
-          (uint32_t)p.h[j] | ((uint32_t)p.h[j + 4] << 16);
-  } else {
-    *reinterpret_cast<uint4*>(cell + v * 8) = val;
-  }
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<uint32_t*>(cell + j * 8 + 2 * v) =
+        (uint32_t)p.h[j] | ((uint32_t)p.h[j + 4] << 16);
 }
 
-// The tensor-core products of one staged chunk: 9 shifted taps, or the 4
-// K2·struct products. `pix` are the staged offsets of the fragment rows at
-// the tile's top-left tap.
-template <bool STRUCT>
-__device__ __forceinline__ void chunk_products(float (&acc)[2][4][4], const __nv_bfloat16* As,
-                                               const __nv_bfloat16* Bs, const int (&pix)[2][2],
-                                               int SW, int wn, int g, int tig) {
-  if (STRUCT) {
+// The 4 tensor-core products of one staged chunk. `pix` are the staged
+// offsets of the fragment rows at the tile's top-left tap.
+__device__ __forceinline__ void struct_products(float (&acc)[2][4][4], const __nv_bfloat16* As,
+                                                const __nv_bfloat16* Bs, const int (&pix)[2][2],
+                                                int SW, int wn, int g, int tig) {
 #pragma unroll 1
-    for (int prod = 0; prod < 4; ++prod) {
-      const int rsel = prod >> 1, csel = prod & 1;
+  for (int prod = 0; prod < NT; ++prod) {
+    const int rsel = prod >> 1, csel = prod & 1;
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        // ei = kk / 16: the row select reads above (ei 1) or below (ei 0);
-        // k 0-7 of the step have ej 0 (right), k 8-15 ej 1 (left)
-        const int dr = rsel ? (kk ? -1 : 1) : 0;
-        const int base = (1 + dr) * SW + 1;
-        const int o0 = (base + (csel ? 1 : 0)) * KP, o1 = (base - (csel ? 1 : 0)) * KP;
-        int k0[2][2], k1[2][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            k0[mi][hf] = pix[mi][hf] + o0;
-            k1[mi][hf] = pix[mi][hf] + o1;
-          }
-        warp_mma_k16(acc, As, k0, k1, Bs + prod * BN * BK, wn, g, tig, kk);
-      }
-    }
-  } else {
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * SW + (tap % 3)) * KP;
-      int aoff[2][2];
+    for (int kk = 0; kk < BK; kk += 16) {
+      // ei = kk / 16: the row select reads above (ei 1) or below (ei 0);
+      // k 0-7 of the step have ej 0 (right), k 8-15 ej 1 (left)
+      const int dr = rsel ? (kk ? -1 : 1) : 0;
+      const int base = (1 + dr) * SW + 1;
+      const int o0 = (base + (csel ? 1 : 0)) * KP, o1 = (base - (csel ? 1 : 0)) * KP;
+      int k0[2][2], k1[2][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) aoff[mi][hf] = pix[mi][hf] + toff;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16)
-        warp_mma_k16(acc, As, aoff, aoff, Bs + tap * BN * BK, wn, g, tig, kk);
+        for (int hf = 0; hf < 2; ++hf) {
+          k0[mi][hf] = pix[mi][hf] + o0;
+          k1[mi][hf] = pix[mi][hf] + o1;
+        }
+      warp_mma_k16(acc, As, k0, k1, Bs + prod * BN * BK, wn, g, tig, kk);
     }
   }
 }
@@ -269,23 +852,22 @@ __device__ __forceinline__ void chunk_of(const Operands& ops, int q, int& k, int
   c0 = q * BK;
 }
 
-template <bool PROJ, bool STRUCT, bool PIPE>
+template <bool PROJ, bool PIPE>
 __global__ void __launch_bounds__(THREADS)
-affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
-                           const float* __restrict__ a,            // (B, ctot)
-                           const float* __restrict__ b,            // (B, ctot)
-                           const __nv_bfloat16* __restrict__ wt,   // (Cout, NT, ctot)
-                           const float* __restrict__ bias,         // (Cout)
-                           const __nv_bfloat16* __restrict__ residual,
-                           const __nv_bfloat16* __restrict__ pw,   // (Cout, ctot)
-                           const float* __restrict__ pbias,        // (Cout)
-                           __nv_bfloat16* __restrict__ y,
-                           __nv_bfloat16* __restrict__ proj,
-                           float* __restrict__ s1,
-                           float* __restrict__ s2,
-                           int H, int W, int Cout, int TH, int TW,
-                           int tiles_w, int tiles_per_image, int apply_silu) {
-  constexpr int NT = STRUCT ? 4 : 9;   // taps (or struct products) per chunk
+struct_conv_kernel(const Operands ops, int ctot, int n_chunks,
+                   const float* __restrict__ a,            // (B, ctot) or null
+                   const float* __restrict__ b,            // (B, ctot) or null
+                   const __nv_bfloat16* __restrict__ wt,   // (Cout, NT, ctot)
+                   const float* __restrict__ bias,         // (Cout) or null
+                   const __nv_bfloat16* __restrict__ residual,
+                   const __nv_bfloat16* __restrict__ pw,   // (Cout, ctot)
+                   const float* __restrict__ pbias,        // (Cout)
+                   __nv_bfloat16* __restrict__ y,
+                   __nv_bfloat16* __restrict__ proj,
+                   float* __restrict__ s1,
+                   float* __restrict__ s2,
+                   int H, int W, int Cout, int TH, int TW,
+                   int tiles_w, int tiles_per_image, int apply_silu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int SW = TW + 2;               // staged row width
   const int n_stage = (TH + 2) * SW;   // staged pixels
@@ -309,9 +891,9 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
   const int g = lane >> 2, tig = lane & 3;
 
   // staged offsets of the 4 pixels this thread's A fragments read: rows g
-  // and g + 8 of the warp's two m16 tiles, at tap dy = dx = 0 (pix) and in
-  // the raw tile (raw). Rows past the tile repeat its last pixel; their
-  // results are never stored.
+  // and g + 8 of the warp's two m16 tiles, at the centre (pix) and in the
+  // raw tile (raw). Rows past the tile repeat its last pixel; their results
+  // are never stored.
   int pix[2][2], raw[2][2];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
@@ -331,8 +913,8 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
 
-  const float* a_img = a + (size_t)img * ctot;
-  const float* b_img = b + (size_t)img * ctot;
+  const float* a_img = a != nullptr ? a + (size_t)img * ctot : nullptr;
+  const float* b_img = b != nullptr ? b + (size_t)img * ctot : nullptr;
   const int nvb = NT * BN * (BK / 8);      // 16-byte weight vectors per chunk
 
   if (!PIPE) {
@@ -354,11 +936,12 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
         if (ih >= 0 && ih < H && iw >= 0 && iw < W && c < ck) {
           const uint4 rawv =
               *reinterpret_cast<const uint4*>(xk + (((size_t)ih * W + iw) * ck + c));
-          o = act8(rawv, a_img + offk + c, b_img + offk + c, apply_silu);
+          o = act8p(rawv, a_img ? a_img + offk + c : nullptr, b_img ? b_img + offk + c : nullptr,
+                    apply_silu);
         }
-        store8<STRUCT>(As + (size_t)cell * KP, v, o);
+        store8(As + (size_t)cell * KP, v, o);
       }
-      // 2. weights of the chunk for every tap
+      // 2. weights of the chunk for every combined tap
       for (int i = tid; i < nvb; i += THREADS) {
         const int v = i % (BK / 8);
         const int rest = i / (BK / 8);
@@ -371,7 +954,7 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
       }
       __syncthreads();
       // 3. the chunk's tensor-core products
-      chunk_products<STRUCT>(acc, As, Bs, pix, SW, wn, g, tig);
+      struct_products(acc, As, Bs, pix, SW, wn, g, tig);
       __syncthreads();
     }
   } else {
@@ -389,7 +972,7 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
         const int ih = r0 - 1 + cell / SW, iw = col0 - 1 + cell % SW;
         const int c = c0 + v * 8;
         const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W && c < ck;
-        cp_async_16(As + (size_t)cell * KP + v * 8,
+        cp_async_16(smem_u32(As + (size_t)cell * KP + v * 8),
                     in ? xk + (((size_t)ih * W + iw) * ck + c) : xk, in ? 16 : 0);
       }
       for (int i = tid; i < nvb; i += THREADS) {
@@ -398,36 +981,35 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
         const int n = rest % BN, tap = rest / BN;
         const int c = c0 + v * 8, co = n0 + n;
         const bool in = co < Cout && c < ck;
-        cp_async_16(Bs + (tap * BN + n) * BK + swz(n, v),
+        cp_async_16(smem_u32(Bs + (tap * BN + n) * BK + swz(n, v)),
                     in ? wt + (((size_t)co * NT + tap) * ctot + offk + c) : wt, in ? 16 : 0);
       }
       cp_async_commit();
     };
     // affine + SiLU of the landed chunk q in buffer `buf`, in place; cells
-    // outside the image (and channels past the operand) become 0 after it
+    // outside the image (and channels past the operand) become 0 after it.
+    // The parity-class permutation moves all 32 channels of a pixel: one
+    // thread a pixel.
     auto activate = [&](int buf, int q) {
       int k, c0;
       chunk_of(ops, q, k, c0);
       const int ck = ops.c[k], offk = ops.off[k];
       __nv_bfloat16* As = smem + buf * buf_elems;
-      // K2·struct permutes all 32 channels of a pixel: one thread a pixel;
-      // otherwise one thread per 8 channels of a pixel
-      const int per = STRUCT ? BK / 8 : 1;
-      for (int i = tid; i < n_stage * (BK / 8) / per; i += THREADS) {
-        const int cell = STRUCT ? i : i / (BK / 8);
-        const int v_first = STRUCT ? 0 : i % (BK / 8);
+      for (int cell = tid; cell < n_stage; cell += THREADS) {
         const int ih = r0 - 1 + cell / SW, iw = col0 - 1 + cell % SW;
         const bool in_img = ih >= 0 && ih < H && iw >= 0 && iw < W;
         __nv_bfloat16* cp = As + (size_t)cell * KP;
         uint4 rawv[BK / 8];
 #pragma unroll
-        for (int u = 0; u < per; ++u) rawv[u] = *reinterpret_cast<const uint4*>(cp + (v_first + u) * 8);
+        for (int u = 0; u < BK / 8; ++u) rawv[u] = *reinterpret_cast<const uint4*>(cp + u * 8);
 #pragma unroll
-        for (int u = 0; u < per; ++u) {
-          const int v = v_first + u, c = c0 + v * 8;
+        for (int u = 0; u < BK / 8; ++u) {
+          const int c = c0 + u * 8;
           uint4 o = make_uint4(0u, 0u, 0u, 0u);
-          if (in_img && c < ck) o = act8(rawv[u], a_img + offk + c, b_img + offk + c, apply_silu);
-          store8<STRUCT>(cp, v, o);
+          if (in_img && c < ck)
+            o = act8p(rawv[u], a_img ? a_img + offk + c : nullptr,
+                      b_img ? b_img + offk + c : nullptr, apply_silu);
+          store8(cp, u, o);
         }
       }
     };
@@ -442,7 +1024,7 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
       const bool more = q + 1 < n_chunks;
       if (more) issue(cur ^ 1, q + 1);  // in flight during the products
       const __nv_bfloat16* As = smem + cur * buf_elems;
-      chunk_products<STRUCT>(acc, As, As + n_stage * KP, pix, SW, wn, g, tig);
+      struct_products(acc, As, As + n_stage * KP, pix, SW, wn, g, tig);
       if (more) {
         cp_async_wait_all();
         __syncthreads();
@@ -471,8 +1053,8 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
         const int n = n0 + wn * 32 + ni * 8 + tig * 2;
         if (n >= Cout) continue;
         const size_t o = pbase + n;
-        float v0 = acc[mi][ni][hf * 2] + bias[n];
-        float v1 = acc[mi][ni][hf * 2 + 1] + bias[n + 1];
+        float v0 = acc[mi][ni][hf * 2], v1 = acc[mi][ni][hf * 2 + 1];
+        if (bias != nullptr) v0 += bias[n], v1 += bias[n + 1];
         if (residual != nullptr) {
           const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(residual + o);
           v0 += __low2float(r);
@@ -563,62 +1145,31 @@ affine_silu_conv3x3_kernel(const Operands ops, int ctot, int n_chunks,
   }
 }
 
-typedef void (*KernelFn)(const Operands, int, int, const float*, const float*,
-                         const __nv_bfloat16*, const float*, const __nv_bfloat16*,
-                         const __nv_bfloat16*, const float*, __nv_bfloat16*, __nv_bfloat16*,
-                         float*, float*, int, int, int, int, int, int, int, int);
+typedef void (*StructKernel)(const Operands, int, int, const float*, const float*,
+                             const __nv_bfloat16*, const float*, const __nv_bfloat16*,
+                             const __nv_bfloat16*, const float*, __nv_bfloat16*,
+                             __nv_bfloat16*, float*, float*, int, int, int, int, int, int,
+                             int, int);
 
 template <bool PROJ>
-KernelFn pick_kernel(int packed_struct, int pipelined) {
-  if (packed_struct)
-    return pipelined ? affine_silu_conv3x3_kernel<PROJ, true, true>
-                     : affine_silu_conv3x3_kernel<PROJ, true, false>;
-  return pipelined ? affine_silu_conv3x3_kernel<PROJ, false, true>
-                   : affine_silu_conv3x3_kernel<PROJ, false, false>;
+StructKernel pick_struct(int pipelined) {
+  return pipelined ? struct_conv_kernel<PROJ, true> : struct_conv_kernel<PROJ, false>;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Tile of a launch for a row width W: TW = min(W, 32) columns by
-// TH = 128 / TW rows.
-static void tile_shape(int W, int* th, int* tw) {
+// Dynamic shared memory of a packed launch, in bytes: one buffer of the
+// staged tile and the chunk's weights (32,704 at W >= 32), two with
+// `pipelined`. The shortcut pass fits in the first buffer.
+size_t struct_smem_bytes(int W, int pipelined, int* th, int* tw) {
   *tw = W < MAX_TW ? W : MAX_TW;
   *th = BM / *tw;
-}
-
-// Dynamic shared memory a launch needs, in bytes: one buffer of the
-// staged tile and the chunk's weights (53,184 at W >= 32 with 9 taps,
-// 32,704 with the 4 struct products), two with `pipelined`. The shortcut
-// pass fits in the first buffer.
-static size_t smem_bytes(int W, int packed_struct, int pipelined) {
-  int th, tw;
-  tile_shape(W, &th, &tw);
-  const size_t elems = (size_t)(th + 2) * (tw + 2) * KP + (packed_struct ? 4 : 9) * BN * BK;
+  const size_t elems = (size_t)(*th + 2) * (*tw + 2) * KP + NT * BN * BK;
   return elems * sizeof(__nv_bfloat16) * (pipelined ? 2 : 1);
 }
 
-// xs[n_ops]: operands (B,H,W,cs[k]) bf16, 16-byte aligned; a, b (B, sum cs)
-// f32; wt (Cout, 9, sum cs) bf16, or with packed_struct the combined taps
-// (Cout, 4, sum cs) with each 32-channel chunk in parity-class order; bias
-// (Cout) f32; residual (B,H,W,Cout) bf16 or null; pw (Cout, sum cs) bf16 and
-// pbias (Cout) f32, or both null; y and proj (B,H,W,Cout) bf16 (proj null
-// without pw); s1, s2 (B,Cout) f32, zeroed by the caller, or both null.
-// 1 <= n_ops <= 4, every cs[k] and Cout a positive multiple of 8 (of 32 for
-// every cs[k] with packed_struct). Launches on `stream` and returns
-// cudaGetLastError().
-int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
-                               const void* a, const void* b, const void* wt,
-                               const void* bias, const void* residual,
-                               const void* pw, const void* pbias, void* y,
-                               void* proj, void* s1, void* s2, int B, int H,
-                               int W, int Cout, int apply_silu, int packed_struct,
-                               int pipelined, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cout % 8 != 0 || n_ops < 1 ||
-      n_ops > MAX_OPS || (pw == nullptr) != (proj == nullptr) ||
-      (pw != nullptr && pbias == nullptr))
-    return (int)cudaErrorInvalidValue;
+int launch_struct(const void* const* xs, const int* cs, int n_ops, const void* a, const void* b,
+                  const void* wt, const void* bias, const void* residual, const void* pw,
+                  const void* pbias, void* y, void* proj, void* s1, void* s2, int B, int H,
+                  int W, int Cout, int apply_silu, int pipelined, cudaStream_t stream) {
   Operands ops;
   int ctot = 0, n_chunks = 0;
   for (int k = 0; k < MAX_OPS; ++k) {
@@ -626,33 +1177,147 @@ int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
     ops.c[k] = ops.off[k] = 0;
   }
   for (int k = 0; k < n_ops; ++k) {
-    if (cs[k] <= 0 || cs[k] % (packed_struct ? BK : 8) != 0 || xs[k] == nullptr)
-      return (int)cudaErrorInvalidValue;
+    if (cs[k] % BK != 0) return (int)cudaErrorInvalidValue;
     ops.x[k] = (const __nv_bfloat16*)xs[k];
     ops.c[k] = cs[k];
     ops.off[k] = ctot;
     ctot += cs[k];
-    n_chunks += (cs[k] + BK - 1) / BK;
+    n_chunks += cs[k] / BK;
   }
   ops.n = n_ops;
   int th, tw;
-  tile_shape(W, &th, &tw);
+  const size_t smem = struct_smem_bytes(W, pipelined, &th, &tw);
   const int tiles_w = (W + tw - 1) / tw;
   const int tiles = ((H + th - 1) / th) * tiles_w;
   const dim3 grid(B * tiles, (Cout + BN - 1) / BN);
-  const size_t smem = smem_bytes(W, packed_struct, pipelined);
-  KernelFn kernel = pw != nullptr ? pick_kernel<true>(packed_struct, pipelined)
-                                  : pick_kernel<false>(packed_struct, pipelined);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  StructKernel kernel =
+      pw != nullptr ? pick_struct<true>(pipelined) : pick_struct<false>(pipelined);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       ops, ctot, n_chunks, (const float*)a, (const float*)b, (const __nv_bfloat16*)wt,
-      (const float*)bias, (const __nv_bfloat16*)residual,
-      (const __nv_bfloat16*)pw, (const float*)pbias, (__nv_bfloat16*)y,
-      (__nv_bfloat16*)proj, (float*)s1, (float*)s2, H, W, Cout, th, tw,
-      tiles_w, tiles, apply_silu);
+      (const float*)bias, (const __nv_bfloat16*)residual, (const __nv_bfloat16*)pw,
+      (const float*)pbias, (__nv_bfloat16*)y, (__nv_bfloat16*)proj, (float*)s1, (float*)s2, H,
+      W, Cout, th, tw, tiles_w, tiles, apply_silu);
   return (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* const* xs, const int* cs, int n_ops, const void* a, const void* b,
+                 const void* wt, const void* bias, const void* residual, const void* pw,
+                 const void* pbias, void* y, void* proj, void* s1, void* s2, int B, int H,
+                 int W, int Cout, int apply_silu, int th, int tw, int bn, int mt, int stages,
+                 int grid, cudaStream_t stream) {
+  if (th <= 0 || tw <= 0 || th * tw > 128 * mt || stages < 2 || stages > WG_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem_bytes(bn, th, tw, stages);
+  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  WgKernel kernel = pw != nullptr ? pick_wgmma<true>(bn, mt) : pick_wgmma<false>(bn, mt);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  ConvParams p;
+  int ctot = 0, n_q = 0;
+  for (int k = 0; k < MAX_OPS; ++k) {
+    p.x[k] = nullptr;
+    p.c[k] = p.off[k] = p.q0[k] = 0;
+  }
+  for (int k = 0; k < n_ops; ++k) {
+    p.x[k] = (const __nv_bfloat16*)xs[k];
+    p.c[k] = cs[k];
+    p.off[k] = ctot;
+    p.q0[k] = n_q;
+    ctot += cs[k];
+    n_q += (cs[k] + WG_BK - 1) / WG_BK;
+  }
+  p.q0[n_ops] = n_q;
+  p.n_ops = n_ops;
+  p.n_q = n_q;
+  p.ctot = ctot;
+  p.a = (const float*)a;
+  p.b = (const float*)b;
+  p.apply_silu = apply_silu;
+  p.wt = (const __nv_bfloat16*)wt;
+  p.pw = (const __nv_bfloat16*)pw;
+  p.bias = (const float*)bias;
+  p.pbias = (const float*)pbias;
+  p.residual = (const __nv_bfloat16*)residual;
+  p.y = (__nv_bfloat16*)y;
+  p.proj = (__nv_bfloat16*)proj;
+  p.s1 = (float*)s1;
+  p.s2 = (float*)s2;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.Cout = Cout;
+  p.cpad = (Cout + 63) / 64 * 64;
+  p.TH = th;
+  p.TW = tw;
+  p.tiles_w = (W + tw - 1) / tw;
+  p.tiles_per_image = ((H + th - 1) / th) * p.tiles_w;
+  p.n_ntiles = (Cout + bn - 1) / bn;
+  p.stages = stages;
+  // persistent: `grid` blocks walk the output tiles (grid <= 0: one a tile)
+  const long long tiles = (long long)B * p.tiles_per_image * p.n_ntiles;
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const long long blocks = grid > 0 && grid < tiles ? grid : tiles;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, WG_THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// xs[n_ops]: operands (B,H,W,cs[k]) bf16, 16-byte aligned; a, b (B, sum cs)
+// f32, or both null (the identity prologue; apply_silu is then ignored);
+// bias (Cout) f32 or null; residual (B,H,W,Cout) bf16 or null; pbias (Cout) f32 with
+// pw, else null; y and proj (B,H,W,Cout) bf16 (proj null without pw); s1,
+// s2 (B,Cout) f32, zeroed by the caller, or both null. 1 <= n_ops <= 4,
+// every cs[k] and Cout a positive multiple of 8.
+//
+// Unpacked (packed_struct 0): wt is (n_q, 9, cpad, 64) bf16 and pw
+// (n_q, cpad, 64), with n_q the chunks of 64 channels over the operands
+// (each operand's channels zero-padded to whole chunks), cpad Cout rounded
+// up to 64 (zero rows) and each 128-byte row of 64 channels stored with its
+// 16-byte group j at j ^ (row mod 8); th, tw, bn, mt, stages and grid are
+// `conv_plan`'s tile, N tile, m64 tiles a warpgroup, ring depth and number
+// of (persistent) blocks.
+// `pipelined` is ignored.
+//
+// Packed (packed_struct 1): every cs[k] a multiple of 32; wt the combined
+// taps (Cout, 4, sum cs) with each 32-channel chunk in parity-class order
+// and pw (Cout, sum cs); the plan's fields are ignored.
+//
+// Launches on `stream` and returns cudaGetLastError().
+int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
+                               const void* a, const void* b, const void* wt,
+                               const void* bias, const void* residual,
+                               const void* pw, const void* pbias, void* y,
+                               void* proj, void* s1, void* s2, int B, int H,
+                               int W, int Cout, int apply_silu, int packed_struct,
+                               int pipelined, int th, int tw, int bn, int mt, int stages,
+                               int grid, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cout % 8 != 0 || n_ops < 1 ||
+      n_ops > MAX_OPS || (pw == nullptr) != (proj == nullptr) ||
+      (pw != nullptr && pbias == nullptr) || (a == nullptr) != (b == nullptr) ||
+      wt == nullptr || y == nullptr || (s1 == nullptr) != (s2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < n_ops; ++k)
+    if (cs[k] <= 0 || cs[k] % 8 != 0 || xs[k] == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (packed_struct)
+    return launch_struct(xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2, B,
+                         H, W, Cout, apply_silu, pipelined, s);
+  return launch_wgmma(xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2, B, H,
+                      W, Cout, apply_silu, th, tw, bn, mt, stages, grid, s);
+}
+
+// The unpacked kernel's dynamic shared memory for a plan, in bytes (the
+// host's `conv_plan` computes the same).
+size_t ml_mdm_conv3x3_smem_bytes(int bn, int th, int tw, int stages) {
+  return wg_smem_bytes(bn, th, tw, stages);
 }
 
 }  // extern "C"

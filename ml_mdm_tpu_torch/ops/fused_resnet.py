@@ -24,93 +24,245 @@ structural zeros, so the 9 taps collapse to 4 products over parity-selected
 neighbours (the JAX ``_struct_dots``); the result is the dense packed
 convolution's. Every operand's 4C is a multiple of 32 on the card.
 
-``pipelined`` (K2·pipe): the launch overlaps the next channel chunk's loads
-with this chunk's tensor-core products. The JAX package pipelines launches
-of at least 4 TPU row blocks; the port's rule is its own (``pipelines``):
-by default (``None``) a launch pipelines when ``perf().fused_pipelined`` is
-on (``ML_MDM_TPU_FUSED_PIPELINED``, default 1), its operands hold at least
-``PIPELINE_MIN_CHUNKS`` chunks of 32 channels and its grid has at least
-``PIPELINE_MIN_BLOCKS`` thread blocks; True asks for it wherever there are
-that many chunks, False never. The block threshold is the one that gave the
-least time summed over the 147 launch shapes of the sampling forwards and
-the ``train_1024`` step, each timed pipelined and serial on an H100
-(``chip_smoke.py``; PERF.md): below it the pipelined launch was
-2-15% slower summed, above it 1-5% faster. An unpacked 32-channel launch
-is one chunk and runs serially. The result is the serial kernel's.
+``pipelined`` (K2·pipe, packed launches only): the launch overlaps the
+next channel chunk's loads with this chunk's tensor-core products. The JAX
+package pipelines launches of at least 4 TPU row blocks; the port's rule
+is its own (``pipelines``): by default (``None``) a packed launch pipelines
+when ``perf().fused_pipelined`` is on (``ML_MDM_TPU_FUSED_PIPELINED``,
+default 1), its operands hold at least ``PIPELINE_MIN_CHUNKS`` chunks of 32
+channels and its grid has at least ``PIPELINE_MIN_BLOCKS`` thread blocks;
+True asks for it wherever there are that many chunks, False never. The
+block threshold is the one that gave the least time summed over the packed
+and unpacked launch shapes of the sampling forwards and the ``train_1024``
+step, each timed pipelined and serial on an H100 with the earlier unpacked
+kernel (``chip_smoke.py``; PERF.md). The result is the serial kernel's. An
+unpacked launch ignores ``pipelined``: its kernel always loads the next
+chunk under this one's products.
 
-The CUDA kernel is ``csrc/fused_resnet.cu`` (its header says what bounds
-it on the H100 and how it is laid out). It is built with ``nvcc`` for
+Two CUDA kernels in ``csrc/fused_resnet.cu`` (its header says what bounds
+them on the H100 and how they are laid out): every unpacked launch runs
+the implicit-GEMM kernel on ``wgmma``, whose tile, N tile, ring depth and
+grid ``conv_plan`` chooses and whose weights ``conv_weight_layout`` lays
+out (``K2Weights`` keeps that layout across calls); packed launches run
+the ``mma.sync`` kernel of K2·struct. They are built with ``nvcc`` for
 ``sm_90a`` at first use into ``ml_mdm_tpu_torch/_build/`` and loaded with
-ctypes. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.
+ctypes. A CPU tensor takes the plain version; a CUDA tensor launches a
+kernel or raises. Without a and b (``conv3x3_fast``) the prologue is the
+identity.
 
 ``affine_silu_conv3x3_vjp`` (kernel K3, replacing the JAX package's
 ``custom_vjp`` of the same name) is the differentiable single-operand
 form for training. Its forward is K2. Its backward follows the JAX
-``_vjp_bwd``: the data gradient is again a 3x3 stride-1 convolution, of
-dy with the flipped, io-transposed weights, and runs through K2 (K2·struct
-for a packed kernel, whose flip and io-transpose keep the zero pattern);
-the derivative chain (SiLU', the affine, the (B, C) reductions) is f32
-plain PyTorch, and the weight gradient is the library's conv
-weight-gradient or, packed, ``struct_wgrad``'s four products, as the JAX
-package leaves both to XLA. It stashes only x, a, b, w and, with
-``emit_stats``, y: the SiLU input is recomputed from x. The backward and its
-two convolutions are named profiler ranges ("K3 backward", "K3 dx (K2)",
-"K3 dw (library)"), so a trace can split the backward's device time; a
-range costs a few microseconds of host time with the profiler off.
+``_vjp_bwd`` (with ``vjp_chain_bf16_min_side`` at its default 0: the chain
+in f32): with ``emit_stats`` pass A folds the stats' cotangents into dy
+(``ops/k3_passes.py``); the data gradient is a 3x3 stride-1 convolution of
+dy with the flipped, io-transposed weights through K2's identity prologue
+(K2·struct for a packed kernel, whose flip and io-transpose keep the zero
+pattern); pass B runs the derivative chain (SiLU', the affine, the (B, C)
+sums) in one pass over x and that convolution; the weight gradient is the
+library's conv weight-gradient of pass B's bf16 activation or, packed,
+``struct_wgrad``'s four products, as the JAX package leaves both to XLA. It
+stashes only x, a, b, w and, with ``emit_stats``, y: the SiLU input is
+recomputed from x. The backward, its passes and its two convolutions are
+named profiler ranges ("K3 backward", "K3 pass A (fold)", "K3 dx (K2)",
+"K3 pass B (chain)", "K3 dw (library)"), so a trace can split the
+backward's device time; a range costs a few microseconds of host time with
+the profiler off.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ml_mdm_tpu_torch.ops import cuda_build
+from ml_mdm_tpu_torch.ops import cuda_build, k3_passes
 from ml_mdm_tpu_torch.perf import perf
 
-# launches of the CUDA kernel since the counts were last set to 0: "K2"
+# launches of the CUDA kernels since the counts were last set to 0: "K2"
 # counts every launch, "K2·N" those with more than one operand, "K2·proj"
 # those that also emit the shortcut, "K2·struct" the packed ones, "K2·pipe"
-# the pipelined ones and "K3" those of K3's backward (the data gradient)
+# the pipelined (packed) ones and "K3" those of K3's backward (the data
+# gradient)
 launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0, "K2·struct": 0, "K2·pipe": 0, "K3": 0}
 MAX_OPERANDS = 4
-CHUNK = 32  # input channels per reduction chunk of the kernel
+CHUNK = 32  # input channels per reduction chunk of the packed kernel
 PIPELINE_MIN_CHUNKS = 2
 PIPELINE_MIN_BLOCKS = 4096
-BM, BN = 128, 64  # output pixels and channels of one thread block
+BM, BN = 128, 64  # output pixels and channels of one thread block of the packed kernel
+
+# the unpacked (wgmma) kernel: chunks of 64 channels (one 128-byte row of
+# the 128-byte swizzle), (N tile, m64 tiles a warpgroup) in the order the
+# plan tries them, the ring's deepest, a block's shared-memory limit
+WG_CHUNK = 64
+CANDIDATES = ((128, 2), (256, 1), (128, 1), (64, 2), (64, 1))
+MAX_STAGES = 8
+SMEM_LIMIT = 232448
+H100_SMS = 132
 
 
 def reset_launch_counts() -> None:
     for mode in launch_counts:
         launch_counts[mode] = 0
+    k3_passes.reset_launch_counts()
 
 
 def _as_tuple(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v,)
 
 
+class K2Weights:
+    """One launch's weights, one tensor per operand: the (3, 3, C_k, Cout)
+    kernels of the 3x3 convolution or the (C_k, Cout) matrices of the
+    shortcut, with the unpacked kernel's layout of them
+    (``conv_weight_layout``) made at the first launch that needs it and
+    kept. Pass it as ``w`` or ``proj_kernel`` to keep the layout across
+    calls: sampling keeps one per module (``models/layers.py``
+    ``cached_weights``). The plain version and the packed kernel read
+    ``tensors``."""
+
+    def __init__(self, tensors):
+        self.tensors = _as_tuple(tensors)
+        self._layout = None
+
+    def layout(self, device) -> torch.Tensor:
+        if self._layout is None or self._layout.device != device:
+            self._layout = conv_weight_layout(tuple(t.to(device) for t in self.tensors))
+        return self._layout
+
+
+def _kernels(w):
+    """The per-operand weight tensors of ``w``: a tensor, a tuple of them or
+    a ``K2Weights``."""
+    return w.tensors if isinstance(w, K2Weights) else _as_tuple(w)
+
+
 def grid_blocks(bsz: int, h: int, w: int, cout: int) -> int:
-    """Thread blocks of a launch: one per tile of TH x TW output pixels
-    (TW = min(W, 32), TH = BM / TW) and 64 output channels."""
+    """Thread blocks of a packed launch: one per tile of TH x TW output
+    pixels (TW = min(W, 32), TH = BM / TW) and 64 output channels."""
     tw = min(w, 32)
     th = BM // tw
     return bsz * -(-h // th) * -(-w // tw) * -(-cout // BN)
 
 
-def pipelines(cs, bsz: int, h: int, w: int, cout: int, pipelined=None) -> bool:
+def pipelines(cs, bsz: int, h: int, w: int, cout: int, pipelined=None,
+              packed_struct: bool = False) -> bool:
     """Whether a launch over operands of ``cs`` channels and a (bsz, h, w,
-    cout) output runs K2·pipe: at least PIPELINE_MIN_CHUNKS chunks of 32
-    channels, and ``pipelined``, or for None the ``fused_pipelined`` gate
-    and at least PIPELINE_MIN_BLOCKS thread blocks."""
-    if sum(-(-c // CHUNK) for c in cs) < PIPELINE_MIN_CHUNKS:
+    cout) output runs K2·pipe: a packed launch of at least
+    PIPELINE_MIN_CHUNKS chunks of 32 channels, and ``pipelined``, or for
+    None the ``fused_pipelined`` gate and at least PIPELINE_MIN_BLOCKS
+    thread blocks. Never an unpacked launch."""
+    if not packed_struct or sum(-(-c // CHUNK) for c in cs) < PIPELINE_MIN_CHUNKS:
         return False
     if pipelined is not None:
         return bool(pipelined)
     return perf().fused_pipelined and grid_blocks(bsz, h, w, cout) >= PIPELINE_MIN_BLOCKS
+
+
+# -- the unpacked kernel's plan and weight layout ---------------------------
+
+
+class ConvPlan(NamedTuple):
+    """One unpacked launch: a block owns a tile of ``th`` x ``tw`` output
+    pixels (at most 128 ``mt``: two warpgroups of ``mt`` m64 tiles) by
+    ``bn`` output channels; the weights come through a ring of ``stages``
+    slots of one tap's (bn x 64) slice; ``smem`` dynamic shared-memory
+    bytes; ``grid`` blocks, ``persistent``: each walks the output tiles
+    (pixel tile, N tile) block, block + grid, ...; ``l2_bytes`` what the
+    launch reads from L2: per output tile its weight slices and, per chunk
+    of 64 channels, its raw tile and halo."""
+    th: int
+    tw: int
+    bn: int
+    mt: int
+    stages: int
+    smem: int
+    grid: int
+    persistent: bool
+    l2_bytes: int
+
+
+def smem_bytes(bn: int, th: int, tw: int, stages: int) -> int:
+    """Dynamic shared memory of an unpacked launch (``csrc/fused_resnet.cu``
+    ``wg_smem_bytes``): the ring, two activated tiles and the raw tile (128
+    bytes a staged pixel), the ring's barriers, two chunks' coefficients a
+    and b, the stats and 1024 bytes of alignment slack."""
+    return (1024 + stages * bn * 128 + 3 * (th + 2) * (tw + 2) * 128 + 16 * stages + 1024
+            + 8 * bn)
+
+
+def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
+              proj: bool = False) -> ConvPlan:
+    """The plan of one unpacked launch over operands of ``cs`` channels
+    (an int or a tuple) and a (bsz, h, w, cout) output. The tile is TW =
+    min(W, 32) columns by TH = min(128 mt / TW, H, 32) rows. The (N tile,
+    m64 tiles) pairs are tried in CANDIDATES' order, skipping an N tile
+    wider than Cout rounded up to 64 and mt = 2 where the tile would not
+    fill the second pair of m64 tiles. The first with at least ``sms``
+    output tiles is taken (M = 256 pixels and N = 128 first: at the 64px
+    shapes this halves the weight traffic from L2 against M = 128 at
+    N = 256); else the one with the most output tiles (a smaller N before a
+    smaller M, so that a launch of few pixels, such as the 64px CFG
+    request's 16 rows at 16^2 x 768, still spreads over the SMs). The grid
+    is one persistent block an SM, or one a tile where there are fewer
+    tiles. The ring takes as many slots, up to MAX_STAGES, as fit beside
+    the tiles in SMEM_LIMIT."""
+    cs = tuple(int(c) for c in _as_tuple(cs))
+    n_q = sum(-(-c // WG_CHUNK) for c in cs)
+    cpad = -(-cout // 64) * 64
+    best = None
+    for bn, mt in CANDIDATES:
+        if bn > max(64, cpad):
+            continue
+        tw = min(w, 32)
+        th = max(1, min(128 * mt // tw, h, 32))
+        if mt > 1 and th * tw <= 128 * (mt - 1):
+            continue
+        stages = min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(bn, th, tw, 0)) // (bn * 128 + 16))
+        if stages < 2:
+            continue
+        tiles = bsz * -(-h // th) * -(-w // tw)
+        work = tiles * -(-cout // bn)  # output tiles
+        l2 = (tiles * n_q * (9 + proj) * cpad * 128
+              + work * n_q * (1 + proj) * (th + 2) * (tw + 2) * 128)
+        plan = ConvPlan(th, tw, bn, mt, stages, smem_bytes(bn, th, tw, stages), min(work, sms),
+                        True, l2)
+        if work >= sms:
+            return plan
+        if best is None or work > best.grid:
+            best = plan
+    return best
+
+
+def conv_weight_layout(ws) -> torch.Tensor:
+    """The unpacked kernel's weights: ``ws`` one tensor per operand, the
+    (3, 3, C_k, Cout) kernels of the convolution or the (C_k, Cout)
+    matrices of the shortcut (one tap). Returns (n_q, taps, cpad, 64) bf16:
+    chunk q of 64 input channels over the operands (each operand's
+    channels zero-padded to whole chunks), tap ky*3 + kx, output channel n
+    (Cout zero-padded to cpad, a multiple of 64), and the chunk's 64
+    channels of row n stored as 8 groups of 8 with group j at position
+    j ^ (n mod 8): the 128-byte swizzle in which ``wgmma`` reads a K-major
+    B operand by descriptor. Each (q, tap) slice is contiguous, and so is
+    any run of its rows, so a block's slice comes in by one bulk copy."""
+    ws = tuple(t if t.dim() == 4 else t[None, None] for t in ws)
+    cout = ws[0].shape[-1]
+    cpad = -(-cout // 64) * 64
+    blocks = []
+    for wk in ws:
+        kh, kw, c, _ = wk.shape
+        cp = -(-c // WG_CHUNK) * WG_CHUNK
+        wk = F.pad(wk.to(torch.bfloat16).reshape(kh * kw, c, cout), (0, cpad - cout, 0, cp - c))
+        blocks.append(wk.reshape(kh * kw, cp // WG_CHUNK, WG_CHUNK, cpad))
+    wt = torch.cat(blocks, dim=1).permute(1, 0, 3, 2)  # (n_q, taps, cpad, 64)
+    wt = wt.reshape(*wt.shape[:3], 8, 8)
+    n = torch.arange(cpad, device=wt.device)
+    group = torch.arange(8, device=wt.device)[None, :] ^ (n[:, None] % 8)
+    return wt[:, :, n[:, None], group].reshape(*wt.shape[:3], WG_CHUNK).contiguous()
 
 
 # -- K2·struct's pieces (``_struct_weights``, ``_struct_dots``, ``_struct_wgrad``) --
@@ -182,11 +334,12 @@ def affine_silu_conv3x3_plain(x, a, b, w, bias, residual=None, *,
     """Plain PyTorch version (``reference_affine_silu_conv3x3`` of the JAX
     package, plus the stats and shortcut outputs and the packed mode). x:
     (B, H, W, C) or a tuple of (B, H, W, C_k); a, b: (B, C) or tuples of
-    (B, C_k); w: (3, 3, C, Cout) HWIO or a tuple of (3, 3, C_k, Cout) (with
-    ``packed_struct`` also the combined (2, 2, C_k, Cout) form); bias:
-    (Cout,) or None; residual: (B, H, W, Cout); proj_kernel: (C, Cout2) or a
-    tuple of (C_k, Cout2); proj_bias: (Cout2,) or None. ``pipelined``
-    changes nothing here.
+    (B, C_k), or both None for the identity prologue; w: (3, 3, C, Cout)
+    HWIO or a tuple of (3, 3, C_k, Cout) (with ``packed_struct`` also the
+    combined (2, 2, C_k, Cout) form), or a ``K2Weights``; bias: (Cout,) or
+    None; residual: (B, H, W, Cout); proj_kernel: (C, Cout2), a tuple of
+    (C_k, Cout2) or a ``K2Weights``; proj_bias: (Cout2,) or None.
+    ``pipelined`` changes nothing here.
 
     The activation is rounded to x's dtype, the weights are cast to it,
     products accumulate in f32 and bias and residual are added in f32
@@ -194,10 +347,14 @@ def affine_silu_conv3x3_plain(x, a, b, w, bias, residual=None, *,
     are the 4 combined taps over ``_struct_buffers``. The stats square the
     stored output in f32. The shortcut multiplies the raw operands and P,
     both in x's dtype, in f32, adds pb in f32 and rounds once."""
-    xs, a_s, b_s, ws = (_as_tuple(v) for v in (x, a, b, w))
+    xs, ws = _as_tuple(x), _kernels(w)
+    a_s, b_s = (_as_tuple(a), _as_tuple(b)) if a is not None else ((None,) * len(xs),) * 2
     dt = xs[0].dtype
     acts = []
     for xk, ak, bk in zip(xs, a_s, b_s):
+        if ak is None:
+            acts.append(xk)
+            continue
         v = xk.float() * ak.float()[:, None, None, :] + bk.float()[:, None, None, :]
         if apply_silu:
             v = F.silu(v)
@@ -221,7 +378,7 @@ def affine_silu_conv3x3_plain(x, a, b, w, bias, residual=None, *,
         outs += [yf.sum(dim=(1, 2)), yf.square().sum(dim=(1, 2))]
     if proj_kernel is not None:
         raw = torch.cat([xk.to(dt) for xk in xs], dim=-1).float()
-        pk = torch.cat([p.to(dt) for p in _as_tuple(proj_kernel)], dim=0).float()
+        pk = torch.cat([p.to(dt) for p in _kernels(proj_kernel)], dim=0).float()
         p = raw @ pk
         if proj_bias is not None:
             p = p + proj_bias.float()
@@ -235,7 +392,8 @@ def affine_silu_conv3x3(x, a, b, w, bias, residual=None, *,
                         pipelined=None, packed_struct: bool = False):
     """Same contract as ``affine_silu_conv3x3_plain``. Returns y, or the
     tuple of y, (s1, s2) with ``emit_stats`` and proj with
-    ``proj_kernel``."""
+    ``proj_kernel``. ``pipelined`` concerns packed launches only (see the
+    module's docstring)."""
     kw = dict(apply_silu=apply_silu, emit_stats=emit_stats, proj_kernel=proj_kernel,
               proj_bias=proj_bias, pipelined=pipelined, packed_struct=packed_struct)
     if _as_tuple(x)[0].device.type == "cpu":
@@ -244,21 +402,18 @@ def affine_silu_conv3x3(x, a, b, w, bias, residual=None, *,
 
 
 def conv3x3_fast(x, w, bias, residual=None, packed_struct: bool = False):
-    """3x3 stride-1 convolution with padding 1 (no affine, no SiLU)
-    through the same kernel (``conv3x3_fast`` of the JAX package). Packed,
-    a channel count that is not a multiple of 32 (the packed image's 12) is
-    padded with zero channels, and the kernel with zero rows: the same
-    convolution in whole chunks."""
+    """3x3 stride-1 convolution with padding 1 (no affine, no SiLU: K2's
+    identity prologue, which reads no coefficients) through the same
+    kernels (``conv3x3_fast`` of the JAX package). Packed, a channel count
+    that is not a multiple of 32 (the packed image's 12) is padded with
+    zero channels, and the kernel with zero rows: the same convolution in
+    whole chunks."""
     c = x.shape[-1]
     if packed_struct and c % CHUNK:
         pad = CHUNK - c % CHUNK
-        x, w, c = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad)), c + pad
-    ones = torch.ones((x.shape[0], c), device=x.device, dtype=torch.float32)
-    zeros = torch.zeros_like(ones)
-    if bias is None:
-        bias = torch.zeros((w.shape[-1],), device=x.device, dtype=torch.float32)
-    return affine_silu_conv3x3(x, ones, zeros, w, bias, residual,
-                               apply_silu=False, packed_struct=packed_struct)
+        x, w = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
+    return affine_silu_conv3x3(x, None, None, w, bias, residual, apply_silu=False,
+                               packed_struct=packed_struct)
 
 
 class _AffineSiluConv3x3(torch.autograd.Function):
@@ -281,35 +436,30 @@ class _AffineSiluConv3x3(torch.autograd.Function):
             if dy is None:
                 dy = x.new_zeros(x.shape[:3] + (cout,))
             if ds1 is not None or ds2 is not None:
-                d = dy.float()
-                if ds1 is not None:
-                    d = d + ds1[:, None, None, :]
-                if ds2 is not None:
-                    d = d + 2.0 * y.float() * ds2[:, None, None, :]
-                dy = d.to(dy.dtype)
-            a_c, b_c = a.float()[:, None, None, :], b.float()[:, None, None, :]
-            v = x.float() * a_c + b_c
-            sig = torch.sigmoid(v)
-            s_store = v * sig
-            dact = sig * (1.0 + v * (1.0 - sig))
+                # dy' = dy + ds1 + 2 y ds2 in f32, rounded to dy's dtype, and
+                # its per-channel sums for dbias in the same pass
+                with record_function("K3 pass A (fold)"):
+                    dy, dbias = k3_passes.fold(dy, y, ds1, ds2)
+            else:
+                dbias = dy.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
             # data gradient: the 3x3 conv of dy with the flipped, io-transposed
-            # weights, through K2 (the plain version for a CPU tensor)
+            # weights, through K2's identity prologue (the plain version for a
+            # CPU tensor)
             with record_function("K3 dx (K2)"):
                 ds = conv3x3_fast(dy, w.flip(0, 1).transpose(2, 3), None,
                                   packed_struct=ctx.packed_struct)
                 if dy.is_cuda:
                     launch_counts["K3"] += 1
-            dv = ds.float() * dact
-            dx = (dv * a_c).to(x.dtype)
-            da = (dv * x.float()).sum(dim=(1, 2)).to(a.dtype)
-            db = dv.sum(dim=(1, 2)).to(b.dtype)
-            dbias = dy.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
+            # the chain in f32: v = x a + b, dv = ds SiLU'(v), dx = dv a, the
+            # activation s = SiLU(v) for the weight gradient, the (B, C) sums
+            with record_function("K3 pass B (chain)"):
+                dx, s_x, da, db = k3_passes.chain(x, ds, a, b)
             # weight gradient: the library's conv weight-gradient of the
             # stored activation against dy, in x's dtype (f32 accumulation
             # inside), or packed the 4 products of the combined taps, kept
             # in f32 (as the JAX package's two branches)
             with record_function("K3 dw (library)"):
-                s_x, dy_x = s_store.to(x.dtype), dy.to(x.dtype)
+                dy_x = dy.to(x.dtype)
                 if ctx.packed_struct:
                     dw = struct_wgrad(s_x, dy_x).to(w.dtype)
                 else:
@@ -318,7 +468,8 @@ class _AffineSiluConv3x3(torch.autograd.Function):
                         dy_x.permute(0, 3, 1, 2), padding=1,
                     ).permute(2, 3, 1, 0).to(w.dtype)
             dres = dy if ctx.has_res else None
-            return dx, da, db, dw, dbias, dres, None, None
+            return (dx, da.to(a.dtype), db.to(b.dtype), dw, dbias if ctx.has_bias else None,
+                    dres, None, None)
 
 
 def affine_silu_conv3x3_vjp(x, a, b, w, bias, residual=None, *,
@@ -336,19 +487,31 @@ def affine_silu_conv3x3_vjp(x, a, b, w, bias, residual=None, *,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous, at a 16-byte aligned address (the kernel loads 8 bf16
+    """t contiguous, at a 16-byte aligned address (the kernels load 8 bf16
     at a time)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_plan = functools.lru_cache(maxsize=4096)(conv_plan)
+
+
 def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, proj_bias,
             pipelined, packed_struct):
-    xs, a_s, b_s, ws = (_as_tuple(v) for v in (x, a, b, w))
+    xs, ws = _as_tuple(x), _kernels(w)
     x0 = xs[0]
     if not x0.is_cuda:
         raise RuntimeError(f"affine_silu_conv3x3: no kernel for device {x0.device}")
     n = len(xs)
+    if (a is None) != (b is None):
+        raise ValueError("affine_silu_conv3x3: a and b are given together or not at all")
+    identity = a is None
+    a_s, b_s = ((None,) * n,) * 2 if identity else (_as_tuple(a), _as_tuple(b))
     if not 1 <= n <= MAX_OPERANDS or not len(a_s) == len(b_s) == len(ws) == n:
         raise ValueError(
             f"affine_silu_conv3x3: {n} operands with {len(a_s)}/{len(b_s)}/"
@@ -379,42 +542,51 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
             )
         cs.append(c)
     ctot = sum(cs)
-    pipe = pipelines(cs, bsz, h, wd, cout, pipelined)
+    pipe = pipelines(cs, bsz, h, wd, cout, pipelined, packed_struct)
     dev = x0.device
     xs = [_aligned(xk) for xk in xs]
-    a = torch.cat([ak.to(dev, torch.float32).reshape(bsz, c)
-                   for ak, c in zip(a_s, cs)], dim=1).contiguous()
-    b = torch.cat([bk.to(dev, torch.float32).reshape(bsz, c)
-                   for bk, c in zip(b_s, cs)], dim=1).contiguous()
-    # (kh, kh, C, Cout) per operand -> (Cout, taps, sum C): each output
-    # channel's taps x channels of the concatenation; packed, each chunk of
-    # 32 channels in the kernel's parity-class order (channel i*4 + code at
-    # code*8 + i)
-    wt = torch.cat([wk.to(dev, torch.bfloat16) for wk in ws], dim=2)
-    wt = wt.permute(3, 0, 1, 2).reshape(cout, kh * kh, ctot)
+    if identity:
+        a = b = None
+    else:
+        a = torch.cat([ak.to(dev, torch.float32).reshape(bsz, c)
+                       for ak, c in zip(a_s, cs)], dim=1).contiguous()
+        b = torch.cat([bk.to(dev, torch.float32).reshape(bsz, c)
+                       for bk, c in zip(b_s, cs)], dim=1).contiguous()
+    pks = None if proj_kernel is None else _kernels(proj_kernel)
+    if pks is not None and (len(pks) != n or any(tuple(p.shape) != (c, cout)
+                                                  for p, c in zip(pks, cs))):
+        raise ValueError(
+            f"affine_silu_conv3x3: the kernel's shortcut takes one (C_k, {cout}) "
+            f"matrix per operand, got {[tuple(p.shape) for p in pks]}"
+        )
+    plan = (0,) * 6
     if packed_struct:
-        wt = wt.reshape(cout, 4, ctot // CHUNK, CHUNK // 4, 4).transpose(-1, -2)
-    wt = wt.reshape(cout, kh * kh * ctot).contiguous()
-    if bias is None:
-        bias = torch.zeros((cout,), device=dev)
-    bias = bias.to(dev, torch.float32).contiguous()
+        # (2, 2, C, Cout) per operand -> (Cout, 4, sum C), each chunk of 32
+        # channels in the kernel's parity-class order (channel i*4 + code at
+        # code*8 + i)
+        wt = torch.cat([wk.to(dev, torch.bfloat16) for wk in ws], dim=2)
+        wt = wt.permute(3, 0, 1, 2).reshape(cout, 4, ctot // CHUNK, CHUNK // 4, 4)
+        wt = wt.transpose(-1, -2).reshape(cout, 4 * ctot).contiguous()
+        pw = (None if pks is None
+              else torch.cat([p.to(dev, torch.bfloat16) for p in pks], dim=0).t().contiguous())
+    else:
+        p = _plan(bsz, h, wd, tuple(cs), cout, _sm_count(dev.index), pks is not None)
+        plan = (p.th, p.tw, p.bn, p.mt, p.stages, p.grid)
+        wt = w.layout(dev) if isinstance(w, K2Weights) else conv_weight_layout(ws)
+        pw = (None if pks is None else proj_kernel.layout(dev)
+              if isinstance(proj_kernel, K2Weights) else conv_weight_layout(pks))
+    if bias is not None:
+        bias = bias.to(dev, torch.float32).contiguous()
     if residual is not None:
         if residual.shape != (bsz, h, wd, cout) or residual.dtype != x0.dtype:
             raise ValueError("affine_silu_conv3x3: residual must match y")
         residual = _aligned(residual)
     y = torch.empty((bsz, h, wd, cout), device=dev, dtype=x0.dtype)
-    s1 = s2 = pw = pb = proj = None
+    s1 = s2 = pb = proj = None
     if emit_stats:
-        s1 = torch.zeros((bsz, cout), device=dev, dtype=torch.float32)
-        s2 = torch.zeros_like(s1)
-    if proj_kernel is not None:
-        pks = _as_tuple(proj_kernel)
-        if len(pks) != n or any(tuple(p.shape) != (c, cout) for p, c in zip(pks, cs)):
-            raise ValueError(
-                f"affine_silu_conv3x3: the kernel's shortcut takes one (C_k, {cout}) "
-                f"matrix per operand, got {[tuple(p.shape) for p in pks]}"
-            )
-        pw = torch.cat([p.to(dev, torch.bfloat16) for p in pks], dim=0).t().contiguous()
+        s1 = torch.zeros((2, bsz, cout), device=dev, dtype=torch.float32)
+        s1, s2 = s1[0], s1[1]
+    if pks is not None:
         pb = (torch.zeros((cout,), device=dev) if proj_bias is None
               else proj_bias.to(dev, torch.float32).contiguous())
         proj = torch.empty_like(y)
@@ -428,14 +600,14 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
         err = lib.ml_mdm_affine_silu_conv3x3(
             x_ptrs, c_arr, n, ptr(a), ptr(b), ptr(wt), ptr(bias), ptr(residual),
             ptr(pw), ptr(pb), ptr(y), ptr(proj), ptr(s1), ptr(s2),
-            bsz, h, wd, cout, int(apply_silu), int(packed_struct), int(pipe),
+            bsz, h, wd, cout, int(apply_silu), int(packed_struct), int(pipe), *plan,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
     if err != 0:
         raise RuntimeError(
             f"affine_silu_conv3x3: CUDA error {err} at launch "
             f"(operands {[tuple(xk.shape) for xk in xs]}, Cout {cout}, "
-            f"packed_struct {packed_struct}, pipelined {pipe})"
+            f"packed_struct {packed_struct}, pipelined {pipe}, plan {plan})"
         )
     launch_counts["K2"] += 1
     for mode, on in (("K2·N", n > 1), ("K2·proj", proj is not None),
@@ -462,7 +634,10 @@ def load_library() -> ctypes.CDLL:
     fn = lib.ml_mdm_affine_silu_conv3x3
     fn.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    smem = lib.ml_mdm_conv3x3_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_size_t
     return lib

@@ -1,0 +1,302 @@
+"""Time kernels K2 and K3 alone on the card, at the shapes the model gives
+them, and one 64px forward and one ``train_256`` step around them.
+
+    python -m ml_mdm_tpu_torch.tools.bench_k2_k3
+
+K2 (``ops/fused_resnet.py`` ``affine_silu_conv3x3``; ``conv3x3_fast`` for
+the launches without the SiLU) at the 64px model's 15 launch shapes of a
+batch-64 forward and at the 49 unpacked launch shapes of the nested
+forwards (256px at 8 rows, 1024px at 4), beside the library's (affine and
+SiLU, ``torch.cat``, cuDNN's bf16 convolution, the residual, the stats, the
+1x1 shortcut) and the bound; K3 (``affine_silu_conv3x3_vjp``'s backward) at
+the 29 launch shapes of a ``train_256`` step (batch 16), beside the library
+backward (the same chain around cuDNN's dgrad and wgrad); then one batch-64
+forward of ``cc12m_64x64`` (CUDA events, and the host's time to enqueue
+it) and a ``train_256`` step (mean of 3 after one untimed, host clock).
+The shapes were recorded from the models as ``chip_smoke.py`` records
+them. Each time is the median of 5 runs from CUDA events, the 50 MB L2
+overwritten and the device kept busy ~1 ms before each, so that the events
+time the device's work. Where the checkout has ``K2Weights``, K2 takes its
+weights in the layout the model keeps for sampling; elsewhere as the
+model hands them over. The bound is the larger of the bytes at 3.35 TB/s
+and the tensor-core FLOPs at 989 TFLOP/s (NVIDIA H100 SXM), a convolution's
+bytes each input read once and each output written once. Without a card it
+exits 1. It runs against whichever ``ml_mdm_tpu_torch`` is first on the
+path, so ``PYTHONPATH=<another checkout> python
+ml_mdm_tpu_torch/tools/bench_k2_k3.py`` times that checkout's kernels (an
+A/B in one call).
+"""
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+import time
+
+K2_64 = [  # (B, H, W, operand channels, Cout, residual, stats, shortcut, SiLU)
+    (64, 16, 16, (512,), 768, 0, 1, 1, 1), (64, 16, 16, (768,), 768, 0, 1, 0, 1),
+    (64, 16, 16, (768,), 768, 1, 0, 0, 1), (64, 16, 16, (768, 512), 768, 0, 1, 1, 1),
+    (64, 16, 16, (768, 768), 768, 0, 1, 1, 1), (64, 32, 32, (256,), 512, 0, 1, 1, 1),
+    (64, 32, 32, (512,), 512, 0, 1, 0, 1), (64, 32, 32, (512,), 512, 1, 0, 0, 1),
+    (64, 32, 32, (512, 256), 512, 0, 1, 1, 1), (64, 32, 32, (512, 512), 512, 0, 1, 1, 1),
+    (64, 32, 32, (768, 512), 512, 0, 1, 1, 1), (64, 64, 64, (256,), 256, 0, 1, 0, 1),
+    (64, 64, 64, (256,), 256, 1, 0, 0, 1), (64, 64, 64, (256, 256), 256, 0, 1, 1, 1),
+    (64, 64, 64, (512, 256), 256, 0, 1, 1, 1),
+]
+K2_NESTED = [  # the same, the nested forwards' unpacked launches
+    (8, 16, 16, (512,), 768, 0, 1, 1, 1), (8, 16, 16, (768,), 768, 0, 1, 0, 1),
+    (8, 16, 16, (768,), 768, 1, 0, 0, 1), (8, 16, 16, (768, 512), 768, 0, 1, 1, 1),
+    (8, 16, 16, (768, 768), 768, 0, 1, 1, 1), (8, 32, 32, (256,), 512, 0, 1, 1, 1),
+    (8, 32, 32, (512,), 512, 0, 1, 0, 1), (8, 32, 32, (512,), 512, 1, 0, 0, 1),
+    (8, 32, 32, (512, 256), 512, 0, 1, 1, 1), (8, 32, 32, (512, 512), 512, 0, 1, 1, 1),
+    (8, 32, 32, (768, 512), 512, 0, 1, 1, 1), (8, 64, 64, (128,), 256, 0, 1, 1, 1),
+    (8, 64, 64, (256,), 256, 0, 1, 0, 1), (8, 64, 64, (256,), 256, 1, 0, 0, 1),
+    (8, 64, 64, (256, 128), 256, 0, 1, 1, 1), (8, 64, 64, (256, 256), 256, 0, 1, 1, 1),
+    (8, 64, 64, (512, 256), 256, 0, 1, 1, 1), (8, 128, 128, (64,), 128, 0, 1, 1, 1),
+    (8, 128, 128, (128,), 128, 0, 1, 0, 1), (8, 128, 128, (128,), 128, 1, 0, 0, 1),
+    (8, 128, 128, (128,), 512, 0, 0, 0, 0), (8, 128, 128, (128, 64), 128, 0, 1, 1, 1),
+    (8, 128, 128, (128, 128), 128, 0, 1, 1, 1), (8, 128, 128, (256, 128), 128, 0, 1, 1, 1),
+    (4, 16, 16, (512,), 768, 0, 1, 1, 1), (4, 16, 16, (768,), 768, 0, 1, 0, 1),
+    (4, 16, 16, (768,), 768, 1, 0, 0, 1), (4, 16, 16, (768, 512), 768, 0, 1, 1, 1),
+    (4, 16, 16, (768, 768), 768, 0, 1, 1, 1), (4, 32, 32, (256,), 512, 0, 1, 1, 1),
+    (4, 32, 32, (512,), 512, 0, 1, 0, 1), (4, 32, 32, (512,), 512, 1, 0, 0, 1),
+    (4, 32, 32, (512, 256), 512, 0, 1, 1, 1), (4, 32, 32, (512, 512), 512, 0, 1, 1, 1),
+    (4, 32, 32, (768, 512), 512, 0, 1, 1, 1), (4, 64, 64, (128,), 256, 0, 1, 1, 1),
+    (4, 64, 64, (256,), 256, 0, 1, 0, 1), (4, 64, 64, (256,), 256, 1, 0, 0, 1),
+    (4, 64, 64, (256, 128), 256, 0, 1, 1, 1), (4, 64, 64, (256, 256), 256, 0, 1, 1, 1),
+    (4, 64, 64, (512, 256), 256, 0, 1, 1, 1), (4, 128, 128, (64,), 128, 0, 1, 1, 1),
+    (4, 128, 128, (128,), 128, 0, 1, 0, 1), (4, 128, 128, (128,), 128, 1, 0, 0, 1),
+    (4, 128, 128, (128, 64), 128, 0, 1, 1, 1), (4, 128, 128, (128, 128), 128, 0, 1, 1, 1),
+    (4, 128, 128, (256, 128), 128, 0, 1, 1, 1), (4, 256, 256, (64,), 256, 0, 0, 0, 0),
+    (4, 512, 512, (32,), 128, 0, 0, 0, 0),
+]
+K3_256 = [  # (B, H, W, C, Cout, residual, stats, packed)
+    (10, 64, 64, 128, 256, 0, 1, 0), (10, 64, 64, 256, 256, 1, 0, 0),
+    (10, 64, 64, 384, 256, 0, 1, 0), (10, 64, 64, 512, 256, 0, 1, 0),
+    (10, 128, 128, 64, 128, 0, 1, 0), (10, 128, 128, 128, 128, 0, 1, 0),
+    (10, 128, 128, 128, 128, 1, 0, 0), (10, 128, 128, 192, 128, 0, 1, 0),
+    (10, 128, 128, 256, 128, 0, 1, 0), (10, 128, 128, 256, 256, 0, 1, 1),
+    (10, 128, 128, 256, 256, 1, 0, 1), (10, 128, 128, 384, 128, 0, 1, 0),
+    (10, 128, 128, 512, 256, 0, 1, 1), (10, 128, 128, 768, 256, 0, 1, 1),
+    (16, 16, 16, 512, 768, 0, 1, 0), (16, 16, 16, 768, 768, 0, 1, 0),
+    (16, 16, 16, 768, 768, 1, 0, 0), (16, 16, 16, 1280, 768, 0, 1, 0),
+    (16, 16, 16, 1536, 768, 0, 1, 0), (16, 32, 32, 256, 512, 0, 1, 0),
+    (16, 32, 32, 512, 512, 0, 1, 0), (16, 32, 32, 512, 512, 1, 0, 0),
+    (16, 32, 32, 768, 512, 0, 1, 0), (16, 32, 32, 1024, 512, 0, 1, 0),
+    (16, 32, 32, 1280, 512, 0, 1, 0), (16, 64, 64, 256, 256, 0, 1, 0),
+    (16, 64, 64, 256, 256, 1, 0, 0), (16, 64, 64, 512, 256, 0, 1, 0),
+    (16, 64, 64, 768, 256, 0, 1, 0),
+]
+
+PEAK_BF16_TENSOR, PEAK_HBM = 989e12, 3.35e12
+
+
+def k2_bound(b, h, w, cs, cout, residual, stats, proj):
+    """Least ms of one K2 launch (``chip_smoke.py`` ``k2_bound``)."""
+    ct, px = sum(cs), b * h * w
+    flops = 2 * px * ct * cout * (9 + proj)
+    nbytes = (2 * px * ct + 2 * 4 * b * ct + 2 * 9 * ct * cout + 4 * cout
+              + 2 * px * cout * (1 + residual + proj) + (2 * 4 * b * cout if stats else 0)
+              + ((2 * ct + 4) * cout if proj else 0))
+    return 1e3 * max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM), flops
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+
+    from ml_mdm_tpu_torch import trainer
+    from ml_mdm_tpu_torch.ops import fused_resnet
+    from ml_mdm_tpu_torch.ops import space_to_depth as s2d
+    from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
+
+    if not torch.cuda.is_available():
+        print("bench_k2_k3: no CUDA device; the kernels run only on a GPU", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    print(f"ml_mdm_tpu_torch from {fused_resnet.__file__}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    keep = getattr(fused_resnet, "K2Weights", None)
+
+    def ms(fn, reps=5, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def k2_case(b, h, w, cs, cout, residual, stats, proj, silu):
+        ct = sum(cs)
+        xs = tuple(torch.randn((b, h, w, c), generator=g, device=dev).to(bf) for c in cs)
+        a = tuple(torch.randn((b, c), generator=g, device=dev) * 0.2 + 1.0 for c in cs)
+        bb = tuple(torch.randn((b, c), generator=g, device=dev) * 0.3 for c in cs)
+        ws = tuple((torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * ct) ** 0.5)
+                   .to(bf) for c in cs)
+        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+        res = torch.randn((b, h, w, cout), generator=g, device=dev).to(bf) if residual else None
+        pks = (tuple((torch.randn((c, cout), generator=g, device=dev) / ct ** 0.5).to(bf)
+                     for c in cs) if proj else None)
+        pb = torch.randn((cout,), generator=g, device=dev) * 0.1 if proj else None
+        wk = keep(ws) if keep else ws
+        pk = keep(pks) if keep and proj else pks
+        if not silu:
+            def kernel():
+                return fused_resnet.conv3x3_fast(xs[0], wk if keep else ws[0], bias, res)
+        else:
+            def kernel():
+                return fused_resnet.affine_silu_conv3x3(xs, a, bb, wk, bias, res,
+                                                        emit_stats=stats, proj_kernel=pk,
+                                                        proj_bias=pb)
+
+        def library():
+            v = (torch.cat(xs, dim=-1) if not silu else torch.cat(
+                [F.silu(x.float() * ak[:, None, None, :] + bk[:, None, None, :]).to(bf)
+                 for x, ak, bk in zip(xs, a, bb)], dim=-1)).permute(0, 3, 1, 2)
+            wt = torch.cat(ws, dim=2).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            y = F.conv2d(v, wt, bias.to(bf), padding=1)
+            if res is not None:
+                y = y + res.permute(0, 3, 1, 2)
+            out = [y]
+            if stats:
+                yf = y.float()
+                out += [yf.sum(dim=(2, 3)), yf.square().sum(dim=(2, 3))]
+            if proj:
+                pw = torch.cat(pks, dim=0).t()[:, :, None, None].contiguous(
+                    memory_format=torch.channels_last)
+                out.append(F.conv2d(torch.cat(xs, dim=-1).permute(0, 3, 1, 2), pw, pb.to(bf)))
+            return out
+
+        return kernel, library
+
+    for label, keys in (("the 64px forward's", K2_64),
+                        ("the nested forwards' unpacked", K2_NESTED)):
+        tot = dict.fromkeys(("kernel", "library", "bound", "flops"), 0.0)
+        for key in keys:
+            kernel, library = k2_case(*key)
+            t, lib = ms(kernel), ms(library)
+            bound, flops = k2_bound(*key[:8])
+            for k, v in (("kernel", t), ("library", lib), ("bound", bound), ("flops", flops)):
+                tot[k] += v
+            print(f"K2 {key}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, {bound / t:.3f} of the "
+                  f"bound), library {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+        rate, share = tot["flops"] / tot["kernel"] / 1e9, tot["bound"] / tot["kernel"]
+        print(f"K2 over {label} {len(keys)} shapes: {tot['kernel']:.4f} ms "
+              f"({rate:.1f} TFLOP/s, {share:.3f} of the bound), library {tot['library']:.4f} ms "
+              f"({tot['kernel'] / tot['library']:.3f}x), bound {tot['bound']:.4f} ms", flush=True)
+
+    tot = dict.fromkeys(("kernel", "library", "packed_kernel", "packed_library"), 0.0)
+    for key in K3_256:
+        b, h, w, c, cout, residual, stats, packed = key
+        m = 4 if packed else 1
+        ins = [torch.randn((b, h, w, c), generator=g, device=dev).to(bf),
+               torch.randn((b, c), generator=g, device=dev) * 0.2 + 1.0,
+               torch.randn((b, c), generator=g, device=dev) * 0.3,
+               torch.randn((3, 3, c // m, cout // m), generator=g, device=dev)
+               / (9 * c // m) ** 0.5,
+               torch.randn((cout,), generator=g, device=dev) * 0.1,
+               torch.randn((b, h, w, cout), generator=g, device=dev).to(bf) if residual else None]
+        cots = [torch.randn((b, h, w, cout), generator=g, device=dev).to(bf)]
+        if stats:
+            cots += [torch.randn((b, cout), generator=g, device=dev) * 1e-3,
+                     torch.randn((b, cout), generator=g, device=dev) * 1e-4]
+        leaves = [t.detach().requires_grad_(True) if t is not None else None for t in ins]
+        args = list(leaves)
+        if packed:
+            args[3] = s2d.pack_conv3x3_kernel(leaves[3])
+        out = fused_resnet.affine_silu_conv3x3_vjp(*args, emit_stats=stats, packed_struct=packed)
+        outs = out if stats else (out,)
+        targets = [t for t in leaves if t is not None]
+        w16 = (s2d.pack_conv3x3_kernel(ins[3]) if packed else ins[3]).to(bf)
+        y = outs[0].detach()
+
+        def library():
+            dy = cots[0]
+            if stats:
+                dy = (dy.float() + cots[1][:, None, None, :]
+                      + 2.0 * y.float() * cots[2][:, None, None, :]).to(dy.dtype)
+            a_c, b_c = ins[1][:, None, None, :], ins[2][:, None, None, :]
+            v = ins[0].float() * a_c + b_c
+            sig = torch.sigmoid(v)
+            dact = sig * (1.0 + v * (1.0 - sig))
+            w_oihw, dy_nchw = w16.permute(3, 2, 0, 1), dy.permute(0, 3, 1, 2)
+            ds = torch.nn.grad.conv2d_input(ins[0].permute(0, 3, 1, 2).shape, w_oihw, dy_nchw,
+                                            padding=1)
+            dv = ds.permute(0, 2, 3, 1).float() * dact
+            return ((dv * a_c).to(bf), (dv * ins[0].float()).sum(dim=(1, 2)), dv.sum(dim=(1, 2)),
+                    torch.nn.grad.conv2d_weight((v * sig).to(bf).permute(0, 3, 1, 2),
+                                                w_oihw.shape, dy_nchw, padding=1),
+                    dy.float().sum(dim=(0, 1, 2)))
+
+        t = ms(lambda: torch.autograd.grad(outs, targets, cots, retain_graph=True))
+        lib = ms(library)
+        tot["kernel"] += t
+        tot["library"] += lib
+        if packed:
+            tot["packed_kernel"] += t
+            tot["packed_library"] += lib
+        print(f"K3 {key}: backward {t:.4f} ms, library {lib:.4f} ms", flush=True)
+        del out, outs, leaves, args, targets
+    print(f"K3 over train_256's {len(K3_256)} shapes: backward {tot['kernel']:.4f} ms, library "
+          f"{tot['library']:.4f} ms ({tot['kernel'] / tot['library']:.3f}x); of it the "
+          f"{sum(k[-1] for k in K3_256)} packed shapes {tot['packed_kernel']:.4f} ms, library "
+          f"{tot['packed_library']:.4f} ms", flush=True)
+
+    pipe, lm_dim, side = flagship_64px(dev, seed=0)
+    x = pipe.get_noise(64, side, g)
+    tt = torch.full((64,), 500, device=dev)
+    lm = torch.randn((64, 32, lm_dim), generator=g, device=dev).to(bf)
+    mask = torch.ones((64, 32), device=dev, dtype=bf)
+    with torch.no_grad():
+        fwd_ms = ms(lambda: pipe.model(x, tt, lm, mask, {}), reps=3, warmup=1)
+        enqueue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.model(x, tt, lm, mask, {})
+            enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    print(f"64px batch-64 forward: {fwd_ms:.3f} ms (CUDA events, median of 3); the host enqueues "
+          f"it in {statistics.median(enqueue):.3f} ms (median of 3)", flush=True)
+    del pipe, x
+    torch.cuda.empty_cache()
+
+    pipe, lm_dim, side = nested_preset("cc12m_256x256", dev, seed=0, train=True)
+    state = trainer.TrainState.create(pipe.vision_module)
+    step = trainer.make_train_step(pipe, trainer.TrainerConfig(lr=5e-5, warmup_steps=10,
+                                                               gradient_clip_norm=2.0))
+    times = []
+    for i in range(4):
+        data = {"images": torch.rand((16, side, side, 3), generator=g, device=dev) * 2 - 1,
+                "lm_outputs": torch.randn((16, 32, lm_dim), generator=g, device=dev).to(bf),
+                "lm_mask": torch.ones((16, 32), device=dev, dtype=bf)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data, g)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    print(f"train_256 step (batch 16): {len(times) / sum(times):.4f} steps/s (mean of "
+          f"{len(times)} after one untimed, host clock); loss {metrics['loss']:.6f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

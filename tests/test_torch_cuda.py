@@ -10,28 +10,44 @@ Tolerances, bf16 (the working type): K1 sums <= 1e-5 * max|ref| (f32 sums in
 another order); K2 output, stats and shortcut, and K3's gradients against
 autograd of the plain version, <= 2e-2 * max|ref| (two bf16 ULPs: the
 kernel's SiLU uses the fast exponential and sums in another order, so a
-rounding can flip); the tiny U-Net and nested U-Net kernel paths against
-their plain paths <= 5e-2 * max|ref| (those flips, carried through ~20-40
-layers); one tiny nested training step, kernel path against plain path: loss
-within 1e-2 relative, gradient norm within 5e-2, cosine of the flattened
-gradients >= 0.99; K4 against its plain f32 version <= 2e-2 * max|ref| (the
-kernel rounds P to bf16 for the second product and the output once to bf16;
-the JAX package's own test of its kernel allows the same), and <= 1e-2
-against the f32 result before its rounding; K1's split sums bitwise equal
-from call to call. K2·struct and its backward: as K2 and K3. K2·pipe against
-the serial K2: y and the shortcut bitwise equal (the same activated values,
-the same chunk and tap order), the stats <= 1e-5 * max|ref| (f32 atomics in
-another order). ``struct_wgrad`` of bf16 operands on the card against the
-f32 products of the same values: <= 1e-5 * max|ref| (both f32 sums). The
-probes P1 and P2 (``ops/kernel_anatomy.py``) against their plain versions:
-<= 2e-2 * max|ref| (as K2); a double-buffered probe against its single
-buffer: bitwise equal; a zero-filled probe on the cells its fill reaches:
-within 2 bf16 ULPs of each cell + 5e-4 * max|ref|.
+rounding can flip); K3's passes against their plain versions: dy', dx and
+the activation <= 2e-2 * max|ref| (as K2: the fast exponential in the
+sigmoid), the f32 sums da, db and dbias <= 1e-4 * max|ref| (the same
+values summed in another order) and the same bits from call to call (the
+partials added in a fixed order); the tiny U-Net and nested U-Net kernel
+paths against their plain paths <= 5e-2 * max|ref| (those flips, carried
+through ~20-40 layers); one tiny nested training step, kernel path against
+plain path: loss within 1e-2 relative, gradient norm within 5e-2, cosine of
+the flattened gradients >= 0.99; K4 against its plain f32 version <= 2e-2 *
+max|ref| (the kernel rounds P to bf16 for the second product and the output
+once to bf16; the JAX package's own test of its kernel allows the same),
+and <= 1e-2 against the f32 result before its rounding; K1's split sums
+bitwise equal from call to call. K2·struct and its backward: as K2 and K3.
+K2·pipe against the serial packed K2: y and the shortcut bitwise equal (the
+same activated values, the same chunk and tap order), the stats <= 1e-5 *
+max|ref| (f32 atomics in another order); an unpacked launch asked to
+pipeline runs the one unpacked kernel, with the same y. ``struct_wgrad`` of
+bf16 operands on the card against the f32 products of the same values:
+<= 1e-5 * max|ref| (both f32 sums). The probes P1 and P2
+(``ops/kernel_anatomy.py``) against their plain versions: <= 2e-2 *
+max|ref| (as K2); a double-buffered probe against its single buffer:
+bitwise equal; a zero-filled probe on the cells its fill reaches: within 2
+bf16 ULPs of each cell + 5e-4 * max|ref|.
+
+The unpacked K2 (``conv3x3_wgmma_kernel``) is held at every border tap, at
+rows of 8 to 96 pixels and ragged heights, at channel counts that are
+multiples of 8 but not of 32, at a Cout that is no multiple of its N tile,
+in every mode (1-4 operands, the shortcut with and without the stats, the
+residual, SiLU off, the identity prologue), in each of its five (N tile,
+m64 tiles) instances, and at the 64px model's 15 launch shapes. These
+tests, with ``chip_smoke.py``'s runs, are also the check on the rare
+illegal memory access seen once in an early run (ROADMAP queue 3, item 2): a fault
+in a kernel makes the next synchronisation raise.
 """
 import pytest
 import torch
 
-from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
+from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, k3_passes, kernel_anatomy
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.presets import flagship_64px, nested_preset
 
@@ -183,6 +199,176 @@ def test_affine_silu_conv3x3_operands_and_shortcut(dev, h, w, cs, cout, proj, st
     assert after["K2·proj"] == before["K2·proj"] + proj
 
 
+# -- the unpacked K2 on wgmma ----------------------------------------------------
+
+# the 64px model's batch-64 forward: its 15 K2 launch shapes (B, H, W, operand
+# channels, Cout, residual, stats, shortcut)
+MAIN_PATH_64 = [
+    (64, 16, 16, (512,), 768, False, True, True),
+    (64, 16, 16, (768,), 768, False, True, False),
+    (64, 16, 16, (768,), 768, True, False, False),
+    (64, 16, 16, (768, 512), 768, False, True, True),
+    (64, 16, 16, (768, 768), 768, False, True, True),
+    (64, 32, 32, (256,), 512, False, True, True),
+    (64, 32, 32, (512,), 512, False, True, False),
+    (64, 32, 32, (512,), 512, True, False, False),
+    (64, 32, 32, (512, 256), 512, False, True, True),
+    (64, 32, 32, (512, 512), 512, False, True, True),
+    (64, 32, 32, (768, 512), 512, False, True, True),
+    (64, 64, 64, (256,), 256, False, True, False),
+    (64, 64, 64, (256,), 256, True, False, False),
+    (64, 64, 64, (256, 256), 256, False, True, True),
+    (64, 64, 64, (512, 256), 256, False, True, True),
+]
+
+
+def _check_conv(dev, b, h, w, cs, cout, residual, stats, proj, silu=True, identity=False,
+                seed=11):
+    xs, a_s, b_s, ws, bias, res, kw = _conv_inputs(dev, b, h, w, cs, cout, residual, proj, seed)
+    if identity:
+        a_s = b_s = None
+    before = dict(fused_resnet.launch_counts)
+    out = fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, ws, bias, res, emit_stats=stats,
+                                           apply_silu=silu, **kw)
+    torch.cuda.synchronize()
+    ref = fused_resnet.affine_silu_conv3x3_plain(xs, a_s, b_s, ws, bias, res, emit_stats=stats,
+                                                 apply_silu=silu, **kw)
+    out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    assert len(out) == len(ref) == 1 + 2 * stats + proj
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype and torch.isfinite(o).all()
+        assert _rel(o, r) <= 2e-2
+    after = fused_resnet.launch_counts
+    assert after["K2"] == before["K2"] + 1 and after["K2·pipe"] == before["K2·pipe"]
+    assert after["K2·struct"] == before["K2·struct"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(9))
+def test_wgmma_k2_every_border_tap(dev, tap):
+    """One tap's weights at a time (the others zero), over an image of two
+    ragged tile columns and rows: each shifted read at every border."""
+    xs, a_s, b_s, ws, bias, _, _ = _conv_inputs(dev, 2, 9, 40, (40,), 72, False, False, seed=tap)
+    mask = torch.zeros((3, 3, 1, 1), device=dev, dtype=ws[0].dtype)
+    mask.view(9)[tap] = 1
+    w = (ws[0] * mask,)
+    y = fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, w, bias)
+    torch.cuda.synchronize()
+    assert _rel(y, fused_resnet.affine_silu_conv3x3_plain(xs, a_s, b_s, w, bias)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 24, 32, 40, 64, 96])
+@pytest.mark.parametrize("h,cs,cout", [(5, (40,), 72), (13, (8, 24), 200)])
+def test_wgmma_k2_widths_and_ragged_heights(dev, h, w, cs, cout):
+    """Rows of 8-96 pixels, ragged heights, C a multiple of 8 but not of
+    32, Cout no multiple of the N tile; the shortcut and the stats."""
+    _check_conv(dev, 2, h, w, cs, cout, True, True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs,residual,stats,proj,silu,identity", [
+    ((64,), False, False, False, True, False),
+    ((64, 32), True, True, False, True, False),           # two operands, residual, stats
+    ((16, 24, 8), False, True, True, True, False),        # three operands, shortcut + stats
+    ((32, 32, 64, 8), True, False, True, True, False),    # four operands, shortcut alone
+    ((48,), True, True, False, False, False),             # SiLU off (affine only)
+    ((96,), False, False, False, False, True),            # the identity prologue
+    ((40, 40), True, False, False, False, True),          # identity, two operands
+])
+def test_wgmma_k2_modes(dev, cs, residual, stats, proj, silu, identity):
+    _check_conv(dev, 3, 12, 20, cs, 136, residual, stats, proj, silu, identity)
+
+
+def _forced_plan(bn, mt):
+    """conv_plan's tile rule at a chosen (N tile, m64 tiles), so that each
+    instance of the kernel runs whatever the shape."""
+    def plan(bsz, h, w, cs, cout, sms, proj):
+        tw = min(w, 32)
+        th = max(1, min(128 * mt // tw, h, 32))
+        stages = min(fused_resnet.MAX_STAGES, (fused_resnet.SMEM_LIMIT - fused_resnet.smem_bytes(
+            bn, th, tw, 0)) // (bn * 128 + 16))
+        return fused_resnet.ConvPlan(th, tw, bn, mt, stages,
+                                     fused_resnet.smem_bytes(bn, th, tw, stages), sms, True, 0)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,mt", fused_resnet.CANDIDATES)
+@pytest.mark.parametrize("h,w,cs,cout,proj", [
+    (16, 16, (256, 128), 320, True),    # a 320-wide Cout: the last N tile partial
+    (20, 36, (72,), 64, False),         # a 4-pixel tile column, two chunks of one operand
+])
+def test_wgmma_k2_every_instance(dev, monkeypatch, bn, mt, h, w, cs, cout, proj):
+    monkeypatch.setattr(fused_resnet, "_plan", _forced_plan(bn, mt))
+    _check_conv(dev, 2, h, w, cs, cout, True, True, proj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", MAIN_PATH_64, ids=str)
+def test_wgmma_k2_main_path_shapes(dev, key):
+    b, h, w, cs, cout, residual, stats, proj = key
+    _check_conv(dev, b, h, w, cs, cout, residual, stats, proj)
+
+
+@pytest.mark.cuda
+def test_conv_plan_shared_memory_matches_the_kernel(dev):
+    """The host's shared-memory formula is the kernel's, for every plan of
+    the 64px forward's shapes and a few ragged ones."""
+    lib = fused_resnet.load_library()
+    for key in MAIN_PATH_64 + [(2, 9, 40, (40,), 72, 0, 0, 0), (3, 7, 8, (8,), 200, 0, 0, 1)]:
+        b, h, w, cs, cout = key[:5]
+        p = fused_resnet.conv_plan(b, h, w, cs, cout, 132, bool(key[-1]))
+        assert lib.ml_mdm_conv3x3_smem_bytes(p.bn, p.th, p.tw, p.stages) == p.smem, key
+
+
+@pytest.mark.cuda
+def test_k2_weights_keep_their_layout_on_the_card(dev):
+    xs, a_s, b_s, ws, bias, _, kw = _conv_inputs(dev, 2, 16, 16, (64, 32), 64, False, True)
+    kept = fused_resnet.K2Weights(ws)
+    proj = fused_resnet.K2Weights(kw["proj_kernel"])
+    outs = [fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, w, bias, proj_kernel=p,
+                                             proj_bias=kw["proj_bias"])
+            for w, p in ((ws, kw["proj_kernel"]), (kept, proj), (kept, proj))]
+    torch.cuda.synchronize()
+    assert kept.layout(xs[0].device) is kept.layout(xs[0].device)
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (16, 64, 64, 256),     # train_256's 64px core
+    (2, 512, 512, 128),    # train_1024's packed shell: 128 spans
+    (3, 37, 53, 40),       # ragged H*W and a masked channel block
+    (64, 8, 8, 1536),      # one span
+])
+def test_k3_passes_kernels(dev, shape):
+    """Pass A and pass B against their plain versions; their sums the same
+    bits from call to call."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, c = shape[0], shape[-1]
+    bf = torch.bfloat16
+    dy, y, x, ds = (torch.randn(shape, generator=g, device=dev).to(bf) for _ in range(4))
+    ds1 = torch.randn((b, c), generator=g, device=dev) * 1e-2
+    ds2 = torch.randn((b, c), generator=g, device=dev) * 1e-3
+    a = torch.randn((b, c), generator=g, device=dev) * 0.2 + 1.0
+    bb = torch.randn((b, c), generator=g, device=dev) * 0.3
+    before = dict(k3_passes.launch_counts)
+    fold, fold2 = (k3_passes.fold(dy, y, ds1, ds2) for _ in range(2))
+    chain, chain2 = (k3_passes.chain(x, ds, a, bb) for _ in range(2))
+    torch.cuda.synchronize()
+    assert k3_passes.launch_counts == {"K3·A": before["K3·A"] + 2, "K3·B": before["K3·B"] + 2}
+    for got, again, ref, exact in (
+            (fold, fold2, k3_passes.fold_plain(dy, y, ds1, ds2), (1,)),
+            (chain, chain2, k3_passes.chain_plain(x, ds, a, bb), (2, 3))):
+        for i, (o, r) in enumerate(zip(got, ref)):
+            assert o.shape == r.shape and o.dtype == r.dtype
+            assert _rel(o, r) <= (1e-4 if i in exact else 2e-2), i
+        for i in exact:
+            assert torch.equal(got[i], again[i]), i
+
+
 def _struct_inputs(dev, bsz, h, w, cs, cout, residual, proj, seed=7):
     """Packed operands (B, h, w, 4 C_k) of random images, per-operand packed
     (3, 3, 4 C_k, 4 Cout) kernels of random HWIO kernels, (B, 4 C_k)
@@ -258,7 +444,8 @@ def test_struct_conv3x3_fast_pads_the_packed_image(dev):
     (2, 32, 32, (32, 32), 32, True, True, True),
 ])
 def test_pipelined_matches_serial(dev, b, h, w, cs, cout, proj, stats, struct):
-    """K2·pipe against the serial K2 on the same inputs."""
+    """K2·pipe against the serial K2 on the same inputs (packed); an
+    unpacked launch ignores ``pipelined``: the same kernel twice."""
     if struct:
         xs, a_s, b_s, ws, bias, res, kw = _struct_inputs(dev, b, h, w, cs, cout, True, proj)
     else:
@@ -268,7 +455,7 @@ def test_pipelined_matches_serial(dev, b, h, w, cs, cout, proj, stats, struct):
                                              pipelined=pipe, packed_struct=struct, **kw)
             for pipe in (True, False)]
     torch.cuda.synchronize()
-    assert fused_resnet.launch_counts["K2·pipe"] == before["K2·pipe"] + 1
+    assert fused_resnet.launch_counts["K2·pipe"] == before["K2·pipe"] + struct
     got, ref = ((o if isinstance(o, tuple) else (o,)) for o in outs)
     assert torch.equal(got[0], ref[0])
     if proj:
@@ -489,11 +676,14 @@ def test_k3_backward_kernel(dev, b, h, w, c, cout, stats, residual):
             torch.randn((b, cout), generator=g, device=dev) * 1e-3,
             torch.randn((b, cout), generator=g, device=dev) * 1e-4]
     ins = [x[0], a[0], bb[0], wk[0].float(), bias, res]  # f32 weights, as training holds them
-    before = dict(fused_resnet.launch_counts)
+    before, before_passes = dict(fused_resnet.launch_counts), dict(k3_passes.launch_counts)
     got = _grads(fused_resnet.affine_silu_conv3x3_vjp, ins, cots, stats)
     torch.cuda.synchronize()
     assert fused_resnet.launch_counts["K3"] == before["K3"] + 1
     assert fused_resnet.launch_counts["K2"] == before["K2"] + 2  # forward and data gradient
+    assert fused_resnet.launch_counts["K2·pipe"] == before["K2·pipe"]
+    assert k3_passes.launch_counts["K3·A"] == before_passes["K3·A"] + stats
+    assert k3_passes.launch_counts["K3·B"] == before_passes["K3·B"] + 1
     ref = _grads(fused_resnet.affine_silu_conv3x3_plain, ins, cots, stats)
     for name, o, r in zip(["dx", "da", "db", "dw", "dbias", "dres"], got, ref):
         assert o.shape == r.shape and o.dtype == r.dtype, name
