@@ -71,14 +71,17 @@ weights from a seed:
      time, the same products as one cuBLAS matmul and, for P1's 1-tap
      product and its copy, the one PyTorch call that computes the same.
 
-Every unpacked K2 launch runs the implicit-GEMM kernel on wgmma (its
-``conv_plan`` and the ptxas line of its instance are logged beside each
-launch shape); the nested models pack their thin shells as the JAX package
-does, so the 256px and 1024px phases launch K2·struct too, and K2·pipe
-wherever a packed launch has at least two channel chunks and 4096 thread
-blocks. K3's backward runs its data gradient through K2's identity
-prologue and its chain as two Triton passes (K3·A with the stats, K3·B),
-each held against its plain version and timed in the K3 phases. Before
+Every K2 launch runs the implicit-GEMM kernel on wgmma, at 9 taps
+unpacked and at the 4 combined taps packed (its ``conv_plan`` and the ptxas
+line of its instance are logged beside each launch shape); the nested
+models pack their thin shells as the JAX package does, so the 256px and
+1024px phases launch K2·struct too, and K2·pipe wherever a packed launch
+has at least two chunks of 64 channels and 1024 output tiles (the kernel
+stages the next chunk under the products at every launch, so a pipelined
+launch must give the serial one's y bit for bit). K3's backward runs its
+data gradient through K2's identity prologue and its chain as two Triton
+passes (K3·A with the stats, K3·B), each held against its plain version
+and timed in the K3 phases. Before
 each request or training phase every launch count is set to 0 and read
 just after it; a kernel of the path that never launched fails the run, and
 so does a packed mode launched on a path that packs nothing. The kernels a
@@ -88,7 +91,8 @@ device and never falls back to the CPU. The card's name and power limit
 are printed near the top; the line before the last names every kernel with
 its launches (K1 and K2 during the nested matmul-route requests, K2 again
 over the 64px forward's shapes with the launches of the 64px batch-64
-request, K2·struct and K2·pipe during the train_1024 preset's timed steps,
+request, K2·struct and K2·pipe during the 256px and 1024px matmul-route
+requests and the train_1024 preset's timed steps,
 K3 and its passes during the train_256 preset's timed steps, K4 during the
 flash-route requests, P1 and P2 during the probes' tables), its error and
 its times; the last line is one JSON object with "ok" and the device.
@@ -443,18 +447,21 @@ def check_kernels(k2_keys, k1_keys, dev, label: str, reps: int = 5):
                       reps=reps)
         bound, by = k2_bound(key)
         extra, sms, ums = "", 0.0, 0.0
-        if not key.struct:
-            p = fused_resnet.conv_plan(key.b, key.h, key.w, key.cs, key.cout, n_sms, key.proj)
-            extra += (f" plan: tile {p.th}x{p.tw} N {p.bn} (m64 tiles {p.mt} a warpgroup), "
-                      f"{p.stages} stages, {p.smem} B shared, grid {p.grid}, "
-                      f"L2 {p.l2_bytes / 2**20:.1f} MiB; ptxas "
-                      f"{PTXAS.get((p.bn, p.mt, int(key.proj)), 'not in the build log')}")
+        p = fused_resnet.conv_plan(key.b, key.h, key.w, key.cs, key.cout, n_sms, key.proj,
+                                   key.struct)
+        ptxas = PTXAS.get((p.bn, p.mt, int(key.proj), int(key.struct)), "not in the build log")
+        extra += (f" plan: tile {p.th}x{p.tw} N {p.bn} (m64 tiles {p.mt} a warpgroup), "
+                  f"{p.stages} stages, {p.smem} B shared, grid {p.grid} over {p.tiles} tiles, "
+                  f"L2 {p.l2_bytes / 2**20:.1f} MiB; ptxas {ptxas}")
         if key.pipe:
             serial = kernel(pipelined=False)
             serial = serial if isinstance(serial, tuple) else (serial,)
             diff = abs_err(out[0], serial[0])
+            if diff != 0.0:  # one kernel runs both: the same bits
+                raise AssertionError(f"K2 {_key_label(key)}: pipelined y differs from the serial "
+                                     f"launch's by {diff}")
             sms = cuda_ms(lambda: kernel(pipelined=False), reps=reps)
-            extra += f" serial K2 {sms:.4f} ms (y max abs diff to it {diff:.3e})"
+            extra += f" serial K2 {sms:.4f} ms (y bitwise equal to it)"
         ukey = key.unpacked()
         if key.struct and ukey.cout % 8 == 0 and all(c % 8 == 0 for c in ukey.cs):
             uxs, ua, ub, uwk, ubias, ures, ukw = _conv_inputs(ukey, dev, g)
@@ -1185,9 +1192,7 @@ def check_k3(keys, dev, label: str = "256px train"):
         lms = cuda_ms(lambda: library_k3_backward(ins[0], ins[1], ins[2], w16, cots[0], *extra))
         # the data gradient's weights as K2's wrapper lays them out per call
         wt = wf.flip(0, 1).transpose(2, 3)
-        rms = cuda_ms(lambda: (fused_resnet.struct_weights(wt).to(torch.bfloat16).permute(
-            3, 0, 1, 2).reshape(c, -1).contiguous() if struct
-            else fused_resnet.conv_weight_layout((wt,))))
+        rms = cuda_ms(lambda: fused_resnet.conv_weight_layout((wt,), struct))
         relayout_ms += rms
         bound, by = k3_bound(key)
         flops = 4 * bsz * h * w * 9 * c * cout / (4 if struct else 1)
@@ -1352,8 +1357,7 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
              "K3 pass A (fold, Triton, by name)": name_us("k3_fold_kernel"),
              "K3 pass B (chain, Triton, by name)": name_us("k3_chain_kernel"),
              "Adam": range_us("trainer: Adam"), "EMA": range_us("trainer: EMA"),
-             "K2 kernels, forward and backward (by name)": name_us("conv3x3_wgmma_kernel",
-                                                                   "struct_conv_kernel")}
+             "K2 kernels, forward and backward (by name)": name_us("conv3x3_wgmma_kernel")}
     parts["K3 chain, at most (the Triton passes and the pass ranges)"] = (
         parts["K3 pass A (fold, Triton, by name)"] + parts["K3 pass B (chain, Triton, by name)"]
         + parts["K3 pass ranges A and B (partial sums, attributed launches)"])
@@ -1854,15 +1858,15 @@ def probe_library(v, x, w):
     return x.clone if v.n_taps == 0 else None
 
 
-# ptxas's line for each unpacked K2 instance, (N tile, m64 tiles, shortcut)
+# ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
 # -> "registers, spills", from the build log (``nvcc_report``)
 PTXAS = {}
 
 
 def nvcc_report(lib_path, name: str):
     """Log what ptxas said of each kernel in a built library: registers and
-    spills, with the template arguments of an instance; keep the unpacked
-    K2 instances' lines in PTXAS."""
+    spills, with the template arguments of an instance; keep the K2
+    instances' lines in PTXAS."""
     build_log = lib_path.with_name(lib_path.name + ".log")
     if not build_log.exists():
         return
@@ -1872,13 +1876,11 @@ def nvcc_report(lib_path, name: str):
             log(f"  nvcc {name}: {line.strip()}")
         elif "Compiling entry function" in line:
             m = re.search(r"flash_attention_kernelILi(\d+)E", line)
-            wg = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)E", line)
-            k2 = re.search(r"struct_conv_kernelILb(\d)ELb(\d)E", line)
+            wg = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)E", line)
             pr = re.search(r"kernel_anatomyI((?:Li\d+E){9})", line)
             key = tuple(int(v) for v in wg.groups()) if wg else None
             width = (f"D={m.group(1)}: " if m else
-                     "unpacked, N {} m64 tiles {} shortcut {}: ".format(*wg.groups()) if wg else
-                     f"packed, shortcut {k2.group(1)} pipelined {k2.group(2)}: " if k2 else
+                     "N {} m64 tiles {} shortcut {} packed {}: ".format(*wg.groups()) if wg else
                      "P{} taps {} act {} silu {} stage {} halos {} selects {} zero {} dbuf {}: "
                      .format(*re.findall(r"\d+", pr.group(1))) if pr else "")
         elif "spill" in line or "registers" in line:
@@ -1973,14 +1975,18 @@ def main() -> int:
     totals["K4"] = merge_totals({"K4": tot_k4_64}, {"K4": tot_k4_256})["K4"]
     totals.update(tot_probes)
     launches = {k: counts_256[k] + counts_1024[k] for k in ("K1", "K2", "K2·N", "K2·proj")}
-    launches.update({k: counts_t1024[k] for k in ("K2·struct", "K2·pipe")})
+    launches.update({k: counts_256[k] + counts_1024[k] + counts_t1024[k]
+                     for k in ("K2·struct", "K2·pipe")})
     launches.update({k: counts_train[k] for k in ("K3", "K3·A", "K3·B")})
     launches["K2 64px"] = counts_64["K2"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
     launches.update({k: counts_probes[k] for k in ("P1", "P2")})
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
-        f"64px batch-64 request (K2 64px), the train_1024 preset's timed steps (K2·struct, "
-        f"K2·pipe), the train_256 preset's timed steps (K3, K3·A, K3·B), the flash-route "
+        f"64px batch-64 request (K2 64px), the nested matmul-route requests and the "
+        f"train_1024 preset's timed steps (K2·struct, K2·pipe: {counts_256['K2·struct']} + "
+        f"{counts_1024['K2·struct']} + {counts_t1024['K2·struct']} and {counts_256['K2·pipe']} + "
+        f"{counts_1024['K2·pipe']} + {counts_t1024['K2·pipe']}), the train_256 preset's timed "
+        f"steps (K3, K3·A, K3·B), the flash-route "
         f"requests (64px and 256px; K4) and the probes' tables (P1, P2): {launches}")
     for what, t in (("64px forward's", totals["K2 64px"]), ("nested forwards'", totals["K2"])):
         log(f"K2 over the {what} {t['shapes']} shapes: kernel {t['ms']:.4f} ms "

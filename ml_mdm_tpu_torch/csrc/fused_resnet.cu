@@ -20,17 +20,17 @@
 // zeroed (B, Cout) buffers. Without a and b (null) the prologue is the
 // identity: conv3x3_fast and K3's data gradient.
 //
-// Two kernels. Every unpacked launch runs `conv3x3_wgmma_kernel`; packed
-// launches (K2·struct, and K2·pipe, its pipelined form) run
-// `struct_conv_kernel`, the earlier mma.sync design, until the packing decision.
+// One kernel, `conv3x3_wgmma_kernel`, templated on the tap count: every
+// unpacked launch runs its 9-tap instances, every packed launch (K2·struct,
+// and K2·pipe, its pipelined form) its 4-tap ones.
 //
 // == The unpacked kernel: implicit GEMM on wgmma ==
 //
 // What bounds it on the H100: operations. At the 64px model's shapes every
 // output pixel takes 9 C Cout multiply-adds against 2 (C + Cout) bytes, over
 // 1,000 operations a byte against the card's ~295 (the 15 launch shapes of
-// the batch-64 forward are all bound by operations). The mma.sync kernel ran
-// there at about 12% of that bound, and the cost-decomposition probes (P1,
+// the batch-64 forward are all bound by operations). The earlier mma.sync
+// kernel ran there at about 12% of that bound, and the cost-decomposition probes (P1,
 // P2) split its time at B = 4, 512^2, 128 channels into products 45% (at 26%
 // of the tensor cores' peak), SiLU 20%, padding and halos 14%, the rest of
 // the tile and epilogue 20%; its 128-pixel blocks also re-read the whole
@@ -48,8 +48,8 @@
 //     flight while it loads the next k-step's fragments; the other
 //     warpgroup's products share the tensor cores.
 //   - SiLU: a pixel is activated once per BN = 128-256 output channels (the
-//     mma.sync kernel: once per 64), and under the products: two activated
-//     tiles alternate by chunk; while the tensor cores run chunk q's taps
+//     earlier mma.sync kernel: once per 64), and under the products: two
+//     activated tiles alternate by chunk; while the tensor cores run chunk q's taps
 //     from one, each thread activates its cells of chunk q + 1 into the
 //     other, from a raw tile it copied by cp.async during chunk q - 1, with
 //     a and b staged in shared memory (x*a+b and SiLU once per element,
@@ -60,8 +60,8 @@
 //     so the raw tile needs no barrier, and a chunk one. The SiLU is
 //     h + h tanh(h), h = u / 2: one SFU operation.
 //   - padding and halos: the tile is 8 x 32 (or 16 x 16, 32 x 8) output
-//     pixels at M = 256, so the halo adds 33% (the mma.sync 4 x 32 tile:
-//     59%); the activated and raw tiles are swizzled (16-byte group j of
+//     pixels at M = 256, so the halo adds 33% (the earlier mma.sync 4 x 32
+//     tile: 59%); the activated and raw tiles are swizzled (16-byte group j of
 //     pixel p at j ^ (p mod 8)), so the ldmatrix reads of 8 consecutive
 //     pixels hit 32 distinct banks.
 //   - weight traffic: one thread of the block streams the weights into a
@@ -96,34 +96,49 @@
 // launch, and says how much each launch reads from L2; this side checks and
 // follows it.
 //
-// == The packed kernel (K2·struct, K2·pipe): mma.sync ==
+// == The packed mode (K2·struct, K2·pipe): the same kernel at 4 taps ==
 //
-// x is a space-to-depth packed tensor (channel c*4 + ei*2 + ej holds
+// x is a space-to-depth packed tensor (channel 4 c + 2 ei + ej holds
 // sub-pixel (ei, ej) of unpacked channel c) and w the packed kernel
 // collapsed to 4 combined taps (the JAX `_struct_weights`): the packed 3x3
 // kernel is 75% structural zeros, so its 9 taps reduce to 4 products over
 // the same staged tile: centre x centre, centre x column select, row select
 // x centre, row select x column select. A row select reads, for each
 // channel, the pixel above when its ei bit is 1 and the one below when it
-// is 0; a column select the pixel left (ej = 1) or right (ej = 0). A block
-// of 8 warps owns a 2-D tile of TH x TW output pixels (TW = min(W, 32), TH
-// = 128 / TW) times 64 output channels, on mma.sync m16n8k16. One 32-bit
-// A-fragment register holds two adjacent channels, which differ in ej, so
-// the staging permutes each 32-channel chunk by parity class: staged
-// position code*8 + i holds channel i*4 + code, with code = ei*2 + ej. Each
-// k16 step then sees one ei (0 for k 0-15, 1 for 16-31), each fragment half
-// one ej, and every 32-bit load reads one pixel. The host lays the combined
-// weights out in the same order. Every operand has a multiple of 32
-// channels. Staged pixels are padded to KP = 40 bf16 (conflict-free
-// fragment loads); the weights are staged unpadded with the four 16-byte
-// groups of output channel n at group v ^ ((n >> 1) & 3). K2·pipe (PIPE),
-// the counterpart of `_kernel_pipelined` over channel chunks: two buffers;
-// while the tensor cores run chunk q from one, cp.async brings chunk q+1's
-// raw tile, halo and weights into the other, which is then activated in
-// place. Its y, stats and shortcut are the serial kernel's. The shortcut
-// runs as a second short reduction over the same chunks, into the same
-// accumulators; the stats as in the unpacked kernel (per-warp shuffles and
-// f32 atomics).
+// is 0; a column select the pixel left (ej = 1) or right (ej = 0). At the
+// models' packed shapes (thin shells of 32-64 unpacked channels) the
+// convolution is bound by its bytes, not its operations, and the combined
+// taps carry the packed kernel's zeros: 16/9 of the unpacked convolution's
+// multiply-adds, at 4/9 of its k-steps per staged chunk. How each cost is
+// answered is the unpacked kernel's (above: the tile and halo, the
+// activation once per BN output channels under the products, the weight
+// ring, the epilogue, the stats and the shortcut pass). What differs:
+//
+//   - parity classes make each shift uniform: the activation stores each
+//     64-channel chunk in parity-class order, staged position 16 code + i
+//     holding channel c0 + 4 i + code, code = 2 ei + ej. Each k-step of 16
+//     then holds one class (ei, ej) = (ks >> 1, ks & 1), and each (combined
+//     tap, k-step) pair is one uniform pixel shift (dr, dc) in {-1, 0, 1}^2
+//     of the tile, whose staged offsets the host computes (`struct_tap_
+//     offsets`, passed as `toff`): the ldmatrix row addresses, the halo of one
+//     pixel, the tile geometry and the swizzle are the unpacked kernel's.
+//   - the permutation happens where a thread activates its own cells: the 8
+//     channels of its 16-byte raw group go out as four 4-byte pieces (two
+//     channels of one class each) into four of the row's 16-byte groups.
+//     With the tile's 128-byte swizzle, 4 consecutive pixels of a warp would
+//     put two pieces in one bank, so the packed staging gives the 8 pixels of
+//     two warps in the order 0 2 4 6 | 1 3 5 7: a warp's 32 pieces of a class
+//     fall into 32 banks.
+//   - the host lays the combined taps out as the unpacked weights, (chunk,
+//     tap, Cout, 64) swizzled, with each chunk's 64 channels in the same
+//     class order; the shortcut's matrices likewise, since its pass stages
+//     the raw tile through the same permuted store. Operands are zero-padded
+//     to whole chunks, as unpacked.
+//   - the turns at staging: the 8 turns of a chunk are the second and fourth
+//     k-step of each of the 4 taps, warpgroup 0 taking taps 0-1, warpgroup 1
+//     taps 2-3 (unpacked: the second k-step of taps 1-4 and 5-8).
+//   - K2·pipe: the next chunk is always staged under this one's products,
+//     so a pipelined packed launch runs the serial one, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,7 +201,7 @@ __device__ __forceinline__ uint4 act8(const uint4 rawv, const float (&av)[8],
 }
 
 // ===========================================================================
-// The unpacked kernel (wgmma)
+// The kernel (wgmma), unpacked and packed
 // ===========================================================================
 
 constexpr int WG_BK = 64;                    // input channels a chunk: one 128-byte row
@@ -203,7 +218,7 @@ struct ConvParams {
   const float* a;                   // (B, ctot) f32, or null with b: the identity prologue
   const float* b;
   int apply_silu;
-  const __nv_bfloat16* wt;          // (n_q, 9, cpad, 64) bf16, swizzled (see the header)
+  const __nv_bfloat16* wt;          // (n_q, taps, cpad, 64) bf16, swizzled (see the header)
   const __nv_bfloat16* pw;          // (n_q, cpad, 64) bf16, swizzled, or null
   const float* bias;                // (Cout) or null
   const float* pbias;               // (Cout) with pw
@@ -214,6 +229,7 @@ struct ConvParams {
   float* s2;
   int B, H, W, Cout, cpad;
   int TH, TW, tiles_w, tiles_per_image, n_ntiles, stages;
+  int toff[16];                     // packed: staged offset of (combined tap, k-step)
 };
 
 // d += A B for one k-step of 16: A (64 x 16) from registers (an m16 x k16
@@ -321,9 +337,14 @@ __device__ __forceinline__ void wg_chunk_of(const ConvParams& p, int q, int& k, 
   c0 = (q - p.q0[k]) * WG_BK;
 }
 
-template <int BN, int MT, bool PROJ>
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+template <int BN, int MT, bool PROJ, bool PACKED>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     conv3x3_wgmma_kernel(const __grid_constant__ ConvParams p) {
+  constexpr int NTAPS = PACKED ? 4 : 9;         // taps a chunk: 9, or the 4 combined
   constexpr uint32_t SLOT = BN * 128;           // bytes of one tap's (BN x 64) weights
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
@@ -382,7 +403,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   // warpgroups take them: tile by tile, (chunk, tap), then the shortcut's
   // chunks; a tile's last N tile copies only the channels that exist, and
   // the rest of its slot is never stored from.
-  const int per_tile = n_q * (PROJ ? 10 : 9);
+  const int per_tile = n_q * (NTAPS + PROJ);
   const int n_slices = n_mine_tiles * per_tile;
   int issued = 0;
   auto produce = [&](int need) {
@@ -396,8 +417,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const int jl = issued % per_tile, n0 = geo(issued / per_tile).n0;
       const uint32_t bytes = (uint32_t)min(BN, p.cpad - n0) * 128;
       const __nv_bfloat16* src =
-          jl < 9 * n_q ? p.wt + ((size_t)jl * p.cpad + n0) * 64
-                       : p.pw + ((size_t)(jl - 9 * n_q) * p.cpad + n0) * 64;
+          jl < NTAPS * n_q ? p.wt + ((size_t)jl * p.cpad + n0) * 64
+                           : p.pw + ((size_t)(jl - NTAPS * n_q) * p.cpad + n0) * 64;
       mbar_expect_tx(full(slot), bytes);
       bulk_load(ring + slot * SLOT, src, bytes, full(slot));
       ++issued;
@@ -406,6 +427,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   auto take = [&](int j) {  // slice j out and landed
     produce(j + p.stages - 1);
     mbar_wait(full(j % p.stages), (j / p.stages) & 1);
+  };
+
+  // staged offset of tap t's k-step ks from the tile's output pixel 0: tap
+  // (ky, kx) at (ky, kx); packed, the host's table (the uniform shift of
+  // combined tap t at parity class ks, see the header)
+  auto tap_off = [&](int t, int ks) {
+    return PACKED ? p.toff[4 * t + ks] : (t / 3) * SW + t % 3;
   };
 
   // warpgroup wg owns the tile's pixels [wg MT 64, (wg + 1) MT 64)
@@ -422,22 +450,27 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     p0[mt] = (m / p.TW) * SW + m % p.TW;
   }
 
-  // Staging. Thread tid owns the cells i = tid + 256 k of a staged tile:
+  // Staging. Thread tid owns the cells k = 0, 1, ... of a staged tile:
   // 16-byte group j8 = tid % 8 (8 channels of the chunk) of staged pixel
-  // i / 8. It copies its cells of a chunk's raw tile and halo by cp.async
-  // and later activates the same cells, so the raw tile needs no barrier:
-  // a thread reads only what it copied itself. The halo and the channels
-  // past an operand are zero-filled; x*a+b (and SiLU) is applied once per
-  // element and cells outside the image are 0 after it; the shortcut pass
-  // and the identity prologue copy the raw values. Chunk U of the block is
-  // chunk U % n_u of its tile U / n_u.
+  // px0 + 32 k, px0 = tid / 8 (packed: the pixels of a pair of warps in the
+  // order 0 2 4 6 | 1 3 5 7, see the header). It copies its cells of a
+  // chunk's raw tile and halo by cp.async and later activates the same
+  // cells, so the raw tile needs no barrier: a thread reads only what it
+  // copied itself. The halo and the channels past an operand are
+  // zero-filled; x*a+b (and SiLU) is applied once per element and cells
+  // outside the image are 0 after it; the shortcut pass and the identity
+  // prologue copy the raw values. Packed, every activated cell is stored in
+  // parity-class order. Chunk U of the block is chunk U % n_u of its tile
+  // U / n_u.
   const int j8 = tid & 7;
-  const int n_mine = max(0, (n_stage * 8 - tid + WG_THREADS - 1) / WG_THREADS);
+  const int px0 = PACKED ? (tid >> 6 << 3) | ((tid >> 3 & 3) << 1) | (tid >> 5 & 1) : tid >> 3;
+  const int n_mine = PACKED ? max(0, (n_stage - px0 + WG_THREADS / 8 - 1) / (WG_THREADS / 8))
+                            : max(0, (n_stage * 8 - tid + WG_THREADS - 1) / WG_THREADS);
   int cur_k = 0, cur_row = 0, cur_col = 0;  // the activation's cursor over the cells
   auto cursor_reset = [&]() {
     cur_k = 0;
-    cur_row = (tid >> 3) / SW;
-    cur_col = (tid >> 3) % SW;
+    cur_row = px0 / SW;
+    cur_col = px0 % SW;
   };
   auto cursor_step = [&]() {  // each thread's cells are 32 pixels apart
     ++cur_k;
@@ -451,7 +484,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int ck = p.c[k], c = c0 + 8 * j8;
     const __nv_bfloat16* xk = p.x[k] + (size_t)g.img * p.H * p.W * ck;
     for (cursor_reset(); cur_k < n_mine; cursor_step()) {
-      const int px = (tid >> 3) + cur_k * (WG_THREADS / 8);
+      const int px = px0 + cur_k * (WG_THREADS / 8);
       const int ih = g.r0 - 1 + cur_row, iw = g.col0 - 1 + cur_col;
       const bool in = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W && c < ck;
       cp_async_16(raw + px * 128 + ((j8 ^ (px & 7)) << 4),
@@ -494,7 +527,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                    : "=f"(bv[4]), "=f"(bv[5]), "=f"(bv[6]), "=f"(bv[7]) : "r"(ca + 272) : "memory");
     }
     for (; cur_k < min(k_end, n_mine); cursor_step()) {
-      const int px = (tid >> 3) + cur_k * (WG_THREADS / 8);
+      const int px = px0 + cur_k * (WG_THREADS / 8);
       const uint32_t o = px * 128 + ((j8 ^ (px & 7)) << 4);
       uint4 v;
       asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -506,26 +539,40 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         v = (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W) ? act8(v, av, bv, p.apply_silu)
                                                           : make_uint4(0u, 0u, 0u, 0u);
       }
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + o), "r"(v.x),
-                   "r"(v.y), "r"(v.z), "r"(v.w)
-                   : "memory");
+      if (PACKED) {
+        // channels j and j + 4 of the group (one class, j = code) to staged
+        // positions 16 code + 2 j8 and + 1: byte 32 code + 4 j8 of the row,
+        // in its 16-byte group 2 code + j8 / 4
+        const uint32_t row = dst + px * 128 + 4 * (j8 & 3);
+        const int hi = j8 >> 2, sw = px & 7;
+        st_shared_u32(row + (((0 + hi) ^ sw) << 4), __byte_perm(v.x, v.z, 0x5410));
+        st_shared_u32(row + (((2 + hi) ^ sw) << 4), __byte_perm(v.x, v.z, 0x7632));
+        st_shared_u32(row + (((4 + hi) ^ sw) << 4), __byte_perm(v.y, v.w, 0x5410));
+        st_shared_u32(row + (((6 + hi) ^ sw) << 4), __byte_perm(v.y, v.w, 0x7632));
+      } else {
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + o), "r"(v.x),
+                     "r"(v.y), "r"(v.z), "r"(v.w)
+                     : "memory");
+      }
     }
   };
 
-  // the part of chunk U + 1's staging done at tap `tap` of chunk U. The
-  // two warpgroups take turns: warpgroup 0 activates its cells at taps 1-4
-  // and warpgroup 1 at taps 5-8, so that while one stages, the other's
-  // products have the tensor cores; each first waits for its raw cells and
-  // after its last part sends for chunk U + 2's raw tile (and warpgroup 0
-  // for its coefficients). At a tile's last chunk this stages the next
-  // tile's first. A chunk of one tap (the shortcut) stages all at once.
-  auto stage_next = [&](int U, int tap, int n_taps) {
+  // the part of chunk U + 1's staging done at turn `turn` of chunk U. The
+  // two warpgroups take turns: warpgroup 0 activates its cells at turns 0-3
+  // and warpgroup 1 at turns 4-7 (unpacked: taps 1-4 and 5-8, turn tap - 1;
+  // packed: taps 0-1 and 2-3, turn kk / 2 at the odd k-steps kk), so that
+  // while one stages, the other's products have the tensor cores; each
+  // first waits for its raw cells and after its last part sends for chunk
+  // U + 2's raw tile (and warpgroup 0 for its coefficients). At a tile's
+  // last chunk this stages the next tile's first. A chunk of one tap (the
+  // shortcut) stages all at once.
+  auto stage_next = [&](int U, int turn, int n_taps) {
     if (U + 1 >= n_chunks) return;
     int part, n_parts = 1;
     if (n_taps == 1) {
       part = 0;
     } else {
-      part = tap - 1 - 4 * wg;
+      part = turn - 4 * wg;
       n_parts = 4;
       if (part < 0 || part >= 4) return;
     }
@@ -579,7 +626,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) acc[mt][e] = 0.f;
-      const int n_taps = pass == 0 ? 9 : 1;
+      const int n_taps = pass == 0 ? NTAPS : 1;
       for (int q = 0; q < n_q; ++q) {
         const int U = i * n_u + pass * n_q + q;
         const uint32_t tile = act0 + (U & 1) * tile_bytes;
@@ -593,9 +640,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         // flight while the next fragments load. A tap's slot is handed back
         // once its last group is done (at the next tap's first k-step).
         take(s);
-        load_a(af[0], tile, pass == 0 ? 0 : SW + 1, 0);
+        load_a(af[0], tile, pass == 0 ? tap_off(0, 0) : SW + 1, 0);
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
+        for (int tap = 0; tap < NTAPS; ++tap) {
           if (tap >= n_taps) break;
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) {
@@ -606,14 +653,18 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             wgmma_fence();
             issue(acc, af[b], (s + tap) % p.stages, ks);
             wgmma_commit();
-            if (ks == 1) stage_next(U, tap, n_taps);  // under the products in flight
+            // under the products in flight: the staging's turns (see
+            // stage_next), or all of it at the shortcut's one tap
+            if (PACKED ? (ks & 1) && (n_taps > 1 || kk == 1) : ks == 1)
+              stage_next(U, PACKED ? kk >> 1 : tap - 1, n_taps);
             wgmma_wait<1>();  // k-step kk - 1 done: buffer b ^ 1 is free
             fence_frags<MT>(af[b ^ 1]);
             if (ks == 0 && tap > 0 && wl == 0) mbar_arrive(empty((s + tap - 1) % p.stages));
             if (kk + 1 < 4 * n_taps) {
               const int nt = (kk + 1) / 4;
               if (ks == 3) take(s + nt);
-              load_a(af[b ^ 1], tile, pass == 0 ? (nt / 3) * SW + nt % 3 : SW + 1, (kk + 1) % 4);
+              load_a(af[b ^ 1], tile, pass == 0 ? tap_off(nt, (kk + 1) % 4) : SW + 1,
+                     (kk + 1) % 4);
             }
           }
         }
@@ -702,7 +753,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// Dynamic shared memory of an unpacked launch: the ring, the two activated
+// Dynamic shared memory of a launch: the ring, the two activated
 // tiles and the raw tile, the barriers, two chunks' coefficients, the stats
 // and the slack that aligns the ring.
 size_t wg_smem_bytes(int bn, int th, int tw, int stages) {
@@ -712,507 +763,30 @@ size_t wg_smem_bytes(int bn, int th, int tw, int stages) {
 
 typedef void (*WgKernel)(const ConvParams);
 
-template <bool PROJ>
+template <bool PROJ, bool PACKED>
 WgKernel pick_wgmma(int bn, int mt) {
-  if (bn == 256 && mt == 1) return conv3x3_wgmma_kernel<256, 1, PROJ>;
-  if (bn == 128 && mt == 2) return conv3x3_wgmma_kernel<128, 2, PROJ>;
-  if (bn == 128 && mt == 1) return conv3x3_wgmma_kernel<128, 1, PROJ>;
-  if (bn == 64 && mt == 2) return conv3x3_wgmma_kernel<64, 2, PROJ>;
-  if (bn == 64 && mt == 1) return conv3x3_wgmma_kernel<64, 1, PROJ>;
+  if (bn == 256 && mt == 1) return conv3x3_wgmma_kernel<256, 1, PROJ, PACKED>;
+  if (bn == 128 && mt == 2) return conv3x3_wgmma_kernel<128, 2, PROJ, PACKED>;
+  if (bn == 128 && mt == 1) return conv3x3_wgmma_kernel<128, 1, PROJ, PACKED>;
+  if (bn == 64 && mt == 2) return conv3x3_wgmma_kernel<64, 2, PROJ, PACKED>;
+  if (bn == 64 && mt == 1) return conv3x3_wgmma_kernel<64, 1, PROJ, PACKED>;
   return nullptr;
-}
-
-// ===========================================================================
-// The packed kernel (mma.sync), K2·struct and K2·pipe
-// ===========================================================================
-
-constexpr int BM = 128;      // output pixels per block (at most)
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 32;       // input channels per reduction chunk
-constexpr int KP = BK + 8;   // staged pixel stride (bf16 elements)
-constexpr int THREADS = 256; // 8 warps: 4 along M x 2 along N, 32x32 each
-constexpr int MAX_TW = 32;   // tile width in pixels
-constexpr int NT = 4;        // combined taps (products) per chunk
-
-struct Operands {
-  const __nv_bfloat16* x[MAX_OPS];  // (B, H, W, c[k])
-  int c[MAX_OPS];                   // channels of operand k
-  int off[MAX_OPS];                 // its first channel in the concatenation
-  int n;
-};
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One k16 step of the warp's 32x32 product. A rows at offsets `k0` (k
-// 0-7 of the step) and `k1` (k 8-15), per m16 tile and half (pixel rows g
-// and g + 8); B from `bsm`. A column select reads another pixel per half.
-__device__ __forceinline__ void warp_mma_k16(float (&acc)[2][4][4],
-                                             const __nv_bfloat16* asm_,
-                                             const int (&k0)[2][2], const int (&k1)[2][2],
-                                             const __nv_bfloat16* bsm,
-                                             int wn, int g, int tig, int kk) {
-  uint32_t af[2][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    af[mi][0] = lds32(asm_ + k0[mi][0] + kk);
-    af[mi][1] = lds32(asm_ + k0[mi][1] + kk);
-    af[mi][2] = lds32(asm_ + k1[mi][0] + kk + 8);
-    af[mi][3] = lds32(asm_ + k1[mi][1] + kk + 8);
-  }
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    // output channel wn*32 + ni*8 + g, whose swizzle is (g >> 1) & 3
-    const __nv_bfloat16* bp = bsm + (wn * 32 + ni * 8 + g) * BK + tig * 2;
-    const int sw = (g >> 1) & 3, v = kk >> 3;
-    const uint32_t b0 = lds32(bp + ((v ^ sw) << 3)), b1 = lds32(bp + (((v + 1) ^ sw) << 3));
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) mma_bf16_16816(acc[mi][ni], af[mi], b0, b1);
-  }
-}
-
-// x*a+b (and SiLU) of 8 raw channels at coefficient pointers ap, bp, or the
-// raw values when ap is null (the identity prologue).
-__device__ __forceinline__ uint4 act8p(const uint4 rawv, const float* ap, const float* bp,
-                                       int apply_silu) {
-  if (ap == nullptr) return rawv;
-  Pack8 r, o;
-  r.u = rawv;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float u = __bfloat162float(__ushort_as_bfloat16(r.h[j])) * __ldg(ap + j) + __ldg(bp + j);
-    if (apply_silu) u = u / (1.f + __expf(-u));
-    o.h[j] = __bfloat16_as_ushort(__float2bfloat16_rn(u));
-  }
-  return o.u;
-}
-
-// Store the 8 activated channels v*8 .. v*8+7 of a chunk into a staged pixel
-// at their parity-class positions (channel i*4 + code -> code*8 + i;
-// channels j and j + 4 of the 8 share a class and land side by side).
-__device__ __forceinline__ void store8(__nv_bfloat16* cell, int v, const uint4 val) {
-  Pack8 p;
-  p.u = val;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<uint32_t*>(cell + j * 8 + 2 * v) =
-        (uint32_t)p.h[j] | ((uint32_t)p.h[j + 4] << 16);
-}
-
-// The 4 tensor-core products of one staged chunk. `pix` are the staged
-// offsets of the fragment rows at the tile's top-left tap.
-__device__ __forceinline__ void struct_products(float (&acc)[2][4][4], const __nv_bfloat16* As,
-                                                const __nv_bfloat16* Bs, const int (&pix)[2][2],
-                                                int SW, int wn, int g, int tig) {
-#pragma unroll 1
-  for (int prod = 0; prod < NT; ++prod) {
-    const int rsel = prod >> 1, csel = prod & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // ei = kk / 16: the row select reads above (ei 1) or below (ei 0);
-      // k 0-7 of the step have ej 0 (right), k 8-15 ej 1 (left)
-      const int dr = rsel ? (kk ? -1 : 1) : 0;
-      const int base = (1 + dr) * SW + 1;
-      const int o0 = (base + (csel ? 1 : 0)) * KP, o1 = (base - (csel ? 1 : 0)) * KP;
-      int k0[2][2], k1[2][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          k0[mi][hf] = pix[mi][hf] + o0;
-          k1[mi][hf] = pix[mi][hf] + o1;
-        }
-      warp_mma_k16(acc, As, k0, k1, Bs + prod * BN * BK, wn, g, tig, kk);
-    }
-  }
-}
-
-// Staged offset of the 16-byte group v (channels v*8 .. v*8+7) of output
-// channel n's chunk of weights (see the header).
-__device__ __forceinline__ int swz(int n, int v) { return (v ^ ((n >> 1) & 3)) << 3; }
-
-// Operand and first channel of chunk q of the launch.
-__device__ __forceinline__ void chunk_of(const Operands& ops, int q, int& k, int& c0) {
-  k = 0;
-  while (k < ops.n - 1 && q >= (ops.c[k] + BK - 1) / BK) {
-    q -= (ops.c[k] + BK - 1) / BK;
-    ++k;
-  }
-  c0 = q * BK;
-}
-
-template <bool PROJ, bool PIPE>
-__global__ void __launch_bounds__(THREADS)
-struct_conv_kernel(const Operands ops, int ctot, int n_chunks,
-                   const float* __restrict__ a,            // (B, ctot) or null
-                   const float* __restrict__ b,            // (B, ctot) or null
-                   const __nv_bfloat16* __restrict__ wt,   // (Cout, NT, ctot)
-                   const float* __restrict__ bias,         // (Cout) or null
-                   const __nv_bfloat16* __restrict__ residual,
-                   const __nv_bfloat16* __restrict__ pw,   // (Cout, ctot)
-                   const float* __restrict__ pbias,        // (Cout)
-                   __nv_bfloat16* __restrict__ y,
-                   __nv_bfloat16* __restrict__ proj,
-                   float* __restrict__ s1,
-                   float* __restrict__ s2,
-                   int H, int W, int Cout, int TH, int TW,
-                   int tiles_w, int tiles_per_image, int apply_silu) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int SW = TW + 2;               // staged row width
-  const int n_stage = (TH + 2) * SW;   // staged pixels
-  const int tile_px = TH * TW;         // <= BM
-  const int buf_elems = n_stage * KP + NT * BN * BK;  // one buffer: tile + weights
-  const int img = blockIdx.x / tiles_per_image;
-  const int t = blockIdx.x % tiles_per_image;
-  const int r0 = (t / tiles_w) * TH;
-  const int col0 = (t % tiles_w) * TW;
-  const int n0 = blockIdx.y * BN;
-
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // buffer i: As [n_stage][KP] then Bs [NT][BN][BK] (swizzled); the
-  // shortcut pass reuses the start of buffer 0 once the conv is done
-  __nv_bfloat16* Rs = smem;                // [BM][KP] raw tile pixels (PROJ)
-  __nv_bfloat16* Ps = Rs + BM * KP;        // [BN][BK] shortcut weights (PROJ)
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, tig = lane & 3;
-
-  // staged offsets of the 4 pixels this thread's A fragments read: rows g
-  // and g + 8 of the warp's two m16 tiles, at the centre (pix) and in the
-  // raw tile (raw). Rows past the tile repeat its last pixel; their results
-  // are never stored.
-  int pix[2][2], raw[2][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = min(wm * 32 + mi * 16 + hf * 8 + g, tile_px - 1);
-      pix[mi][hf] = ((m / TW) * SW + (m % TW)) * KP + tig * 2;
-      raw[mi][hf] = m * KP + tig * 2;
-    }
-  }
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-
-  const float* a_img = a != nullptr ? a + (size_t)img * ctot : nullptr;
-  const float* b_img = b != nullptr ? b + (size_t)img * ctot : nullptr;
-  const int nvb = NT * BN * (BK / 8);      // 16-byte weight vectors per chunk
-
-  if (!PIPE) {
-    for (int q = 0; q < n_chunks; ++q) {
-      int k, c0;
-      chunk_of(ops, q, k, c0);
-      const int ck = ops.c[k], offk = ops.off[k];
-      const __nv_bfloat16* xk = ops.x[k] + (size_t)img * H * W * ck;
-      __nv_bfloat16* As = smem;
-      __nv_bfloat16* Bs = As + n_stage * KP;
-      // 1. activated tile + halo, 8 channels (16 bytes) per step
-      for (int i = tid; i < n_stage * (BK / 8); i += THREADS) {
-        const int v = i % (BK / 8);
-        const int cell = i / (BK / 8);
-        const int sr = cell / SW, sc = cell % SW;
-        const int ih = r0 - 1 + sr, iw = col0 - 1 + sc;
-        const int c = c0 + v * 8;
-        uint4 o = make_uint4(0u, 0u, 0u, 0u);
-        if (ih >= 0 && ih < H && iw >= 0 && iw < W && c < ck) {
-          const uint4 rawv =
-              *reinterpret_cast<const uint4*>(xk + (((size_t)ih * W + iw) * ck + c));
-          o = act8p(rawv, a_img ? a_img + offk + c : nullptr, b_img ? b_img + offk + c : nullptr,
-                    apply_silu);
-        }
-        store8(As + (size_t)cell * KP, v, o);
-      }
-      // 2. weights of the chunk for every combined tap
-      for (int i = tid; i < nvb; i += THREADS) {
-        const int v = i % (BK / 8);
-        const int rest = i / (BK / 8);
-        const int n = rest % BN, tap = rest / BN;
-        const int c = c0 + v * 8, co = n0 + n;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (co < Cout && c < ck)
-          val = *reinterpret_cast<const uint4*>(wt + (((size_t)co * NT + tap) * ctot + offk + c));
-        *reinterpret_cast<uint4*>(Bs + (tap * BN + n) * BK + swz(n, v)) = val;
-      }
-      __syncthreads();
-      // 3. the chunk's tensor-core products
-      struct_products(acc, As, Bs, pix, SW, wn, g, tig);
-      __syncthreads();
-    }
-  } else {
-    // cp.async of chunk q's raw tile, halo and weights into buffer `buf`
-    auto issue = [&](int buf, int q) {
-      int k, c0;
-      chunk_of(ops, q, k, c0);
-      const int ck = ops.c[k], offk = ops.off[k];
-      const __nv_bfloat16* xk = ops.x[k] + (size_t)img * H * W * ck;
-      __nv_bfloat16* As = smem + buf * buf_elems;
-      __nv_bfloat16* Bs = As + n_stage * KP;
-      for (int i = tid; i < n_stage * (BK / 8); i += THREADS) {
-        const int v = i % (BK / 8);
-        const int cell = i / (BK / 8);
-        const int ih = r0 - 1 + cell / SW, iw = col0 - 1 + cell % SW;
-        const int c = c0 + v * 8;
-        const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W && c < ck;
-        cp_async_16(smem_u32(As + (size_t)cell * KP + v * 8),
-                    in ? xk + (((size_t)ih * W + iw) * ck + c) : xk, in ? 16 : 0);
-      }
-      for (int i = tid; i < nvb; i += THREADS) {
-        const int v = i % (BK / 8);
-        const int rest = i / (BK / 8);
-        const int n = rest % BN, tap = rest / BN;
-        const int c = c0 + v * 8, co = n0 + n;
-        const bool in = co < Cout && c < ck;
-        cp_async_16(smem_u32(Bs + (tap * BN + n) * BK + swz(n, v)),
-                    in ? wt + (((size_t)co * NT + tap) * ctot + offk + c) : wt, in ? 16 : 0);
-      }
-      cp_async_commit();
-    };
-    // affine + SiLU of the landed chunk q in buffer `buf`, in place; cells
-    // outside the image (and channels past the operand) become 0 after it.
-    // The parity-class permutation moves all 32 channels of a pixel: one
-    // thread a pixel.
-    auto activate = [&](int buf, int q) {
-      int k, c0;
-      chunk_of(ops, q, k, c0);
-      const int ck = ops.c[k], offk = ops.off[k];
-      __nv_bfloat16* As = smem + buf * buf_elems;
-      for (int cell = tid; cell < n_stage; cell += THREADS) {
-        const int ih = r0 - 1 + cell / SW, iw = col0 - 1 + cell % SW;
-        const bool in_img = ih >= 0 && ih < H && iw >= 0 && iw < W;
-        __nv_bfloat16* cp = As + (size_t)cell * KP;
-        uint4 rawv[BK / 8];
-#pragma unroll
-        for (int u = 0; u < BK / 8; ++u) rawv[u] = *reinterpret_cast<const uint4*>(cp + u * 8);
-#pragma unroll
-        for (int u = 0; u < BK / 8; ++u) {
-          const int c = c0 + u * 8;
-          uint4 o = make_uint4(0u, 0u, 0u, 0u);
-          if (in_img && c < ck)
-            o = act8p(rawv[u], a_img ? a_img + offk + c : nullptr,
-                      b_img ? b_img + offk + c : nullptr, apply_silu);
-          store8(cp, u, o);
-        }
-      }
-    };
-
-    issue(0, 0);
-    cp_async_wait_all();
-    __syncthreads();
-    activate(0, 0);
-    __syncthreads();
-    for (int q = 0; q < n_chunks; ++q) {
-      const int cur = q & 1;
-      const bool more = q + 1 < n_chunks;
-      if (more) issue(cur ^ 1, q + 1);  // in flight during the products
-      const __nv_bfloat16* As = smem + cur * buf_elems;
-      struct_products(acc, As, As + n_stage * KP, pix, SW, wn, g, tig);
-      if (more) {
-        cp_async_wait_all();
-        __syncthreads();
-        activate(cur ^ 1, q + 1);
-      }
-      __syncthreads();
-    }
-  }
-
-  // epilogue: + bias (+ residual) in f32, one rounding, stats of the
-  // stored value squared in f32; the shortcut + pb in f32, one rounding
-  float t1[4][2], t2[4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) t1[ni][0] = t1[ni][1] = t2[ni][0] = t2[ni][1] = 0.f;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = wm * 32 + mi * 16 + hf * 8 + g;
-      if (m >= tile_px) continue;
-      const int oh = r0 + m / TW, ow = col0 + m % TW;
-      if (oh >= H || ow >= W) continue;
-      const size_t pbase = (((size_t)img * H + oh) * W + ow) * Cout;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn * 32 + ni * 8 + tig * 2;
-        if (n >= Cout) continue;
-        const size_t o = pbase + n;
-        float v0 = acc[mi][ni][hf * 2], v1 = acc[mi][ni][hf * 2 + 1];
-        if (bias != nullptr) v0 += bias[n], v1 += bias[n + 1];
-        if (residual != nullptr) {
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(residual + o);
-          v0 += __low2float(r);
-          v1 += __high2float(r);
-        }
-        const __nv_bfloat162 out = __floats2bfloat162_rn(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(y + o) = out;
-        const float q0 = __low2float(out), q1 = __high2float(out);
-        t1[ni][0] += q0;
-        t1[ni][1] += q1;
-        t2[ni][0] += q0 * q0;
-        t2[ni][1] += q1 * q1;
-      }
-    }
-  }
-  if (s1 != nullptr) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float u1 = t1[ni][j], u2 = t2[ni][j];
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {  // sum over g (same tig)
-          u1 += __shfl_xor_sync(0xffffffffu, u1, off);
-          u2 += __shfl_xor_sync(0xffffffffu, u2, off);
-        }
-        const int n = n0 + wn * 32 + ni * 8 + tig * 2 + j;
-        if (g == 0 && n < Cout) {
-          atomicAdd(s1 + (size_t)img * Cout + n, u1);
-          atomicAdd(s2 + (size_t)img * Cout + n, u2);
-        }
-      }
-    }
-  }
-  if (!PROJ) return;
-
-  // the shortcut: raw tile pixels x P over the same chunks, in acc again
-  // (channels in their own order: P is a plain matrix in every mode)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-  for (int k = 0; k < ops.n; ++k) {
-    const int ck = ops.c[k], offk = ops.off[k];
-    const __nv_bfloat16* xk = ops.x[k] + (size_t)img * H * W * ck;
-    for (int c0 = 0; c0 < ck; c0 += BK) {
-      for (int i = tid; i < tile_px * (BK / 8); i += THREADS) {
-        const int v = i % (BK / 8), m = i / (BK / 8);
-        const int ih = r0 + m / TW, iw = col0 + m % TW, c = c0 + v * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (ih < H && iw < W && c < ck)
-          val = *reinterpret_cast<const uint4*>(xk + (((size_t)ih * W + iw) * ck + c));
-        *reinterpret_cast<uint4*>(Rs + m * KP + v * 8) = val;
-      }
-      for (int i = tid; i < BN * (BK / 8); i += THREADS) {
-        const int v = i % (BK / 8), n = i / (BK / 8);
-        const int c = c0 + v * 8, co = n0 + n;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (co < Cout && c < ck)
-          val = *reinterpret_cast<const uint4*>(pw + ((size_t)co * ctot + offk + c));
-        *reinterpret_cast<uint4*>(Ps + n * BK + swz(n, v)) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) warp_mma_k16(acc, Rs, raw, raw, Ps, wn, g, tig, kk);
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = wm * 32 + mi * 16 + hf * 8 + g;
-      if (m >= tile_px) continue;
-      const int oh = r0 + m / TW, ow = col0 + m % TW;
-      if (oh >= H || ow >= W) continue;
-      const size_t pbase = (((size_t)img * H + oh) * W + ow) * Cout;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn * 32 + ni * 8 + tig * 2;
-        if (n >= Cout) continue;
-        *reinterpret_cast<__nv_bfloat162*>(proj + pbase + n) = __floats2bfloat162_rn(
-            acc[mi][ni][hf * 2] + pbias[n], acc[mi][ni][hf * 2 + 1] + pbias[n + 1]);
-      }
-    }
-  }
-}
-
-typedef void (*StructKernel)(const Operands, int, int, const float*, const float*,
-                             const __nv_bfloat16*, const float*, const __nv_bfloat16*,
-                             const __nv_bfloat16*, const float*, __nv_bfloat16*,
-                             __nv_bfloat16*, float*, float*, int, int, int, int, int, int,
-                             int, int);
-
-template <bool PROJ>
-StructKernel pick_struct(int pipelined) {
-  return pipelined ? struct_conv_kernel<PROJ, true> : struct_conv_kernel<PROJ, false>;
-}
-
-// Dynamic shared memory of a packed launch, in bytes: one buffer of the
-// staged tile and the chunk's weights (32,704 at W >= 32), two with
-// `pipelined`. The shortcut pass fits in the first buffer.
-size_t struct_smem_bytes(int W, int pipelined, int* th, int* tw) {
-  *tw = W < MAX_TW ? W : MAX_TW;
-  *th = BM / *tw;
-  const size_t elems = (size_t)(*th + 2) * (*tw + 2) * KP + NT * BN * BK;
-  return elems * sizeof(__nv_bfloat16) * (pipelined ? 2 : 1);
-}
-
-int launch_struct(const void* const* xs, const int* cs, int n_ops, const void* a, const void* b,
-                  const void* wt, const void* bias, const void* residual, const void* pw,
-                  const void* pbias, void* y, void* proj, void* s1, void* s2, int B, int H,
-                  int W, int Cout, int apply_silu, int pipelined, cudaStream_t stream) {
-  Operands ops;
-  int ctot = 0, n_chunks = 0;
-  for (int k = 0; k < MAX_OPS; ++k) {
-    ops.x[k] = nullptr;
-    ops.c[k] = ops.off[k] = 0;
-  }
-  for (int k = 0; k < n_ops; ++k) {
-    if (cs[k] % BK != 0) return (int)cudaErrorInvalidValue;
-    ops.x[k] = (const __nv_bfloat16*)xs[k];
-    ops.c[k] = cs[k];
-    ops.off[k] = ctot;
-    ctot += cs[k];
-    n_chunks += cs[k] / BK;
-  }
-  ops.n = n_ops;
-  int th, tw;
-  const size_t smem = struct_smem_bytes(W, pipelined, &th, &tw);
-  const int tiles_w = (W + tw - 1) / tw;
-  const int tiles = ((H + th - 1) / th) * tiles_w;
-  const dim3 grid(B * tiles, (Cout + BN - 1) / BN);
-  StructKernel kernel =
-      pw != nullptr ? pick_struct<true>(pipelined) : pick_struct<false>(pipelined);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, stream>>>(
-      ops, ctot, n_chunks, (const float*)a, (const float*)b, (const __nv_bfloat16*)wt,
-      (const float*)bias, (const __nv_bfloat16*)residual, (const __nv_bfloat16*)pw,
-      (const float*)pbias, (__nv_bfloat16*)y, (__nv_bfloat16*)proj, (float*)s1, (float*)s2, H,
-      W, Cout, th, tw, tiles_w, tiles, apply_silu);
-  return (int)cudaGetLastError();
 }
 
 int launch_wgmma(const void* const* xs, const int* cs, int n_ops, const void* a, const void* b,
                  const void* wt, const void* bias, const void* residual, const void* pw,
                  const void* pbias, void* y, void* proj, void* s1, void* s2, int B, int H,
-                 int W, int Cout, int apply_silu, int th, int tw, int bn, int mt, int stages,
-                 int grid, cudaStream_t stream) {
-  if (th <= 0 || tw <= 0 || th * tw > 128 * mt || stages < 2 || stages > WG_MAX_STAGES)
+                 int W, int Cout, int apply_silu, int packed, int th, int tw, int bn, int mt,
+                 int stages, int grid, const int* toff, cudaStream_t stream) {
+  if (th <= 0 || tw <= 0 || th * tw > 128 * mt || stages < 2 || stages > WG_MAX_STAGES ||
+      (packed && toff == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = wg_smem_bytes(bn, th, tw, stages);
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  WgKernel kernel = pw != nullptr ? pick_wgmma<true>(bn, mt) : pick_wgmma<false>(bn, mt);
+  WgKernel kernel = packed ? (pw != nullptr ? pick_wgmma<true, true>(bn, mt)
+                                            : pick_wgmma<false, true>(bn, mt))
+                          : (pw != nullptr ? pick_wgmma<true, false>(bn, mt)
+                                           : pick_wgmma<false, false>(bn, mt));
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   ConvParams p;
   int ctot = 0, n_q = 0;
@@ -1255,6 +829,11 @@ int launch_wgmma(const void* const* xs, const int* cs, int n_ops, const void* a,
   p.tiles_per_image = ((H + th - 1) / th) * p.tiles_w;
   p.n_ntiles = (Cout + bn - 1) / bn;
   p.stages = stages;
+  for (int i = 0; i < 16; ++i) {
+    p.toff[i] = packed ? toff[i] : 0;
+    // a shifted read stays inside the staged tile and its halo
+    if (p.toff[i] < 0 || p.toff[i] > 2 * (tw + 2) + 2) return (int)cudaErrorInvalidValue;
+  }
   // persistent: `grid` blocks walk the output tiles (grid <= 0: one a tile)
   const long long tiles = (long long)B * p.tiles_per_image * p.n_ntiles;
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
@@ -1277,18 +856,17 @@ extern "C" {
 // s2 (B,Cout) f32, zeroed by the caller, or both null. 1 <= n_ops <= 4,
 // every cs[k] and Cout a positive multiple of 8.
 //
-// Unpacked (packed_struct 0): wt is (n_q, 9, cpad, 64) bf16 and pw
-// (n_q, cpad, 64), with n_q the chunks of 64 channels over the operands
-// (each operand's channels zero-padded to whole chunks), cpad Cout rounded
-// up to 64 (zero rows) and each 128-byte row of 64 channels stored with its
-// 16-byte group j at j ^ (row mod 8); th, tw, bn, mt, stages and grid are
-// `conv_plan`'s tile, N tile, m64 tiles a warpgroup, ring depth and number
-// of (persistent) blocks.
-// `pipelined` is ignored.
-//
-// Packed (packed_struct 1): every cs[k] a multiple of 32; wt the combined
-// taps (Cout, 4, sum cs) with each 32-channel chunk in parity-class order
-// and pw (Cout, sum cs); the plan's fields are ignored.
+// wt is (n_q, taps, cpad, 64) bf16 and pw (n_q, cpad, 64), with n_q the
+// chunks of 64 channels over the operands (each operand's channels
+// zero-padded to whole chunks), taps 9 (unpacked, packed_struct 0) or the 4
+// combined taps (packed_struct 1, each chunk's channels in parity-class
+// order, the shortcut's too), cpad Cout rounded up to 64 (zero rows) and
+// each 128-byte row of 64 channels stored with its 16-byte group j at
+// j ^ (row mod 8); th, tw, bn, mt, stages and grid are `conv_plan`'s tile,
+// N tile, m64 tiles a warpgroup, ring depth and number of (persistent)
+// blocks. `pipelined` is ignored. toff (packed; else null): 16 ints, the
+// staged offset of combined tap t's k-step ks at [4 t + ks] (`struct_
+// tap_offsets` on the host).
 //
 // Launches on `stream` and returns cudaGetLastError().
 int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
@@ -1298,7 +876,7 @@ int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
                                void* proj, void* s1, void* s2, int B, int H,
                                int W, int Cout, int apply_silu, int packed_struct,
                                int pipelined, int th, int tw, int bn, int mt, int stages,
-                               int grid, void* stream) {
+                               int grid, const int* toff, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cout % 8 != 0 || n_ops < 1 ||
       n_ops > MAX_OPS || (pw == nullptr) != (proj == nullptr) ||
       (pw != nullptr && pbias == nullptr) || (a == nullptr) != (b == nullptr) ||
@@ -1306,15 +884,13 @@ int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < n_ops; ++k)
     if (cs[k] <= 0 || cs[k] % 8 != 0 || xs[k] == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (packed_struct)
-    return launch_struct(xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2, B,
-                         H, W, Cout, apply_silu, pipelined, s);
+  (void)pipelined;
   return launch_wgmma(xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2, B, H,
-                      W, Cout, apply_silu, th, tw, bn, mt, stages, grid, s);
+                      W, Cout, apply_silu, packed_struct, th, tw, bn, mt, stages, grid, toff,
+                      (cudaStream_t)stream);
 }
 
-// The unpacked kernel's dynamic shared memory for a plan, in bytes (the
+// The kernel's dynamic shared memory for a plan, in bytes (the
 // host's `conv_plan` computes the same).
 size_t ml_mdm_conv3x3_smem_bytes(int bn, int th, int tw, int stages) {
   return wg_smem_bytes(bn, th, tw, stages);

@@ -343,12 +343,12 @@ class ResNet(nn.Module):
         """The sampling forward's weights: norm1's and norm2's scale and bias,
         conv1's kernel per operand slice ``cuts`` (of the unpacked input
         channels) and its bias, the shortcut's matrices per slice and bias,
-        conv2's kernel and bias, built once per parameter version. Unpacked,
-        the kernels and the shortcut's matrices are ``K2Weights``, which
-        keep K2's device layout of them once a launch has made it. Packed:
-        the vectors repeated, the kernels in K2·struct's combined form (each
-        operand's slice packed on its own: pack(concat) == concat(pack) in
-        the c-major order), the shortcut block-diagonal."""
+        conv2's kernel and bias, built once per parameter version. The
+        kernels and the shortcut's matrices are ``K2Weights``, which keep
+        K2's device layout of them (packed or not) once a launch has made
+        it. Packed: the vectors repeated, the kernels in K2·struct's
+        combined form (each operand's slice packed on its own: pack(concat)
+        == concat(pack) in the c-major order), the shortcut block-diagonal."""
         def build():
             vec = s2d.pack_channel_vector if packed else _identity
             kernel = packed_struct_kernel if packed else _identity
@@ -366,10 +366,9 @@ class ResNet(nn.Module):
                 pack1 = s2d.pack_conv1x1_kernel if packed else _identity
                 out["proj_kernel"] = tuple(pack1(k3[:, :, lo:hi])[0, 0] for lo, hi in cuts)
                 out["proj_bias"] = vec(self.conv3.bias)
-            if not packed:
-                for name in ("w1", "w2", "proj_kernel"):
-                    if name in out:
-                        out[name] = fused_resnet.K2Weights(out[name])
+            for name in ("w1", "w2", "proj_kernel"):
+                if name in out:
+                    out[name] = fused_resnet.K2Weights(out[name])
             return out
 
         modules = [m for m in self.children() if m is not self.time_layer]

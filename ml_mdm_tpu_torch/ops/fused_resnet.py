@@ -22,33 +22,30 @@ GroupNorm. Outputs come in the JAX order: y, then (s1, s2), then proj.
 (2, 2, 4C, 4Cout) form from ``struct_weights``. The packed kernel is 75%
 structural zeros, so the 9 taps collapse to 4 products over parity-selected
 neighbours (the JAX ``_struct_dots``); the result is the dense packed
-convolution's. Every operand's 4C is a multiple of 32 on the card.
+convolution's. On the card every operand's 4C is a multiple of 8, as
+unpacked.
 
 ``pipelined`` (K2·pipe, packed launches only): the launch overlaps the
-next channel chunk's loads with this chunk's tensor-core products. The JAX
-package pipelines launches of at least 4 TPU row blocks; the port's rule
-is its own (``pipelines``): by default (``None``) a packed launch pipelines
-when ``perf().fused_pipelined`` is on (``ML_MDM_TPU_FUSED_PIPELINED``,
-default 1), its operands hold at least ``PIPELINE_MIN_CHUNKS`` chunks of 32
-channels and its grid has at least ``PIPELINE_MIN_BLOCKS`` thread blocks;
-True asks for it wherever there are that many chunks, False never. The
-block threshold is the one that gave the least time summed over the packed
-and unpacked launch shapes of the sampling forwards and the ``train_1024``
-step, each timed pipelined and serial on an H100 with the earlier unpacked
-kernel (``chip_smoke.py``; PERF.md). The result is the serial kernel's. An
-unpacked launch ignores ``pipelined``: its kernel always loads the next
-chunk under this one's products.
+next channel chunk's loads with this chunk's tensor-core products. The
+kernel does so at every launch, packed or not, so ``pipelined`` changes no
+launch's result or time; it only says which packed launches count as
+K2·pipe, by the port's rule (``pipelines``), which keeps the launches the
+earlier packed kernel pipelined: by default (``None``) a packed launch
+counts when ``perf().fused_pipelined`` is on (``ML_MDM_TPU_FUSED_PIPELINED``,
+default 1), its operands hold at least ``PIPELINE_MIN_CHUNKS`` chunks of 64
+channels and its plan at least ``PIPELINE_MIN_TILES`` output tiles; True
+asks for it wherever there are that many chunks, False never. (The JAX
+package pipelines launches of at least 4 TPU row blocks.)
 
-Two CUDA kernels in ``csrc/fused_resnet.cu`` (its header says what bounds
-them on the H100 and how they are laid out): every unpacked launch runs
-the implicit-GEMM kernel on ``wgmma``, whose tile, N tile, ring depth and
-grid ``conv_plan`` chooses and whose weights ``conv_weight_layout`` lays
-out (``K2Weights`` keeps that layout across calls); packed launches run
-the ``mma.sync`` kernel of K2·struct. They are built with ``nvcc`` for
-``sm_90a`` at first use into ``ml_mdm_tpu_torch/_build/`` and loaded with
-ctypes. A CPU tensor takes the plain version; a CUDA tensor launches a
-kernel or raises. Without a and b (``conv3x3_fast``) the prologue is the
-identity.
+One CUDA kernel in ``csrc/fused_resnet.cu`` (its header says what bounds it
+on the H100 and how it is laid out): the implicit-GEMM kernel on
+``wgmma``, at 9 taps for every unpacked launch and at the 4 combined taps
+for every packed one, whose tile, N tile, ring depth and grid ``conv_plan``
+chooses and whose weights ``conv_weight_layout`` lays out (``K2Weights``
+keeps that layout across calls). It is built with ``nvcc`` for ``sm_90a``
+at first use into ``ml_mdm_tpu_torch/_build/`` and loaded with ctypes. A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Without a and b (``conv3x3_fast``) the prologue is the identity.
 
 ``affine_silu_conv3x3_vjp`` (kernel K3, replacing the JAX package's
 ``custom_vjp`` of the same name) is the differentiable single-operand
@@ -90,19 +87,22 @@ from ml_mdm_tpu_torch.perf import perf
 # gradient)
 launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0, "K2·struct": 0, "K2·pipe": 0, "K3": 0}
 MAX_OPERANDS = 4
-CHUNK = 32  # input channels per reduction chunk of the packed kernel
-PIPELINE_MIN_CHUNKS = 2
-PIPELINE_MIN_BLOCKS = 4096
-BM, BN = 128, 64  # output pixels and channels of one thread block of the packed kernel
 
-# the unpacked (wgmma) kernel: chunks of 64 channels (one 128-byte row of
-# the 128-byte swizzle), (N tile, m64 tiles a warpgroup) in the order the
-# plan tries them, the ring's deepest, a block's shared-memory limit
+# the wgmma kernel: chunks of 64 channels (one 128-byte row of the 128-byte
+# swizzle), (N tile, m64 tiles a warpgroup) in the order the plan tries
+# them, the ring's deepest, a block's shared-memory limit
 WG_CHUNK = 64
 CANDIDATES = ((128, 2), (256, 1), (128, 1), (64, 2), (64, 1))
 MAX_STAGES = 8
 SMEM_LIMIT = 232448
 H100_SMS = 132
+# K2·pipe's rule (``pipelines``) in the kernel's terms: chunks of 64
+# channels, output tiles of the plan. At every packed launch shape of the
+# three models (N tiles of 128 and tiles of 8 x 32 pixels) it selects the
+# launches the earlier packed kernel pipelined: those of at least 4096 of
+# its blocks of 128 pixels x 64 channels
+PIPELINE_MIN_CHUNKS = 2
+PIPELINE_MIN_TILES = 1024
 
 
 def reset_launch_counts() -> None:
@@ -117,22 +117,24 @@ def _as_tuple(v):
 
 class K2Weights:
     """One launch's weights, one tensor per operand: the (3, 3, C_k, Cout)
-    kernels of the 3x3 convolution or the (C_k, Cout) matrices of the
-    shortcut, with the unpacked kernel's layout of them
-    (``conv_weight_layout``) made at the first launch that needs it and
-    kept. Pass it as ``w`` or ``proj_kernel`` to keep the layout across
-    calls: sampling keeps one per module (``models/layers.py``
-    ``cached_weights``). The plain version and the packed kernel read
-    ``tensors``."""
+    kernels of the 3x3 convolution (packed: also their combined (2, 2,
+    C_k, Cout) form) or the (C_k, Cout) matrices of the shortcut, with the
+    kernel's layout of them (``conv_weight_layout``, packed or not) made at
+    the first launch that needs it and kept. Pass it as ``w`` or
+    ``proj_kernel`` to keep the layout across calls: sampling keeps one per
+    module (``models/layers.py`` ``cached_weights``). The plain version
+    reads ``tensors``."""
 
     def __init__(self, tensors):
         self.tensors = _as_tuple(tensors)
-        self._layout = None
+        self._layouts = {}
 
-    def layout(self, device) -> torch.Tensor:
-        if self._layout is None or self._layout.device != device:
-            self._layout = conv_weight_layout(tuple(t.to(device) for t in self.tensors))
-        return self._layout
+    def layout(self, device, packed: bool = False) -> torch.Tensor:
+        key = (device, bool(packed))
+        if key not in self._layouts:
+            self._layouts[key] = conv_weight_layout(tuple(t.to(device) for t in self.tensors),
+                                                    packed)
+        return self._layouts[key]
 
 
 def _kernels(w):
@@ -141,40 +143,41 @@ def _kernels(w):
     return w.tensors if isinstance(w, K2Weights) else _as_tuple(w)
 
 
-def grid_blocks(bsz: int, h: int, w: int, cout: int) -> int:
-    """Thread blocks of a packed launch: one per tile of TH x TW output
-    pixels (TW = min(W, 32), TH = BM / TW) and 64 output channels."""
-    tw = min(w, 32)
-    th = BM // tw
-    return bsz * -(-h // th) * -(-w // tw) * -(-cout // BN)
+def output_tiles(bsz: int, h: int, w: int, cout: int) -> int:
+    """Output tiles (pixel tile, N tile) of a packed launch's plan on an
+    H100: what its persistent blocks walk."""
+    return _plan(bsz, h, w, (WG_CHUNK,), cout, H100_SMS, False, True).tiles
 
 
 def pipelines(cs, bsz: int, h: int, w: int, cout: int, pipelined=None,
               packed_struct: bool = False) -> bool:
     """Whether a launch over operands of ``cs`` channels and a (bsz, h, w,
-    cout) output runs K2·pipe: a packed launch of at least
-    PIPELINE_MIN_CHUNKS chunks of 32 channels, and ``pipelined``, or for
-    None the ``fused_pipelined`` gate and at least PIPELINE_MIN_BLOCKS
-    thread blocks. Never an unpacked launch."""
-    if not packed_struct or sum(-(-c // CHUNK) for c in cs) < PIPELINE_MIN_CHUNKS:
+    cout) output counts as K2·pipe: a packed launch of at least
+    PIPELINE_MIN_CHUNKS chunks of 64 channels (each operand's channels in
+    whole chunks), and ``pipelined``, or for None the ``fused_pipelined``
+    gate and at least PIPELINE_MIN_TILES output tiles. Never an unpacked
+    launch. The kernel stages the next chunk under this one's products at
+    every launch, so the answer changes no result."""
+    if not packed_struct or sum(-(-c // WG_CHUNK) for c in cs) < PIPELINE_MIN_CHUNKS:
         return False
     if pipelined is not None:
         return bool(pipelined)
-    return perf().fused_pipelined and grid_blocks(bsz, h, w, cout) >= PIPELINE_MIN_BLOCKS
+    return perf().fused_pipelined and output_tiles(bsz, h, w, cout) >= PIPELINE_MIN_TILES
 
 
-# -- the unpacked kernel's plan and weight layout ---------------------------
+# -- the kernel's plan and weight layout --------------------------------------
 
 
 class ConvPlan(NamedTuple):
-    """One unpacked launch: a block owns a tile of ``th`` x ``tw`` output
-    pixels (at most 128 ``mt``: two warpgroups of ``mt`` m64 tiles) by
-    ``bn`` output channels; the weights come through a ring of ``stages``
-    slots of one tap's (bn x 64) slice; ``smem`` dynamic shared-memory
-    bytes; ``grid`` blocks, ``persistent``: each walks the output tiles
-    (pixel tile, N tile) block, block + grid, ...; ``l2_bytes`` what the
-    launch reads from L2: per output tile its weight slices and, per chunk
-    of 64 channels, its raw tile and halo."""
+    """One launch: a block owns a tile of ``th`` x ``tw`` output pixels (at
+    most 128 ``mt``: two warpgroups of ``mt`` m64 tiles) by ``bn`` output
+    channels; the weights come through a ring of ``stages`` slots of one
+    tap's (bn x 64) slice; ``smem`` dynamic shared-memory bytes; ``grid``
+    blocks, ``persistent``: each walks the ``tiles`` output tiles (pixel
+    tile, N tile) block, block + grid, ...; ``l2_bytes`` what the launch
+    reads from L2: per output tile its weight slices (9 taps, or the 4
+    combined ones packed, and the shortcut's) and, per chunk of 64
+    channels, its raw tile and halo."""
     th: int
     tw: int
     bn: int
@@ -184,10 +187,11 @@ class ConvPlan(NamedTuple):
     grid: int
     persistent: bool
     l2_bytes: int
+    tiles: int
 
 
 def smem_bytes(bn: int, th: int, tw: int, stages: int) -> int:
-    """Dynamic shared memory of an unpacked launch (``csrc/fused_resnet.cu``
+    """Dynamic shared memory of a launch (``csrc/fused_resnet.cu``
     ``wg_smem_bytes``): the ring, two activated tiles and the raw tile (128
     bytes a staged pixel), the ring's barriers, two chunks' coefficients a
     and b, the stats and 1024 bytes of alignment slack."""
@@ -196,9 +200,10 @@ def smem_bytes(bn: int, th: int, tw: int, stages: int) -> int:
 
 
 def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
-              proj: bool = False) -> ConvPlan:
-    """The plan of one unpacked launch over operands of ``cs`` channels
-    (an int or a tuple) and a (bsz, h, w, cout) output. The tile is TW =
+              proj: bool = False, packed: bool = False) -> ConvPlan:
+    """The plan of one launch over operands of ``cs`` channels (an int or a
+    tuple) and a (bsz, h, w, cout) output, unpacked or packed (the same
+    tiles and ring; 4 taps a chunk, not 9). The tile is TW =
     min(W, 32) columns by TH = min(128 mt / TW, H, 32) rows. The (N tile,
     m64 tiles) pairs are tried in CANDIDATES' order, skipping an N tile
     wider than Cout rounded up to 64 and mt = 2 where the tile would not
@@ -213,6 +218,7 @@ def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
     the tiles in SMEM_LIMIT."""
     cs = tuple(int(c) for c in _as_tuple(cs))
     n_q = sum(-(-c // WG_CHUNK) for c in cs)
+    taps = 4 if packed else 9
     cpad = -(-cout // 64) * 64
     best = None
     for bn, mt in CANDIDATES:
@@ -227,10 +233,10 @@ def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
             continue
         tiles = bsz * -(-h // th) * -(-w // tw)
         work = tiles * -(-cout // bn)  # output tiles
-        l2 = (tiles * n_q * (9 + proj) * cpad * 128
+        l2 = (tiles * n_q * (taps + proj) * cpad * 128
               + work * n_q * (1 + proj) * (th + 2) * (tw + 2) * 128)
         plan = ConvPlan(th, tw, bn, mt, stages, smem_bytes(bn, th, tw, stages), min(work, sms),
-                        True, l2)
+                        True, l2, work)
         if work >= sms:
             return plan
         if best is None or work > best.grid:
@@ -238,17 +244,40 @@ def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
     return best
 
 
-def conv_weight_layout(ws) -> torch.Tensor:
-    """The unpacked kernel's weights: ``ws`` one tensor per operand, the
-    (3, 3, C_k, Cout) kernels of the convolution or the (C_k, Cout)
-    matrices of the shortcut (one tap). Returns (n_q, taps, cpad, 64) bf16:
-    chunk q of 64 input channels over the operands (each operand's
-    channels zero-padded to whole chunks), tap ky*3 + kx, output channel n
-    (Cout zero-padded to cpad, a multiple of 64), and the chunk's 64
-    channels of row n stored as 8 groups of 8 with group j at position
-    j ^ (n mod 8): the 128-byte swizzle in which ``wgmma`` reads a K-major
-    B operand by descriptor. Each (q, tap) slice is contiguous, and so is
-    any run of its rows, so a block's slice comes in by one bulk copy."""
+def struct_tap_offsets(tw: int):
+    """The packed kernel's 16 staged offsets, [4 tap + ks]: where the A rows
+    of combined tap ``tap`` = 2 rsel + csel at k-step ``ks`` start, from the
+    tile's output pixel 0, in a staged tile of rows TW + 2 pixels wide. K-step
+    ks holds parity class (ei, ej) = (ks >> 1, ks & 1) (``conv_weight_layout``),
+    so each pair is one shift (dr, dc): a row select reads the row above for
+    ei = 1 and below for ei = 0, a column select the column left for ej = 1
+    and right for ej = 0 (the JAX ``_struct_dots``)."""
+    sw = tw + 2
+    out = []
+    for tap in range(4):
+        for ks in range(4):
+            dr = (-1 if ks >> 1 else 1) if tap >> 1 else 0
+            dc = (-1 if ks & 1 else 1) if tap & 1 else 0
+            out.append((1 + dr) * sw + 1 + dc)
+    return tuple(out)
+
+
+def conv_weight_layout(ws, packed: bool = False) -> torch.Tensor:
+    """The kernel's weights: ``ws`` one tensor per operand, the (3, 3, C_k,
+    Cout) kernels of the convolution (packed: the packed kernels, which go
+    through ``struct_weights``, or their combined (2, 2, C_k, Cout) form) or
+    the (C_k, Cout) matrices of the shortcut (one tap). Returns (n_q, taps,
+    cpad, 64) bf16: chunk q of 64 input channels over the operands (each
+    operand's channels zero-padded to whole chunks), tap ky*3 + kx (packed:
+    combined tap 2 rsel + csel), output channel n (Cout zero-padded to cpad,
+    a multiple of 64), and the chunk's 64 channels of row n (packed: in the
+    staged parity-class order, channel 4 i + code at position 16 code + i,
+    code = 2 ei + ej) stored as 8 groups of 8 with group j at position
+    j ^ (n mod 8): the 128-byte swizzle in which ``wgmma`` reads a K-major B
+    operand by descriptor. Each (q, tap) slice is contiguous, and so is any
+    run of its rows, so a block's slice comes in by one bulk copy."""
+    if packed:
+        ws = tuple(struct_weights(t) if t.dim() == 4 and t.shape[0] == 3 else t for t in ws)
     ws = tuple(t if t.dim() == 4 else t[None, None] for t in ws)
     cout = ws[0].shape[-1]
     cpad = -(-cout // 64) * 64
@@ -256,13 +285,28 @@ def conv_weight_layout(ws) -> torch.Tensor:
     for wk in ws:
         kh, kw, c, _ = wk.shape
         cp = -(-c // WG_CHUNK) * WG_CHUNK
-        wk = F.pad(wk.to(torch.bfloat16).reshape(kh * kw, c, cout), (0, cpad - cout, 0, cp - c))
+        wk = wk.to(torch.bfloat16).reshape(kh * kw, c, cout)
+        if (cp, cpad) != (c, cout):
+            wk = F.pad(wk, (0, cpad - cout, 0, cp - c))
         blocks.append(wk.reshape(kh * kw, cp // WG_CHUNK, WG_CHUNK, cpad))
-    wt = torch.cat(blocks, dim=1).permute(1, 0, 3, 2)  # (n_q, taps, cpad, 64)
-    wt = wt.reshape(*wt.shape[:3], 8, 8)
-    n = torch.arange(cpad, device=wt.device)
-    group = torch.arange(8, device=wt.device)[None, :] ^ (n[:, None] % 8)
-    return wt[:, :, n[:, None], group].reshape(*wt.shape[:3], WG_CHUNK).contiguous()
+    wt = (blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)).permute(1, 0, 3, 2)
+    return torch.gather(wt, 3, _layout_order(cpad, packed, wt.device).expand(wt.shape))
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_order(cpad: int, packed: bool, device) -> torch.Tensor:
+    """(cpad, 64) int64: the chunk channel that each element (n, position)
+    of a weight row holds: position 8 g + e of row n is element e of 16-byte
+    group g ^ (n mod 8), logical position 8 (g ^ (n mod 8)) + e; packed, the
+    channel at logical position p is 4 (p mod 16) + p // 16. Made once per
+    (cpad, packing, device), so that a launch lays its weights out by one
+    gather."""
+    n = torch.arange(cpad)[:, None]
+    pos = torch.arange(WG_CHUNK)[None, :]
+    p = 8 * ((pos // 8) ^ (n % 8)) + pos % 8
+    if packed:
+        p = 4 * (p % 16) + p // 16
+    return p.to(device)
 
 
 # -- K2·struct's pieces (``_struct_weights``, ``_struct_dots``, ``_struct_wgrad``) --
@@ -404,13 +448,13 @@ def affine_silu_conv3x3(x, a, b, w, bias, residual=None, *,
 def conv3x3_fast(x, w, bias, residual=None, packed_struct: bool = False):
     """3x3 stride-1 convolution with padding 1 (no affine, no SiLU: K2's
     identity prologue, which reads no coefficients) through the same
-    kernels (``conv3x3_fast`` of the JAX package). Packed, a channel count
-    that is not a multiple of 32 (the packed image's 12) is padded with
-    zero channels, and the kernel with zero rows: the same convolution in
-    whole chunks."""
+    kernel (``conv3x3_fast`` of the JAX package). Packed, a channel count
+    that is not a multiple of 8 (the packed image's 12) is padded with zero
+    channels, and the kernel with zero rows: the same convolution in whole
+    16-byte groups (the kernel pads to its chunks of 64 itself)."""
     c = x.shape[-1]
-    if packed_struct and c % CHUNK:
-        pad = CHUNK - c % CHUNK
+    if packed_struct and c % 8:
+        pad = 8 - c % 8
         x, w = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
     return affine_silu_conv3x3(x, None, None, w, bias, residual, apply_silu=False,
                                packed_struct=packed_struct)
@@ -522,9 +566,6 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
         raise ValueError(f"affine_silu_conv3x3: expected (B, H, W, C), got {tuple(x0.shape)}")
     bsz, h, wd = x0.shape[:3]
     cout = ws[0].shape[-1]
-    if packed_struct:  # the combined taps, (2, 2, C, Cout)
-        ws = tuple(struct_weights(wk) if wk.shape[0] == 3 else wk for wk in ws)
-    kh = 2 if packed_struct else 3
     cs = []
     for xk, wk in zip(xs, ws):
         if xk.dtype != torch.bfloat16:
@@ -532,16 +573,13 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
         if xk.device != x0.device or xk.shape[:3] != (bsz, h, wd):
             raise ValueError("affine_silu_conv3x3: operands differ in device or (B, H, W)")
         c = xk.shape[3]
-        if tuple(wk.shape) != (kh, kh, c, cout):
-            raise ValueError(f"affine_silu_conv3x3: weight {tuple(wk.shape)} for C={c}, Cout={cout}")
-        if c % (CHUNK if packed_struct else 8) or cout % 8:
+        kh = wk.shape[0] if wk.dim() == 4 else 0
+        if kh not in ((3, 2) if packed_struct else (3,)) or tuple(wk.shape) != (kh, kh, c, cout):
             raise ValueError(
-                f"affine_silu_conv3x3: C={c} must be a multiple of "
-                f"{CHUNK if packed_struct else 8}{' (packed)' if packed_struct else ''} "
-                f"and Cout={cout} of 8"
-            )
+                f"affine_silu_conv3x3: weight {tuple(wk.shape)} for C={c}, Cout={cout}")
+        if c % 8 or cout % 8:
+            raise ValueError(f"affine_silu_conv3x3: C={c} and Cout={cout} must be multiples of 8")
         cs.append(c)
-    ctot = sum(cs)
     pipe = pipelines(cs, bsz, h, wd, cout, pipelined, packed_struct)
     dev = x0.device
     xs = [_aligned(xk) for xk in xs]
@@ -559,22 +597,12 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
             f"affine_silu_conv3x3: the kernel's shortcut takes one (C_k, {cout}) "
             f"matrix per operand, got {[tuple(p.shape) for p in pks]}"
         )
-    plan = (0,) * 6
-    if packed_struct:
-        # (2, 2, C, Cout) per operand -> (Cout, 4, sum C), each chunk of 32
-        # channels in the kernel's parity-class order (channel i*4 + code at
-        # code*8 + i)
-        wt = torch.cat([wk.to(dev, torch.bfloat16) for wk in ws], dim=2)
-        wt = wt.permute(3, 0, 1, 2).reshape(cout, 4, ctot // CHUNK, CHUNK // 4, 4)
-        wt = wt.transpose(-1, -2).reshape(cout, 4 * ctot).contiguous()
-        pw = (None if pks is None
-              else torch.cat([p.to(dev, torch.bfloat16) for p in pks], dim=0).t().contiguous())
-    else:
-        p = _plan(bsz, h, wd, tuple(cs), cout, _sm_count(dev.index), pks is not None)
-        plan = (p.th, p.tw, p.bn, p.mt, p.stages, p.grid)
-        wt = w.layout(dev) if isinstance(w, K2Weights) else conv_weight_layout(ws)
-        pw = (None if pks is None else proj_kernel.layout(dev)
-              if isinstance(proj_kernel, K2Weights) else conv_weight_layout(pks))
+    p = _plan(bsz, h, wd, tuple(cs), cout, _sm_count(dev.index), pks is not None, packed_struct)
+    plan = (p.th, p.tw, p.bn, p.mt, p.stages, p.grid)
+    wt = (w.layout(dev, packed_struct) if isinstance(w, K2Weights)
+          else conv_weight_layout(ws, packed_struct))
+    pw = (None if pks is None else proj_kernel.layout(dev, packed_struct)
+          if isinstance(proj_kernel, K2Weights) else conv_weight_layout(pks, packed_struct))
     if bias is not None:
         bias = bias.to(dev, torch.float32).contiguous()
     if residual is not None:
@@ -596,11 +624,12 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
 
     x_ptrs = (ctypes.c_void_p * n)(*[xk.data_ptr() for xk in xs])
     c_arr = (ctypes.c_int * n)(*cs)
+    toff = (ctypes.c_int * 16)(*struct_tap_offsets(p.tw)) if packed_struct else None
     with torch.cuda.device(dev):  # the C side launches on the current device
         err = lib.ml_mdm_affine_silu_conv3x3(
             x_ptrs, c_arr, n, ptr(a), ptr(b), ptr(wt), ptr(bias), ptr(residual),
             ptr(pw), ptr(pb), ptr(y), ptr(proj), ptr(s1), ptr(s2),
-            bsz, h, wd, cout, int(apply_silu), int(packed_struct), int(pipe), *plan,
+            bsz, h, wd, cout, int(apply_silu), int(packed_struct), int(pipe), *plan, toff,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
     if err != 0:
@@ -634,7 +663,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.ml_mdm_affine_silu_conv3x3
     fn.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     smem = lib.ml_mdm_conv3x3_smem_bytes

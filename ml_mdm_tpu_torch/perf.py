@@ -4,7 +4,7 @@
 |------------------------------------------------|---------|-------|
 | flash (ML_MDM_TPU_FLASH)                       | 0       | unmasked attention with lengths that are multiples of 128 goes through the hand-written flash kernel (``ops/attention.py`` ``flash_attention``, K4) in place of the two ``torch.matmul`` calls; forward only. ``ops.attention.use_flash`` overrides it in code. |
 | bf16_logits (ML_MDM_TPU_BF16_LOGITS)           | 1       | the matmul route stores the attention logits in bf16 under bf16 compute (0: in f32). |
-| fused_pipelined (ML_MDM_TPU_FUSED_PIPELINED)   | 1       | K2 launches with at least ``PIPELINE_MIN_CHUNKS`` channel chunks and ``PIPELINE_MIN_BLOCKS`` thread blocks (``ops/fused_resnet.py`` ``pipelines``) run the software-pipelined variant (K2·pipe): the next chunk's loads overlap this chunk's products. |
+| fused_pipelined (ML_MDM_TPU_FUSED_PIPELINED)   | 1       | packed K2 launches with at least ``PIPELINE_MIN_CHUNKS`` channel chunks and ``PIPELINE_MIN_TILES`` output tiles (``ops/fused_resnet.py`` ``pipelines``) count as the software-pipelined variant (K2·pipe); the kernel overlaps the next chunk's loads with this chunk's products at every launch, so the gate changes no result. |
 | pack64_min_side (ML_MDM_TPU_PACK64_MIN_SIDE)   | 256     | least image side at which a stage of at most 64 channels runs space-to-depth packed (stages of at most 32 channels pack from the U-Net config's ``pack_min_side``; ``models/layers.py`` ``ResNetBlockStage.packs_at``). |
 | pack_max_ch (ML_MDM_TPU_PACK_MAX_CH)           | 64      | the widest stage that may pack (32: only the 32-channel stages). |
 

@@ -23,10 +23,10 @@ max|ref| (the kernel rounds P to bf16 for the second product and the output
 once to bf16; the JAX package's own test of its kernel allows the same),
 and <= 1e-2 against the f32 result before its rounding; K1's split sums
 bitwise equal from call to call. K2·struct and its backward: as K2 and K3.
-K2·pipe against the serial packed K2: y and the shortcut bitwise equal (the
-same activated values, the same chunk and tap order), the stats <= 1e-5 *
-max|ref| (f32 atomics in another order); an unpacked launch asked to
-pipeline runs the one unpacked kernel, with the same y. ``struct_wgrad`` of
+K2·pipe against the serial packed K2: one kernel runs both (it stages the
+next chunk under this one's products at every launch), so y and the
+shortcut are bitwise equal, the stats <= 1e-5 * max|ref| (f32 atomics in
+another order); likewise an unpacked launch asked to pipeline. ``struct_wgrad`` of
 bf16 operands on the card against the f32 products of the same values:
 <= 1e-5 * max|ref| (both f32 sums). The probes P1 and P2
 (``ops/kernel_anatomy.py``) against their plain versions: <= 2e-2 *
@@ -39,7 +39,11 @@ rows of 8 to 96 pixels and ragged heights, at channel counts that are
 multiples of 8 but not of 32, at a Cout that is no multiple of its N tile,
 in every mode (1-4 operands, the shortcut with and without the stats, the
 residual, SiLU off, the identity prologue), in each of its five (N tile,
-m64 tiles) instances, and at the 64px model's 15 launch shapes. These
+m64 tiles) instances, and at the 64px model's 15 launch shapes. Its packed
+mode (K2·struct) is held at each combined tap at every border, at rows of
+4 to 32 packed pixels with 1 to 4 operands (32-channel ones among them), in
+each instance, and in the modes and shapes of the models' packed stages.
+These
 tests, with ``chip_smoke.py``'s runs, are also the check on the rare
 illegal memory access seen once in an early run (ROADMAP queue 3, item 2): a fault
 in a kernel makes the next synchronisation raise.
@@ -283,13 +287,15 @@ def test_wgmma_k2_modes(dev, cs, residual, stats, proj, silu, identity):
 def _forced_plan(bn, mt):
     """conv_plan's tile rule at a chosen (N tile, m64 tiles), so that each
     instance of the kernel runs whatever the shape."""
-    def plan(bsz, h, w, cs, cout, sms, proj):
+    def plan(bsz, h, w, cs, cout, sms, proj, packed=False):
         tw = min(w, 32)
         th = max(1, min(128 * mt // tw, h, 32))
         stages = min(fused_resnet.MAX_STAGES, (fused_resnet.SMEM_LIMIT - fused_resnet.smem_bytes(
             bn, th, tw, 0)) // (bn * 128 + 16))
+        tiles = bsz * -(-h // th) * -(-w // tw) * -(-cout // bn)
         return fused_resnet.ConvPlan(th, tw, bn, mt, stages,
-                                     fused_resnet.smem_bytes(bn, th, tw, stages), sms, True, 0)
+                                     fused_resnet.smem_bytes(bn, th, tw, stages), sms, True, 0,
+                                     tiles)
     return plan
 
 
@@ -423,9 +429,59 @@ def test_struct_kernel(dev, b, h, w, cs, cout, residual, proj, stats):
     assert fused_resnet.launch_counts["K2·struct"] == before["K2·struct"] + 2
 
 
+def _check_struct(dev, b, h, w, cs, cout, residual, stats, proj, seed=7, mask=None):
+    """K2·struct at packed (h, w) with unpacked operand channels ``cs`` and
+    ``cout``, against its plain version; ``mask`` (2, 2) keeps some of the
+    combined taps only."""
+    xs, a_s, b_s, ws, bias, res, kw = _struct_inputs(dev, b, h, w, cs, cout, residual, proj, seed)
+    combined = tuple(fused_resnet.struct_weights(wk) for wk in ws)
+    if mask is not None:
+        combined = tuple(wk * mask.to(wk.dtype)[:, :, None, None] for wk in combined)
+    before = dict(fused_resnet.launch_counts)
+    out = fused_resnet.affine_silu_conv3x3(xs, a_s, b_s, combined, bias, res, emit_stats=stats,
+                                           packed_struct=True, **kw)
+    torch.cuda.synchronize()
+    ref = fused_resnet.affine_silu_conv3x3_plain(xs, a_s, b_s, combined, bias, res,
+                                                 emit_stats=stats, packed_struct=True, **kw)
+    out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    assert len(out) == len(ref) == 1 + 2 * stats + proj
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype and torch.isfinite(o).all()
+        assert _rel(o, r) <= 2e-2
+    assert fused_resnet.launch_counts["K2·struct"] == before["K2·struct"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(4))
+def test_struct_every_border_tap(dev, tap):
+    """One combined tap at a time (the others zero), over a packed image of
+    two ragged tile columns and ragged rows: each select's reads at every
+    border, for each parity class."""
+    mask = torch.zeros((2, 2), device=dev)
+    mask.view(4)[tap] = 1
+    _check_struct(dev, 2, 9, 40, (16,), 24, False, False, False, seed=tap, mask=mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+@pytest.mark.parametrize("cs", [(8,), (16, 8), (8, 24, 16), (16, 8, 8, 16)])
+def test_struct_widths_and_operands(dev, w, cs):
+    """Rows of 4-32 packed pixels, 1-4 operands (32-channel ones among
+    them), the residual, stats and shortcut."""
+    _check_struct(dev, 2, 11, w, cs, 40, True, True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,mt", fused_resnet.CANDIDATES)
+def test_struct_every_instance(dev, monkeypatch, bn, mt):
+    monkeypatch.setattr(fused_resnet, "_plan", _forced_plan(bn, mt))
+    _check_struct(dev, 2, 12, 36, (32, 16), 80, True, True, True)
+
+
 @pytest.mark.cuda
 def test_struct_conv3x3_fast_pads_the_packed_image(dev):
-    """The packed input layer: 12 channels padded to one chunk of 32."""
+    """The packed input layer: 12 channels padded to 16 (whole 16-byte
+    groups; the kernel pads them to its chunk of 64)."""
     g = torch.Generator(device=dev).manual_seed(8)
     x = s2d.space_to_depth(torch.randn((2, 64, 64, 3), generator=g, device=dev)).to(torch.bfloat16)
     k = torch.randn((3, 3, 3, 32), generator=g, device=dev) / 5.0
@@ -444,8 +500,9 @@ def test_struct_conv3x3_fast_pads_the_packed_image(dev):
     (2, 32, 32, (32, 32), 32, True, True, True),
 ])
 def test_pipelined_matches_serial(dev, b, h, w, cs, cout, proj, stats, struct):
-    """K2·pipe against the serial K2 on the same inputs (packed); an
-    unpacked launch ignores ``pipelined``: the same kernel twice."""
+    """K2·pipe against the serial K2 on the same inputs: packed or not, one
+    kernel runs both (``pipelined`` only says which packed launches count
+    as K2·pipe), so y and the shortcut are the same bits."""
     if struct:
         xs, a_s, b_s, ws, bias, res, kw = _struct_inputs(dev, b, h, w, cs, cout, True, proj)
     else:
@@ -581,9 +638,13 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
         fused_resnet.affine_silu_conv3x3(
             (x8,) * 5, (ab[:, :8],) * 5, (ab[:, :8],) * 5,
             (torch.zeros((3, 3, 8, 8), device=dev),) * 5, torch.zeros(8, device=dev))
-    with pytest.raises(ValueError):  # packed: whole chunks of 32 channels
+    with pytest.raises(ValueError):  # packed: C a multiple of 8 too
         fused_resnet.affine_silu_conv3x3(
-            x8, ab[:, :8], ab[:, :8], torch.zeros((2, 2, 8, 8), device=dev),
+            x, ab, ab, torch.zeros((2, 2, 12, 8), device=dev),
+            torch.zeros(8, device=dev), packed_struct=True)
+    with pytest.raises(ValueError):  # packed: the (3, 3) kernel or its (2, 2) combined taps
+        fused_resnet.affine_silu_conv3x3(
+            x8, ab[:, :8], ab[:, :8], torch.zeros((1, 1, 8, 8), device=dev),
             torch.zeros(8, device=dev), packed_struct=True)
 
 

@@ -274,10 +274,10 @@ def test_struct_mode_refuses_what_the_kernel_does_not_take(monkeypatch):
         fused_resnet.affine_silu_conv3x3_vjp(
             x, torch.ones(1, 16), torch.zeros(1, 16), fused_resnet.struct_weights(w), None,
             packed_struct=True)
-    # K2·pipe's rule, for packed launches: two chunks of 32 channels, and by
-    # default 4096 blocks; an unpacked launch never takes it
+    # K2·pipe's rule, for packed launches: two chunks of 64 channels, and by
+    # default 1024 output tiles of the plan; an unpacked launch never takes it
     shell, core = (2, 512, 512, 128), (8, 16, 16, 768)
-    assert fused_resnet.grid_blocks(*shell) == 8192 and fused_resnet.grid_blocks(*core) == 192
+    assert fused_resnet.output_tiles(*shell) == 2048 and fused_resnet.output_tiles(*core) == 192
     packed = dict(packed_struct=True)
     assert fused_resnet.pipelines([32], *shell, **packed) is False
     assert fused_resnet.pipelines([32], *shell, pipelined=True, **packed) is False
