@@ -61,15 +61,18 @@ weights from a seed:
      and K2 under them, against their ``use_kernels(False)`` forward.
   7. The cost-decomposition probes P1 and P2 (``ml_mdm_tpu_torch/tools/
      probe_kernel_anatomy{,2}.py``, the Hopper counterparts of the JAX
-     package's ``tools/probe_kernel_anatomy*.py``) at their one shape, B = 4,
+     package's ``tools/probe_kernel_anatomy*.py``; instances of K2's own
+     kernel with parts of it switched off) at their one shape, B = 4,
      512 x 512, 128 channels, bf16: K2 itself there, beside its bound; the
      two probes' tables through their entry points; then each of their 16
      variants held against its plain version (the double buffers bitwise
      against their single buffers; a zero fill bitwise its variant without
      it off the cells it reaches, and on them different from it and within
      two bf16 ULPs of the plain version) and timed beside its bound, K2's
-     time, the same products as one cuBLAS matmul and, for P1's 1-tap
-     product and its copy, the one PyTorch call that computes the same.
+     time, its instance's ptxas line, the same products as one cuBLAS
+     matmul and, for P1's 1-tap product and its copy, the one PyTorch call
+     that computes the same; then K2's time split into its parts, each a
+     difference of two of those rows.
 
 Every K2 launch runs the implicit-GEMM kernel on wgmma, at 9 taps
 unpacked and at the 4 combined taps packed (its ``conv_plan`` and the ptxas
@@ -1719,7 +1722,8 @@ def probe_bound(v, shape):
 
 def halo_reread_ms(shape) -> float:
     """The ms at the memory rate of reading the two halo rows of every band
-    of ``kernel_anatomy.TH`` rows once more, as the halo variants' tiling does."""
+    of ``kernel_anatomy.TH`` rows once more: what ``halos`` adds to a P2
+    launch (every tile reads its halo rows inside a band either way)."""
     from ml_mdm_tpu_torch.ops import kernel_anatomy
 
     bsz, h, w, c = shape
@@ -1763,14 +1767,20 @@ def path_probes(dev, k2_ms: float):
     shape, B = 4, 512 x 512, 128 channels, bf16) between a count reset and a
     count read, then each variant at that shape against its plain version
     (K2_TOL; a double buffer bitwise against its single buffer) and timed
-    beside its bound, K2's time ``k2_ms`` and the same products as one
-    cuBLAS matmul of (B H W, C) by (C, n C), the products' yardstick (no
-    PyTorch call computes a probe). Returns per-probe totals and the launch
-    counts of the tables."""
+    beside its bound, K2's time ``k2_ms``, its instance's ptxas line and the
+    same products as one cuBLAS matmul of (B H W, C) by (C, n C), the
+    products' yardstick (no PyTorch call computes a probe); then K2's split
+    (``probe_split``). Returns per-probe totals and the launch counts of the
+    tables."""
     import torch
 
     from ml_mdm_tpu_torch.ops import kernel_anatomy as ka
     from ml_mdm_tpu_torch.tools import probe_kernel_anatomy, probe_kernel_anatomy2
+
+    shape = (probe_kernel_anatomy.B, probe_kernel_anatomy.H, probe_kernel_anatomy.W,
+             probe_kernel_anatomy.C)
+    log(f"probes: K2's instance <{ka.BN}, {ka.MT}> at {shape}: {ka.probe_plan(*shape)} "
+        f"({ka.probe_plan(*shape, n_taps=0)} with 0 taps)")
 
     with phase("probes P1 and P2: the two tables through their entry points"):
         reset_counts()
@@ -1782,6 +1792,7 @@ def path_probes(dev, k2_ms: float):
     cublas_ms = {"P1": 0.0, "P2": 0.0}
     library_kernel_ms = {"P1": 0.0, "P2": 0.0}
     labels = [label for label, _ in ka.P1_ROWS + ka.P2_ROWS]
+    times = {}
     with phase("probes P1 and P2: each variant against its plain version, timed"):
         outs = {}
         for label, v in zip(labels, ka.VARIANTS):
@@ -1827,10 +1838,13 @@ def path_probes(dev, k2_ms: float):
             if v.halos:
                 extra += f" (the halo rows' re-read {halo_reread_ms(x.shape):.4f} ms at HBM rate)"
             name = f"P{v.probe}"
+            times[label] = ms
+            ptxas = PROBE_PTXAS.get((ka.kernel_flags(v), int(v.selects)), "not in the build log")
             log(f"probe {name} {label}: rel_err {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
                 f"library {'none' if lms is None else f'{lms:.4f} ms'} bound {bound:.4f} ms "
                 f"({by}) K2 {k2_ms:.4f} ms cuBLAS products "
-                f"{'none' if cms is None else f'{cms:.4f} ms'}{extra}")
+                f"{'none' if cms is None else f'{cms:.4f} ms'}{extra}; instance "
+                f"{ka.kernel_flags(v):#x} selects {int(v.selects)}: {ptxas}")
             _add(tot[name], abs_err(got, ref), ms, pms, lms, bound, by)
             cublas_ms[name] += cms or 0.0
             del got, ref, x, w
@@ -1844,7 +1858,41 @@ def path_probes(dev, k2_ms: float):
                 + (f"where one library call computes the variant, library "
                    f"{t['library_ms']:.4f} ms against the kernel's {t['library_kernel_ms']:.4f} ms"
                    if t["library_kernel_ms"] else "no library call computes a variant"))
+        tot["P1"]["k2_split_ms"] = probe_split(times, k2_ms)
     return tot, counts
+
+
+def probe_split(t, k2_ms: float) -> dict:
+    """K2's time at the probes' shape split into additive terms, each the
+    difference of two rows timed in this run (``t``: ms by row label): at 9
+    taps the products, the register pass, the affine, SiLU, and what the 3x3
+    shifts, the halo cells and the epilogue add (K2 against P1's act+SiLU
+    row, whose next chunk is staged after its products, so this term also
+    holds the overlap K2 gains by staging under them); at 4 taps, on top of
+    P1's act+SiLU row, the bands (P2's row-shifted taps over K2's halo tile),
+    their clamped halo rows, the selects, the zero fill and the overlap
+    (P2's double buffer). Logs and returns the terms."""
+    d9, c9 = t["dots direct from input block"], t["copy->scratch + 9 dots"]
+    a9, s9 = t["act->scratch + 9 dots"], t["act+silu->scratch + 9 dots"]
+    base = t["base: 4 dots, single buf"]
+    split = {
+        "9 taps: products (P1 direct)": d9,
+        "9 taps: register pass (copy - direct)": c9 - d9,
+        "9 taps: affine (act - copy)": a9 - c9,
+        "9 taps: SiLU (act+SiLU - act)": s9 - a9,
+        "9 taps: shifts, halo cells, epilogue (K2 - act+SiLU)": k2_ms - s9,
+        "4 taps: P1 act+SiLU": t["act+silu->scratch + 4 dots"],
+        "4 taps: bands (P2 base - P1 act+SiLU)": base - t["act+silu->scratch + 4 dots"],
+        "4 taps: halos (+halos - base)": t["+halos"] - base,
+        "4 taps: selects (+selects - base)": t["+selects"] - base,
+        "4 taps: zero fill (+when_zero - base)": t["+when_zero"] - base,
+        "4 taps: overlap (+dbuf - base)": t["+dbuf"] - base,
+    }
+    log(f"K2's split at the probes' shape (K2 {k2_ms:.4f} ms; the 9-tap terms add up to it):")
+    for term, ms in split.items():
+        share = f" ({ms / k2_ms:.3f} of K2)" if term.startswith("9") else ""
+        log(f"  {term}: {ms:.4f} ms{share}")
+    return split
 
 
 def probe_library(v, x, w):
@@ -1859,36 +1907,42 @@ def probe_library(v, x, w):
 
 
 # ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
-# -> "registers, spills", from the build log (``nvcc_report``)
+# -> "registers, spills", and for each probe instance of the same kernel,
+# (its PROBE word, packed), from the build logs (``nvcc_report``)
 PTXAS = {}
+PROBE_PTXAS = {}
 
 
 def nvcc_report(lib_path, name: str):
     """Log what ptxas said of each kernel in a built library: registers and
     spills, with the template arguments of an instance; keep the K2
-    instances' lines in PTXAS."""
+    instances' lines in PTXAS, the probe instances' in PROBE_PTXAS."""
     build_log = lib_path.with_name(lib_path.name + ".log")
     if not build_log.exists():
         return
-    lines, width, key = [], "", None
+    lines, width, key, table = [], "", None, None
     for line in build_log.read_text().splitlines():
         if "built in" in line:
             log(f"  nvcc {name}: {line.strip()}")
         elif "Compiling entry function" in line:
             m = re.search(r"flash_attention_kernelILi(\d+)E", line)
-            wg = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)E", line)
-            pr = re.search(r"kernel_anatomyI((?:Li\d+E){9})", line)
-            key = tuple(int(v) for v in wg.groups()) if wg else None
-            width = (f"D={m.group(1)}: " if m else
-                     "N {} m64 tiles {} shortcut {} packed {}: ".format(*wg.groups()) if wg else
-                     "P{} taps {} act {} silu {} stage {} halos {} selects {} zero {} dbuf {}: "
-                     .format(*re.findall(r"\d+", pr.group(1))) if pr else "")
+            wg = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)ELi(\d+)E", line)
+            key, table, width = None, None, f"D={m.group(1)}: " if m else ""
+            if wg:
+                bn, mt, proj, packed, probe = (int(v) for v in wg.groups())
+                width = f"N {bn} m64 tiles {mt} shortcut {proj} packed {packed}"
+                if probe:
+                    key, table = (probe, packed), PROBE_PTXAS
+                    width += f" probe {probe:#x} (taps {probe >> 8})"
+                else:
+                    key, table = (bn, mt, proj, packed), PTXAS
+                width += ": "
         elif "spill" in line or "registers" in line:
             lines.append(line.replace("ptxas info    :", "").strip())
             if "registers" in line:
                 log(f"  nvcc {name}: {width}" + "; ".join(lines))
-                if key is not None:
-                    PTXAS[key] = "; ".join(lines)
+                if table is not None:
+                    table[key] = "; ".join(lines)
                 lines = []
 
 
@@ -2047,7 +2101,7 @@ def main() -> int:
         entry("kernel_anatomy (probe P1, 9 variants)", "P1", "cuda",
               "ml_mdm_tpu_torch/csrc/kernel_anatomy.cu", "tools/probe_kernel_anatomy.py:29",
               k2_ms="k2_ms", cublas_products_ms="cublas_products_ms",
-              library_kernel_ms="library_kernel_ms"),
+              library_kernel_ms="library_kernel_ms", k2_split_ms="k2_split_ms"),
         entry("kernel_anatomy (probe P2, 7 variants)", "P2", "cuda",
               "ml_mdm_tpu_torch/csrc/kernel_anatomy.cu", "tools/probe_kernel_anatomy2.py:28",
               library=False, k2_ms="k2_ms", cublas_products_ms="cublas_products_ms"),

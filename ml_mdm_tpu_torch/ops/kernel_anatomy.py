@@ -2,13 +2,14 @@
 
 ``anatomy(x, w, variant)`` replaces the JAX package's two TPU probes of
 K2: ``tools/probe_kernel_anatomy.py`` ``make`` (P1) and
-``tools/probe_kernel_anatomy2.py`` ``make`` (P2). Each is a stripped copy
-of K2 (``ops/fused_resnet.py``) that adds one of its features at a time,
-so that its variants' times split K2's between the products, the
-activation, the staging, the halo rows, the lane-parity selects of
-K2·struct, the zero fill and K2·pipe's double buffer. ``P1_ROWS`` and
-``P2_ROWS`` are the rows of the two probes' tables; ``VARIANTS`` the 16
-that the CUDA kernel instantiates.
+``tools/probe_kernel_anatomy2.py`` ``make`` (P2). Each variant is K2's own
+kernel (``ops/fused_resnet.py``, ``conv3x3_wgmma_kernel``) with some of its
+features switched off, so that the variants' times split K2's between the
+products, the register pass, the affine, SiLU, the halo rows, the
+lane-parity selects of K2·struct, the zero fill and the staging of the
+next chunk under the products (K2·pipe's overlap). ``P1_ROWS`` and
+``P2_ROWS`` are the rows of the two probes' tables; ``VARIANTS`` their 16
+variants.
 
 What a variant computes (``anatomy_plain``; the kernel equals it on every
 cell). x is (B, H, W, C) bf16, w the taps' (n, C, C) bf16 matrices,
@@ -38,11 +39,17 @@ that the previous grid step wrote, so its output lags one block. The port
 defines those cells as above, and its double buffer (chunks of channels in
 flight inside one block, as K2·pipe) keeps y bitwise the single buffer's.
 
-The CUDA kernel is ``csrc/kernel_anatomy.cu`` (its header says what bounds
-it on the H100 and how it maps the TPU features). It is built with ``nvcc``
-for ``sm_90a`` at first use into ``ml_mdm_tpu_torch/_build/`` and loaded
-with ctypes. A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+The CUDA kernel: ``csrc/kernel_anatomy.cu`` instantiates
+``csrc/conv3x3_wgmma.cuh``, the source K2 runs from, with the switches its
+header lists (what bounds it on the H100, and how the TPU features map onto
+K2's, are said there). The host hands each launch what ``probe_plan``
+(K2's tile at the probes' shape, TH a divisor of the band),
+``kernel_flags`` (the switches), ``tap_offsets`` (the taps' staged offsets)
+and ``weight_layout`` (K2's weight layout, in parity-class order with
+selects) give. It is built with ``nvcc`` for ``sm_90a`` at first use into
+``ml_mdm_tpu_torch/_build/`` and loaded with ctypes. A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises. On the card H
+is a multiple of 16 and C of 8.
 """
 from __future__ import annotations
 
@@ -58,13 +65,19 @@ from ml_mdm_tpu_torch.ops import cuda_build, fused_resnet
 
 # launches of the CUDA kernel since the counts were last set to 0, by probe
 launch_counts = {"P1": 0, "P2": 0}
-TH, TW = 16, 8  # the kernel's tile: one band of the probes' rows, 8 columns
-CHUNK = 32      # input channels per reduction chunk
+TH = 16  # P2's band of rows (the TPU probes' row block)
 SCALE, OFFSET = 1.01, 0.02  # the probes' affine
+# the probes' instance of K2: N tile 128, two m64 tiles a warpgroup (K2's
+# plan at the probes' shape, B = 4, 512^2, 128 -> 128)
+BN, MT = 128, 2
+# the kernel's switches (``csrc/conv3x3_wgmma.cuh``, PROBE_*); bits 8 and up
+# hold the taps
+ON, NO_HALO, BANDS, HALOS, FILL_ACT, DIRECT, SERIAL = 1, 2, 4, 8, 16, 32, 64
 
 
 class Variant(NamedTuple):
-    """One variant of the two probes (the CUDA kernel's template flags)."""
+    """One variant of the two probes (what ``kernel_flags`` maps onto K2's
+    switches)."""
     probe: int
     n_taps: int
     act: bool
@@ -197,10 +210,85 @@ def anatomy_plain(x: torch.Tensor, w: torch.Tensor, v: Variant) -> torch.Tensor:
 def anatomy(x: torch.Tensor, w: torch.Tensor, v: Variant) -> torch.Tensor:
     """Same contract as ``anatomy_plain``: the plain version for a CPU
     tensor, the CUDA kernel for a CUDA tensor (bf16, one of ``VARIANTS``,
-    H a multiple of 16, W of 8, C of 32) or an error."""
+    H a multiple of 16 and C of 8) or an error."""
     if x.device.type == "cpu":
         return anatomy_plain(x, w, v)
     return _launch(x, w, v)
+
+
+# -- what the host hands the kernel --------------------------------------------
+
+
+class ProbePlan(NamedTuple):
+    """A probe launch on K2's instance <BN, MT>: tiles of ``th`` x ``tw``
+    output pixels, a weight ring of ``stages`` slots, ``smem`` dynamic
+    shared-memory bytes, ``grid`` persistent blocks over ``tiles`` output
+    tiles."""
+    th: int
+    tw: int
+    stages: int
+    smem: int
+    grid: int
+    tiles: int
+
+
+def probe_plan(bsz: int, h: int, w: int, c: int, n_taps: int = 1,
+               sms: int = fused_resnet.H100_SMS) -> ProbePlan:
+    """K2's plan (``fused_resnet.conv_plan``) for the probes' instance: TW =
+    min(W, 32), TH = min(128 MT / TW, H, 32) cut to the largest divisor of
+    the band ``TH`` (so that no tile straddles two bands; at the probes'
+    shape it is conv_plan's 8 x 32), the ring as deep as fits, one
+    persistent block an SM. With 0 taps one N tile a pixel tile (its chunks
+    are y's channels)."""
+    tw = min(w, 32)
+    th = max(1, min(128 * MT // tw, h, 32))
+    th = 1 << (min(th, TH).bit_length() - 1)
+    stages = min(fused_resnet.MAX_STAGES,
+                 (fused_resnet.SMEM_LIMIT - fused_resnet.smem_bytes(BN, th, tw, 0))
+                 // (BN * 128 + 16))
+    tiles = bsz * -(-h // th) * -(-w // tw) * (-(-c // BN) if n_taps else 1)
+    return ProbePlan(th, tw, stages, fused_resnet.smem_bytes(BN, th, tw, stages),
+                     min(tiles, sms), tiles)
+
+
+def kernel_flags(v: Variant) -> int:
+    """The variant's switches on K2's kernel (``csrc/conv3x3_wgmma.cuh``):
+    its taps; P1 without the halo, P2 over bands, with the clamped halo rows
+    (``halos``) and act(0) in the cells not loaded (unless ``zero``);
+    ``DIRECT`` without the staging; ``SERIAL`` without the double buffer.
+    Selects are K2's packed mode; act and SiLU its run-time coefficients and
+    ``apply_silu``."""
+    f = ON | v.n_taps << 8
+    if v.probe == 1:
+        f |= NO_HALO
+    else:
+        f |= BANDS | (HALOS if v.halos else 0) | (0 if v.zero else FILL_ACT)
+    if not v.stage:
+        f |= DIRECT
+    if not v.dbuf:
+        f |= SERIAL
+    return f
+
+
+def tap_offsets(v: Variant, tw: int) -> tuple:
+    """The 16 staged offsets the kernel reads its taps at, from the tile's
+    output pixel 0 in a staged row of TW (+ 2 with the halo) pixels: P1's
+    at 0 (the tile without halo), P2's tap t at [t], row t % 3 (the row
+    shifted by t % 3 - 1) of the centre column; with selects K2·struct's
+    (``fused_resnet.struct_tap_offsets``), combined tap t's k-step ks at
+    [4 t + ks]."""
+    if v.selects:
+        return fused_resnet.struct_tap_offsets(tw)
+    offs = [0 if v.probe == 1 else (t % 3) * (tw + 2) + 1 for t in range(v.n_taps)]
+    return tuple(offs) + (0,) * (16 - len(offs))
+
+
+def weight_layout(w: torch.Tensor, v: Variant) -> torch.Tensor:
+    """The taps' (n, C, C) matrices in K2's layout (``fused_resnet.
+    conv_weight_layout`` of n taps of one operand: (chunk of 64, tap, C
+    padded to 64, 64) swizzled; with selects each chunk's channels in
+    parity-class order, channel 4 i + code at position 16 code + i)."""
+    return fused_resnet.conv_weight_layout((w[None],), packed=v.selects)
 
 
 def _launch(x, w, v: Variant):
@@ -212,39 +300,41 @@ def _launch(x, w, v: Variant):
         raise TypeError(f"kernel_anatomy: the CUDA kernel takes (B, H, W, C) bf16, got "
                         f"{tuple(x.shape)} {x.dtype}")
     bsz, h, wd, c = x.shape
-    if h % TH or wd % TW or c % CHUNK:
-        raise ValueError(f"kernel_anatomy: H={h}, W={wd}, C={c} must be multiples of "
-                         f"{TH}, {TW} and {CHUNK}")
+    if h % TH or c % 8:
+        raise ValueError(f"kernel_anatomy: H={h} must be a multiple of {TH} (P2's band) and "
+                         f"C={c} of 8")
     x = fused_resnet._aligned(x)
-    n = v.n_taps
-    if n:
-        if tuple(w.shape) != (n, c, c):
-            raise ValueError(f"kernel_anatomy: weights {tuple(w.shape)} for {n} taps of C={c}")
-        # (n, C in, C out) -> (C out, n, C in); with selects each chunk of 32
-        # input channels in the kernel's parity-class order (channel i*4 +
-        # code at code*8 + i)
-        wt = w.to(x.device, torch.bfloat16).permute(2, 0, 1)
-        if v.selects:
-            wt = wt.reshape(c, n, c // CHUNK, CHUNK // 4, 4).transpose(-1, -2)
-        wt = wt.reshape(c, n * c).contiguous()
-    else:
-        wt = x  # not read
+    dev, n = x.device, v.n_taps
+    if n and tuple(w.shape) != (n, c, c):
+        raise ValueError(f"kernel_anatomy: weights {tuple(w.shape)} for {n} taps of C={c}")
+    wt = weight_layout(w.to(dev, torch.bfloat16), v) if n else None
+    a = b = None
+    if v.act:
+        a = torch.full((bsz, c), SCALE, device=dev)
+        b = torch.full((bsz, c), OFFSET, device=dev)
+    p = probe_plan(bsz, h, wd, c, n, fused_resnet._sm_count(dev.index))
+    toff = (ctypes.c_int * 16)(*tap_offsets(v, p.tw))
     y = torch.empty_like(x)
-    flags = (ctypes.c_int * 9)(*(int(f) for f in v))
-    with torch.cuda.device(x.device):
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    with torch.cuda.device(dev):
         err = load_library().ml_mdm_kernel_anatomy(
-            flags, ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wt.data_ptr()),
-            ctypes.c_void_p(y.data_ptr()), bsz, h, wd, c,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+            kernel_flags(v), int(v.selects), ptr(x), ptr(a), ptr(b), ptr(wt), ptr(y),
+            bsz, h, wd, c, int(v.silu), p.th, p.tw, p.stages, p.grid, toff,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
-        raise RuntimeError(f"kernel_anatomy: CUDA error {err} at launch ({v}, x {tuple(x.shape)})")
+        raise RuntimeError(f"kernel_anatomy: CUDA error {err} at launch ({v}, x {tuple(x.shape)}, "
+                           f"plan {p})")
     launch_counts[f"P{v.probe}"] += 1
     return y
 
 
 def build_library() -> Path:
-    """Compile ``csrc/kernel_anatomy.cu`` for sm_90a (``ops/cuda_build.py``).
-    Returns the shared library's path; ``<path>.log`` keeps nvcc's output."""
+    """Compile ``csrc/kernel_anatomy.cu`` (with K2's ``conv3x3_wgmma.cuh``)
+    for sm_90a (``ops/cuda_build.py``). Returns the shared library's path;
+    ``<path>.log`` keeps nvcc's output."""
     return cuda_build.build_library("kernel_anatomy")
 
 
@@ -252,7 +342,7 @@ def build_library() -> Path:
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     fn = lib.ml_mdm_kernel_anatomy
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib

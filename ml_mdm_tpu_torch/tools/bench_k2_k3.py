@@ -31,10 +31,13 @@ SXM), a convolution's bytes each input read once and each output written
 once. Without a card it exits 1. It runs against whichever ``ml_mdm_tpu_torch`` is first on the
 path, so ``PYTHONPATH=<another checkout> python
 ml_mdm_tpu_torch/tools/bench_k2_k3.py`` times that checkout's kernels (an
-A/B in one call).
+A/B in one call). Each K2 row ends with a digest of the kernel's y (and
+shortcut), the same bits on the same inputs, so two checkouts' rows show
+whether their outputs are bitwise equal; ``--k2`` times K2's rows alone.
 """
 from __future__ import annotations
 
+import hashlib
 import statistics
 import subprocess
 import sys
@@ -188,6 +191,18 @@ def _ms(fn, reps=5, warmup=2):
     return statistics.median(times)
 
 
+def digest(out) -> str:
+    """12 hex digits of the hash of K2's y and, with the shortcut, proj
+    (the stats, f32 atomics in no fixed order, are left out)."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    h = hashlib.sha256()
+    for t in (outs[0], outs[-1]) if len(outs) in (2, 4) else outs[:1]:
+        h.update(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -282,7 +297,8 @@ def main() -> int:
             for k, v in (("kernel", t), ("library", lib), ("bound", bound), ("flops", flops)):
                 tot[k] += v
             print(f"K2 {key}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, {bound / t:.3f} of the "
-                  f"bound), library {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+                  f"bound), library {lib:.4f} ms, bound {bound:.4f} ms, digest {digest(kernel())}",
+                  flush=True)
         rate, share = tot["flops"] / tot["kernel"] / 1e9, tot["bound"] / tot["kernel"]
         print(f"K2 over {label} {len(keys)} shapes: {tot['kernel']:.4f} ms "
               f"({rate:.1f} TFLOP/s, {share:.3f} of the bound), library {tot['library']:.4f} ms "
@@ -309,7 +325,7 @@ def main() -> int:
                     tot[mode][k] += v if on else 0.0
             print(f"K2·struct {where} {key}{' pipelined' if pipe else ''}: {t:.4f} ms "
                   f"({bound / t:.3f} of the bound), library {lib:.4f} ms, bound {bound:.4f} ms"
-                  + text, flush=True)
+                  + text + f", digest {digest(kernel())}", flush=True)
     for mode, label in (("K2·struct", "its"), ("K2·pipe", "its pipelined"),
                         ("256px", "the 256px forward's")):
         t = tot[mode]
@@ -321,6 +337,8 @@ def main() -> int:
               + (f"; the unpacked K2 at the same convolutions {t['unpacked']:.4f} ms against "
                  f"{t['paired']:.4f} ms packed" if t["paired"] else ""), flush=True)
 
+    if "--k2" in sys.argv[1:]:
+        return 0
     for label, keys in (("train_256's", K3_256), ("train_1024's", K3_1024)):
         k3_rows(label, keys)
     forward_and_step()

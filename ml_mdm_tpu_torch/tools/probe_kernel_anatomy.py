@@ -1,8 +1,9 @@
-"""The fused conv's cost decomposition on the card, probe P1: a stripped
-copy of K2 (``ops/kernel_anatomy.py``) at K2's probe shape, varying (a) the
-number of accumulated tap products, (b) the activation (affine, SiLU) and
-(c) staging the tile through shared memory, to split K2's time at
-512^2 x 128 channels between its products, its activation and its staging.
+"""The fused conv's cost decomposition on the card, probe P1: K2's own
+kernel with parts of it switched off (``ops/kernel_anatomy.py``) at K2's
+probe shape, varying (a) the number of accumulated tap products, (b) the
+activation (affine, SiLU) and (c) staging the tile through registers, to
+split K2's time at 512^2 x 128 channels between its products, its
+register pass, its activation and the rest of its tile.
 The counterpart of the JAX package's ``tools/probe_kernel_anatomy.py``,
 with the same ``make`` and the same table.
 
@@ -15,7 +16,6 @@ import torch
 from ml_mdm_tpu_torch.ops import kernel_anatomy
 
 B, H, W, C = 4, 512, 512, 128
-TH = kernel_anatomy.TH
 PEAK_BF16_TENSOR = 989e12  # FLOP/s, NVIDIA H100 SXM data sheet, dense
 SEED = 0
 
@@ -64,8 +64,9 @@ def main(n: int = 30) -> list:
     """The JAX probe's table on the card; returns the rows' times."""
     if not torch.cuda.is_available():
         raise SystemExit("probe_kernel_anatomy: needs a CUDA device (the kernel runs only on the card)")
-    print(f"{torch.cuda.get_device_name(0)}: B={B} {H}x{W} C={C} bf16, tile {TH}x"
-          f"{kernel_anatomy.TW}", flush=True)
+    print(f"{torch.cuda.get_device_name(0)}: B={B} {H}x{W} C={C} bf16, K2's instance "
+          f"<{kernel_anatomy.BN}, {kernel_anatomy.MT}>, "
+          f"{kernel_anatomy.probe_plan(B, H, W, C)}", flush=True)
     return [bench(label, **kw, n=n) for label, kw in kernel_anatomy.P1_ROWS]
 
 

@@ -1,8 +1,9 @@
 """The fused conv's cost decomposition on the card, probe P2: which of
 K2's features lifts the 512^2 x 128 call off the memory floor? Adds them
-one at a time to the 4-product struct-like probe (``ops/kernel_anatomy.py``):
-halo rows, K2·struct's lane-parity selects, the zero fill and K2·pipe's
-double buffer. The counterpart of the JAX package's
+one at a time to the 4-product struct-like probe, K2's own kernel at 4 taps
+(``ops/kernel_anatomy.py``): halo rows across its 16-row bands,
+K2·struct's lane-parity selects, the zero fill and the staging of the next
+chunk under the products. The counterpart of the JAX package's
 ``tools/probe_kernel_anatomy2.py``, with the same ``make`` (x taken once,
 where the JAX probe takes it three times with halos) and the same table.
 
@@ -16,7 +17,6 @@ from ml_mdm_tpu_torch.ops import kernel_anatomy
 from ml_mdm_tpu_torch.tools import probe_kernel_anatomy as p1
 
 B, H, W, C = p1.B, p1.H, p1.W, p1.C
-TH = kernel_anatomy.TH
 
 
 def make(halos: bool, selects: bool, when_zero: bool, dbuf: bool, n_taps: int = 4):
@@ -37,8 +37,9 @@ def main(n: int = 30) -> list:
     """The JAX probe's table on the card; returns the rows' times."""
     if not torch.cuda.is_available():
         raise SystemExit("probe_kernel_anatomy2: needs a CUDA device (the kernel runs only on the card)")
-    print(f"{torch.cuda.get_device_name(0)}: B={B} {H}x{W} C={C} bf16, tile {TH}x"
-          f"{kernel_anatomy.TW}", flush=True)
+    print(f"{torch.cuda.get_device_name(0)}: B={B} {H}x{W} C={C} bf16, K2's instance "
+          f"<{kernel_anatomy.BN}, {kernel_anatomy.MT}>, "
+          f"{kernel_anatomy.probe_plan(B, H, W, C)}", flush=True)
     return [bench(label, n=n, **kw) for label, kw in kernel_anatomy.P2_ROWS]
 
 

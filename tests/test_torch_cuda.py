@@ -577,16 +577,26 @@ def _probe_id(v):
     return "-".join(f"{k}{int(x)}" for k, x in v._asdict().items())
 
 
+PROBE_SHAPES = {  # B, H, W, C
+    "the probes' shape": (4, 512, 512, 128),
+    "one band: both clamps, W 8 (K2's tile rule: 32 rows)": (2, 16, 8, 96),
+    "tiles of 8 rows at and inside a band": (2, 32, 24, 96),
+    "W 40: a ragged tile": (1, 32, 40, 128),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(PROBE_SHAPES.values()), ids=list(PROBE_SHAPES))
 @pytest.mark.parametrize("v", kernel_anatomy.VARIANTS, ids=_probe_id)
-def test_kernel_anatomy_kernel(dev, v):
-    """Each probe variant at a small shape with a partial block of output
-    channels (96 = 64 + 32) against its plain version; a double buffer
-    bitwise equal to its single buffer; a zero fill bitwise equal to its
-    variant without it (and without the double buffer) off the cells the
-    fill reaches, and on them different from it and, like it, within two
-    bf16 ULPs of the plain version."""
-    b, h, w, c = 2, 32, 24, 96
+def test_kernel_anatomy_kernel(dev, v, shape):
+    """Each probe variant (an instance of K2's kernel) at the probes' shape
+    and at small ones, a partial chunk of channels (96 = 64 + 32) among
+    them, against its plain version; a double buffer bitwise equal to its
+    single buffer; a zero fill bitwise equal to its variant without it (and
+    without the double buffer) off the cells the fill reaches, and on them
+    different from it and, like it, within two bf16 ULPs of the plain
+    version."""
+    b, h, w, c = shape
     g = torch.Generator(device=dev).manual_seed(11)
     x = (torch.randn((b, h, w, c), generator=g, device=dev) * 0.5).to(torch.bfloat16)
     wt = (torch.randn((max(v.n_taps, 1), c, c), generator=g, device=dev) * 0.05).to(torch.bfloat16)
@@ -611,13 +621,18 @@ def test_kernel_anatomy_kernel(dev, v):
 
 @pytest.mark.cuda
 def test_kernel_anatomy_refuses_what_it_does_not_take(dev):
-    x = torch.zeros((1, 16, 8, 32), device=dev, dtype=torch.bfloat16)
-    w = torch.zeros((4, 32, 32), device=dev, dtype=torch.bfloat16)
+    """On the card H is a multiple of the 16-row band and C of 8 (any W);
+    bf16 only; only the probes' rows."""
+    x = torch.zeros((1, 16, 12, 40), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((4, 40, 40), device=dev, dtype=torch.bfloat16)
     v = kernel_anatomy.p2_variant(True, False, False, False)
+    assert kernel_anatomy.anatomy(x, w, v).shape == x.shape
     with pytest.raises(ValueError):  # not a row of the probes
         kernel_anatomy.anatomy(x, w, v._replace(zero=True))
     with pytest.raises(ValueError):  # H a multiple of the 16-row band
         kernel_anatomy.anatomy(x[:, :8], w, v)
+    with pytest.raises(ValueError):  # C a multiple of 8
+        kernel_anatomy.anatomy(x[..., :36], w[:, :36, :36], v)
     with pytest.raises(TypeError):  # bf16 only
         kernel_anatomy.anatomy(x.float(), w, v)
 

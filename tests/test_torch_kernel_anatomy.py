@@ -25,6 +25,17 @@ Tolerances, on max |port - JAX| / max |JAX|:
   undefined. The tests assert exactly that NaN set, compare the double
   buffer's rows after shifting JAX's output back by one block, and hold the
   port's double buffer bitwise equal to its single buffer.
+
+The CUDA kernel (K2's ``conv3x3_wgmma_kernel`` with parts switched off)
+cannot run here, so ``_replay`` replays each launch from what the host
+hands the kernel (the plan's tile, the switches, the offset table, the
+weights in K2's layout) with the kernel's staging rules restated, at the
+file's size and at two widths whose tiles sit otherwise in the bands. Its
+f64 sums equal the plain version's, built from the same activated values,
+to 1e-12 of max |plain| (exact bf16 products, f64 sums in another order);
+rounded to bf16 they are within one bf16 ULP of each cell of
+``anatomy_plain``, plus 1e-5 of its max where a sum cancels (its f32 sums
+can round the other way).
 """
 import functools
 import types
@@ -32,6 +43,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +55,7 @@ from tools import probe_kernel_anatomy2 as jax_p2  # noqa: E402
 
 jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
+from ml_mdm_tpu_torch.ops import fused_resnet as fr  # noqa: E402
 from ml_mdm_tpu_torch.ops import kernel_anatomy  # noqa: E402
 from ml_mdm_tpu_torch.tools import probe_kernel_anatomy as p1  # noqa: E402
 from ml_mdm_tpu_torch.tools import probe_kernel_anatomy2 as p2  # noqa: E402
@@ -83,10 +96,13 @@ def _close(got: torch.Tensor, ref: np.ndarray, where=None):
 
 
 def test_probe_tables_are_the_jax_probes():
-    """The port's tables run the JAX scripts' rows, and its variants are the
-    16 that the CUDA kernel instantiates, in its order."""
+    """The port's tables run the JAX scripts' rows, and its 16 variants, in
+    their order, take 13 instances of K2's kernel (rows that differ only in
+    act or SiLU share one)."""
     assert len(kernel_anatomy.P1_ROWS) == 9 and len(kernel_anatomy.P2_ROWS) == 7
     assert len(set(kernel_anatomy.VARIANTS)) == 16
+    assert len({(kernel_anatomy.kernel_flags(v), v.selects)
+                for v in kernel_anatomy.VARIANTS}) == 13
     assert p1.make.__code__.co_varnames[:4] == jax_p1.make.__code__.co_varnames[:4]
     assert p2.make.__code__.co_varnames[:5] == jax_p2.make.__code__.co_varnames[:5]
 
@@ -160,3 +176,154 @@ def test_p2_zero_fill_reaches_exactly_its_cells(label, kw):
         # the fill moves every cell by about 0.0101 sum(w) (~6e-3): most
         # cells of bf16 y change
         assert (y[:, fill] != toggled[:, fill]).float().mean() > 0.5
+
+
+# -- the probe launches replayed from what the host hands the kernel ------------
+
+ka = kernel_anatomy
+REPLAY_SHAPES = {  # B, H, W, C
+    "the file's size, tiles of 16 x 16": (B, H, W, C),
+    "W 8: K2's tile rule would take TH 32, across two bands": (1, 32, 8, 128),
+    "W 40: tiles of 8 rows at and inside a band, a ragged tile, C 96": (1, 32, 40, 96),
+}
+
+
+def _replay(x, w, v):
+    """One probe launch as the kernel runs it (``csrc/conv3x3_wgmma.cuh``),
+    from what the host hands it: ``probe_plan``'s tile, ``kernel_flags``'
+    switches, ``tap_offsets``' table and ``weight_layout``'s weights, read
+    through the 128-byte swizzle as ``wgmma`` reads them. Each output tile
+    stages its pixels and, but for P1, a halo of one: a cell loads its image
+    pixel, or with BANDS a halo row across a band's edge loads nothing, or
+    with HALOS its row clamped to the image; a cell outside the image loads
+    nothing. The staging activates every loaded cell (act, or the raw value
+    without it) and holds a cell that loaded nothing at 0, or at act(0) with
+    FILL_ACT; channels past C are 0. With selects each chunk of 64 channels
+    is staged in parity-class order (position 16 code + i holds channel
+    4 i + code). Tap t's k-step ks reads positions 16 ks .. 16 ks + 15 of
+    the staged pixel of each output pixel plus the table's offset ([t], or
+    [4 t + ks] with selects). The activation is the plain version's
+    arithmetic (the kernel's SiLU is the fast tanh form: the card's tests
+    hold that). Returns the f64 sums before the epilogue's rounding (0
+    taps: the staged tile), (B, H, W, C)."""
+    bsz, h, wd, c = x.shape
+    n = v.n_taps
+    plan, flags = ka.probe_plan(bsz, h, wd, c, n), ka.kernel_flags(v)
+    th, tw = plan.th, plan.tw
+    assert ka.TH % th == 0
+    halo = 0 if flags & ka.NO_HALO else 1
+    sw, rows, cq = tw + 2 * halo, th + 2 * halo, -(-c // 64) * 64
+    img, r0, col0 = (t.reshape(-1) for t in torch.meshgrid(
+        torch.arange(bsz), torch.arange(0, h, th), torch.arange(0, wd, tw), indexing="ij"))
+    sr, sc = torch.arange(rows).repeat_interleave(sw), torch.arange(sw).repeat(rows)
+    ih = r0[:, None] - halo + sr[None, :]       # (tiles, staged pixels)
+    iw = col0[:, None] - halo + sc[None, :]
+    row_ok = (ih >= 0) & (ih < h)
+    if flags & ka.BANDS:
+        edge = (((sr == 0)[None, :] & (r0 % ka.TH == 0)[:, None])
+                | ((sr == th + 1)[None, :] & ((r0 + th) % ka.TH == 0)[:, None]))
+        row_ok = torch.where(edge, bool(flags & ka.HALOS), row_ok)
+        if flags & ka.HALOS:
+            ih = torch.where(edge, ih.clamp(0, h - 1), ih)
+    loaded = row_ok & (iw >= 0) & (iw < wd)
+    # a loaded cell reads its pixel, every other one reads pixel (0, 0) and
+    # is zero-filled
+    raw = x[img[:, None], ih.where(loaded, 0), iw.where(loaded, 0)]
+    loaded = loaded[..., None]
+    raw = torch.where(loaded, raw, torch.zeros((), dtype=x.dtype))
+    staged = raw
+    if v.act:
+        staged = ka._act(raw, v)
+        if not flags & ka.FILL_ACT:
+            staged = torch.where(loaded, staged, torch.zeros((), dtype=x.dtype))
+    staged = F.pad(staged.double(), (0, cq - c))  # (tiles, staged pixels, cq)
+    if v.selects:  # each chunk in parity-class order
+        pos = torch.arange(cq)
+        staged = staged[..., pos // 64 * 64 + 4 * (pos % 16) + pos % 64 // 16]
+    m = torch.arange(th * tw)
+    p0 = (m // tw) * sw + m % tw                 # an output pixel's staged pixel, at offset 0
+    if n == 0:
+        acc = staged[:, p0 + halo * sw + halo]
+    else:
+        layout = ka.weight_layout(w, v).double()  # (chunks, taps, C padded, 64), swizzled
+        nn_, kk = torch.arange(cq)[:, None], torch.arange(64)[None, :]
+        wq = layout.reshape(*layout.shape[:3], 8, 8)[:, :, nn_, (kk // 8) ^ (nn_ % 8), kk % 8]
+        toff = ka.tap_offsets(v, tw)
+        acc = torch.zeros((len(img), th * tw, cq), dtype=torch.float64)
+        for q in range(cq // 64):
+            for t in range(n):
+                for ks in range(4):
+                    off = toff[4 * t + ks] if v.selects else toff[t]
+                    k = slice(64 * q + 16 * ks, 64 * q + 16 * ks + 16)
+                    acc += staged[:, p0 + off, k] @ wq[q, t, :, 16 * ks:16 * ks + 16].t()
+    out = torch.full((bsz, h, wd, c), float("nan"), dtype=torch.float64)
+    oh, ow = r0[:, None] + m // tw, col0[:, None] + m % tw
+    ok = ow < wd
+    out[img[:, None].expand_as(oh)[ok], oh[ok], ow[ok]] = acc[ok][:, :c]
+    return out
+
+
+def _plain_sums(x, w, v):
+    """The plain version's sums in f64, from its own taps (``_p2_taps``)."""
+    src = ka._act(x, v)
+    if v.n_taps == 0:
+        return src.double()
+    c = x.shape[-1]
+    taps = ([src.double().reshape(-1, c)] * v.n_taps if v.probe == 1
+            else [t.double() for t in ka._p2_taps(src, v)])
+    return sum(t @ w.double()[i] for i, t in enumerate(taps)).reshape(x.shape)
+
+
+def _within_one_ulp(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """Every cell within one bf16 ULP of its own magnitude, plus 1e-5 max
+    |ref| where the sum cancels (the f32 sums' own error)."""
+    g, r = got.float(), ref.float()
+    mag = torch.maximum(g.abs(), r.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * r.abs().max()
+    return bool(((g - r).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape", list(REPLAY_SHAPES.values()), ids=list(REPLAY_SHAPES))
+@pytest.mark.parametrize("v", ka.VARIANTS, ids=[
+    f"P{v.probe}-{label}" for v, (label, _) in zip(ka.VARIANTS, ka.P1_ROWS + ka.P2_ROWS)])
+def test_replayed_launch_is_the_plain_version(v, shape):
+    rng = np.random.default_rng(sum(shape) + ka.VARIANTS.index(v))
+    x = torch.from_numpy((rng.standard_normal(shape) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    c = shape[-1]
+    w = torch.from_numpy((rng.standard_normal((max(v.n_taps, 1), c, c)) * 0.05)
+                         .astype(np.float32)).to(torch.bfloat16)
+    got, ref = _replay(x, w, v), _plain_sums(x, w, v)
+    assert not torch.isnan(got).any()
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    assert _within_one_ulp(got.to(torch.bfloat16), ka.anatomy_plain(x, w, v))
+
+
+def test_probe_plan_keeps_tiles_inside_the_bands():
+    """The probes' tile is K2's plan at their shape and, at every width, a
+    divisor of the band in rows that fits the instance's 256 pixels."""
+    p, k2 = ka.probe_plan(4, 512, 512, 128), fr.conv_plan(4, 512, 512, (128,), 128)
+    assert (k2.bn, k2.mt) == (ka.BN, ka.MT) and p[:4] == (k2.th, k2.tw, k2.stages, k2.smem)
+    assert p.grid == k2.grid and p.tiles == k2.tiles
+    assert ka.probe_plan(4, 512, 512, 128, n_taps=0).tiles == 4096
+    for wd in range(1, 70):
+        p = ka.probe_plan(1, 32, wd, 96)
+        assert ka.TH % p.th == 0 and p.th * p.tw <= 128 * ka.MT and p.tw == min(wd, 32)
+        assert p.smem <= fr.SMEM_LIMIT and 2 <= p.stages <= fr.MAX_STAGES
+    # W = 8: K2's tile rule at two m64 tiles gives 32 rows, across two bands
+    assert min(128 * ka.MT // 8, 32, 32) == 32 and ka.probe_plan(1, 32, 8, 128).th == 16
+
+
+def test_tap_offsets_are_the_probes_shifts():
+    """P1's taps read the tile itself; P2's tap t the row shifted by
+    t % 3 - 1 at the centre column; with selects K2·struct's 16 shifts."""
+    sw = 34
+    for v in ka.VARIANTS:
+        offs = ka.tap_offsets(v, 32)
+        assert len(offs) == 16
+        if v.selects:
+            assert offs == fr.struct_tap_offsets(32)
+        elif v.probe == 1:
+            assert offs == (0,) * 16
+        else:
+            assert [(o // sw - 1, o % sw - 1) for o in offs[:4]] == [(-1, 0), (0, 0), (1, 0),
+                                                                      (-1, 0)]
