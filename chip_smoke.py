@@ -73,6 +73,29 @@ weights from a seed:
      matmul and, for P1's 1-tap product and its copy, the one PyTorch call
      that computes the same; then K2's time split into its parts, each a
      difference of two of those rows.
+  8. The web demo's server (``ml_mdm_tpu_torch/clis/generate_sample.py``),
+     caption to image: a T5 encoder at flan-t5-xl's published shape (1.22
+     billion parameters) with seeded random weights is written in bf16 to a
+     temporary directory as a Hugging Face checkpoint; ``get_arguments``
+     reads configs/models/cc12m_256x256.yaml with ``--text-model`` that
+     directory, and ``make_builtin_server`` loads it (f32 on the card) beside
+     the 256px model (seeded random weights) and serves on a free port.
+     Over HTTP: ``/choices``; one plain ``/generate`` at the demo's
+     defaults (batch 4, guidance 7.5, DDIM-50, eta 0, CLIP, seed 0, a
+     caption and a negative prompt; the server's first, which builds the
+     sampling weights' layouts); the same query streamed, which must give
+     at least 2 previews and then a final image; the same query plain
+     again; one more with seed 1, which must differ. K1, K2 and
+     K2·struct must launch inside these four requests and K3 must not;
+     every image decodes, has the grid's shape and no constant image. The
+     streamed image must equal the plain one bitwise where the two plain
+     calls are bitwise equal, else be as close to them as they are to each
+     other (``within_spread``), and the same query at DDIM-49, a planted
+     fault, must fail that rule; with the vision model on its plain route a
+     DDIM-10 stream must equal its plain request bit for bit
+     (``check_stream``). Then the text
+     tower's time on the request's captions (CUDA events) and the card's
+     f32 tower against the same weights on the CPU.
 
 Every K2 launch runs the implicit-GEMM kernel on wgmma, at 9 taps
 unpacked and at the 4 combined taps packed (its ``conv_plan`` and the ptxas
@@ -97,7 +120,8 @@ over the 64px forward's shapes with the launches of the 64px batch-64
 request, K2·struct and K2·pipe during the 256px and 1024px matmul-route
 requests and the train_1024 preset's timed steps,
 K3 and its passes during the train_256 preset's timed steps, K4 during the
-flash-route requests, P1 and P2 during the probes' tables), its error and
+flash-route requests, P1 and P2 during the probes' tables; K1-K2·pipe also
+the web demo's requests, which ``server_launches`` gives apart), its error and
 its times; the last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
@@ -1906,6 +1930,285 @@ def probe_library(v, x, w):
     return x.clone if v.n_taps == 0 else None
 
 
+# -- the web demo's server ---------------------------------------------------
+
+DEMO_CONFIG = "configs/models/cc12m_256x256.yaml"
+# the public google/flan-t5-xl config.json, the keys the loader reads
+FLAN_T5_XL = {"d_ff": 5120, "d_kv": 64, "d_model": 2048, "feed_forward_proj": "gated-gelu",
+              "layer_norm_epsilon": 1e-06, "model_type": "t5", "num_heads": 32, "num_layers": 24,
+              "relative_attention_max_distance": 128, "relative_attention_num_buckets": 32,
+              "tie_word_embeddings": False, "vocab_size": 32128}
+DEMO_QUERY = dict(prompt="a red fox in the snow at dawn", negative_prompt="blurry, low quality",
+                  batch_size=4, guidance_scale=7.5, num_inference_steps=50, ddim_eta=0,
+                  threshold_function="CLIP", seed=0)
+
+
+def write_text_tower(dev, path: str):
+    """A T5 encoder at flan-t5-xl's published shape with seeded random
+    weights, written to ``path`` as a Hugging Face checkpoint directory
+    (config.json + pytorch_model.bin, bf16). Returns the parameter count."""
+    import torch
+
+    from ml_mdm_tpu_torch.language_models import t5
+
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        enc = t5.T5Encoder(t5.T5Config.from_hf_config(FLAN_T5_XL))
+    t5.init_t5_(enc, torch.Generator(device=dev).manual_seed(SEED))
+    n = sum(p.numel() for p in enc.parameters())
+    state = {k: v.to(torch.bfloat16).cpu() for k, v in enc.state_dict().items()}
+    del enc
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with open(f"{path}/config.json", "w") as f:
+        json.dump(FLAN_T5_XL, f)
+    torch.save(state, f"{path}/pytorch_model.bin")
+    size = sum(v.numel() * v.element_size() for v in state.values())
+    log(f"text tower: {n} parameters (flan-t5-xl's encoder shape), built in "
+        f"{t1 - t0:.3f} s, {size} bytes of bf16 written in {time.perf_counter() - t1:.3f} s")
+    return n
+
+
+def _png(b64: str):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def check_grid(img, batch: int, side: int, what: str):
+    """A decoded grid of ``batch`` images: uint8 (so finite, in [0, 255]),
+    the grid's shape, no image constant."""
+    import numpy as np
+
+    cols = int(np.ceil(np.sqrt(batch)))
+    rows = int(np.ceil(batch / cols))
+    shape = (rows * (side + 2) - 2, cols * (side + 2) - 2, 3)
+    if img.dtype != np.uint8 or img.shape != shape:
+        raise AssertionError(f"{what}: {img.dtype} {img.shape}, expected uint8 {shape}")
+    stds = [float(img[r * (side + 2): r * (side + 2) + side,
+                      c * (side + 2): c * (side + 2) + side].std())
+            for r, c in (divmod(i, cols) for i in range(batch))]
+    if min(stds) <= 0:
+        raise AssertionError(f"{what}: a constant image (std per image {stds})")
+    log(f"{what}: {shape} uint8, per-image std {[round(v, 3) for v in stds]}")
+
+
+def demo_request(url: str, query: dict, stream: bool, what: str):
+    """One /generate request: (final image, wall seconds, seconds to the
+    first preview or None, number of previews)."""
+    import urllib.parse
+    import urllib.request
+
+    q = urllib.parse.urlencode(dict(query, **({"stream": 1} if stream else {})))
+    t0 = time.perf_counter()
+    resp = urllib.request.urlopen(f"{url}/generate?{q}", timeout=600)
+    if not stream:
+        body = json.loads(resp.read())
+        return _png(body["image"]), time.perf_counter() - t0, None, 0
+    kinds, first, buf, fin = [], None, b"", None
+    while True:
+        chunk = resp.read1(65536)  # what has arrived, not a full 64 KiB
+        if not chunk:
+            break
+        buf += chunk
+        while b"\n\n" in buf:
+            frame, buf = buf.split(b"\n\n", 1)
+            if not frame.startswith(b"data: "):
+                continue
+            ev = json.loads(frame[6:])
+            kinds.append(ev["kind"])
+            if ev["kind"] == "preview" and first is None:
+                first = time.perf_counter() - t0
+                _png(ev["image"])
+            elif ev["kind"] == "final":
+                fin = ev
+    wall = time.perf_counter() - t0
+    if kinds.count("preview") < 2 or kinds[-1:] != ["final"]:
+        raise AssertionError(f"{what}: events {kinds}")
+    return _png(fin["image"]), wall, first, kinds.count("preview")
+
+
+def check_tower_on_cpu(path: str, tokens, card, mask):
+    """The card's f32 tower output ``card`` against the same weights (the
+    directory ``path``) on the CPU in f64: the card's error may be no more
+    than twice the CPU's own f32 error (both f32 outputs carry the roundings
+    of 24 layers, summed in another order, so they differ from each other by
+    more than 1e-4 of max|ref|: the f32-against-f32 error is logged)."""
+    import torch
+
+    from ml_mdm_tpu_torch.language_models import t5
+
+    enc = t5.load_t5_from_torch(path, "cpu")
+    ids = torch.from_numpy(tokens)
+    with torch.no_grad():
+        cpu32 = enc(ids, mask) * mask[..., None]
+        cpu64 = enc.double()(ids, mask.double()) * mask.double()[..., None]
+    e32, e_card, e_cpu = rel_err(card, cpu32), rel_err(card, cpu64), rel_err(cpu32, cpu64)
+    ok = e_card <= 2 * e_cpu
+    log(f"web demo text tower, card against CPU: against the f64 CPU output the card's f32 "
+        f"{e_card:.4e}, the CPU's f32 {e_cpu:.4e} (limit twice the CPU's); f32 against f32 "
+        f"{e32:.4e}; max|ref| {float(cpu64.abs().max()):.4f}: {ok}")
+    if not ok:
+        raise AssertionError("web demo: the text tower on the card disagrees with the CPU")
+
+
+def _levels(a, b):
+    """(largest, count, mean) of the uint8 level differences of two images."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), int((d > 0).sum()), float(d.mean())
+
+
+def within_spread(plain, again, other, what: str) -> bool:
+    """Whether ``other`` is as close to two plain images of its query as they
+    are to each other: its largest level difference from each within twice
+    theirs plus one level, its mean difference within twice theirs plus 0.05
+    (bitwise equal where the two plain images are). Two sampling calls on
+    the card are not bitwise equal: K2 sums its statistics by f32 atomics in
+    a varying order, and 50 guided steps carry the flipped roundings to the
+    pixels."""
+    pp, op, oa = _levels(plain, again), _levels(other, plain), _levels(other, again)
+    log(f"web demo, {what}: largest, count, mean of the level differences of {plain.size} "
+        f"values: plain vs plain again {pp}, against plain {op}, against plain again {oa}")
+    if pp[0] == 0:
+        return op[0] == 0
+    return max(op[0], oa[0]) <= 2 * pp[0] + 1 and max(op[2], oa[2]) <= 2 * pp[2] + 0.05
+
+
+def check_stream(url: str, q: dict, pipe, plain, again, streamed):
+    """The streamed final image against the plain ones. On the kernel route
+    it must lie within their spread (``within_spread``), and a planted
+    fault, the same query at DDIM-49, must not: the rule can tell one step
+    fewer apart. On the vision model's plain route (``use_kernels(False)``,
+    cuDNN deterministic: no atomic sums) a DDIM-10 stream must equal its
+    plain request bit for bit, so a frame off by one or a missing final
+    clip shows there whatever the spread."""
+    import numpy as np
+    import torch
+
+    if not within_spread(plain, again, streamed, "the streamed image (kernel route)"):
+        raise AssertionError("web demo: the streamed image is not the plain one")
+    fault, _, _, _ = demo_request(url, dict(q, num_inference_steps=49), False,
+                                  "planted fault: DDIM-49")
+    if within_spread(plain, again, fault, "a planted fault, the DDIM-49 image"):
+        raise AssertionError("web demo: the stream's check accepts the DDIM-49 image")
+    deterministic = torch.backends.cudnn.deterministic
+    pipe.vision_module.use_kernels(False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        short = dict(q, num_inference_steps=10)
+        img_p, wall_p, _, _ = demo_request(url, short, False, "plain route, plain request")
+        img_s, wall_s, _, _ = demo_request(url, short, True, "plain route, streamed request")
+    finally:
+        pipe.vision_module.use_kernels(True)
+        torch.backends.cudnn.deterministic = deterministic
+    lv = _levels(img_p, img_s)
+    log(f"web demo, plain route, DDIM-10: plain {wall_p:.4f} s, streamed {wall_s:.4f} s wall; "
+        f"streamed against plain {lv} (largest, count, mean): bitwise {lv[0] == 0}")
+    if lv[0] != 0:
+        raise AssertionError("web demo: on the plain route the streamed image is not the plain one")
+
+
+def path_demo(dev):
+    """Phase 8: the web demo's server (``ml_mdm_tpu_torch/clis/
+    generate_sample.py``) on cc12m_256x256 with a flan-t5-xl-shaped text
+    tower loaded from a local directory, driven through HTTP."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ml_mdm_tpu_torch.clis import generate_sample as gs
+    from ml_mdm_tpu_torch.config import get_arguments
+    from ml_mdm_tpu_torch.reader import process_text
+
+    q = DEMO_QUERY
+    batch = q["batch_size"]
+    log(f"web demo on {nvidia_smi_line()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("web demo: the text tower at flan-t5-xl's shape, written to a local directory"):
+            n_t5 = write_text_tower(dev, tmp)
+        with phase("web demo: start the server (cc12m_256x256, --text-model that directory)"):
+            t0 = time.perf_counter()
+            args = get_arguments(["--config_path", DEMO_CONFIG, "--text-model", tmp], mode="demo")
+            args.model_file = ""
+            server = gs.make_builtin_server(args, port=0)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+        try:
+            models = gs._CACHE[f"{DEMO_CONFIG}::"]
+            pipe, side, lm = models["pipeline"], models["image_side"], models["language_model"]
+            log(f"server set up in {time.perf_counter() - t0:.3f} s: text tower "
+                f"{sum(p.numel() for p in lm.encoder.parameters())} parameters "
+                f"({next(lm.encoder.parameters()).dtype}), vision model "
+                f"{sum(p.numel() for p in pipe.vision_module.parameters())} parameters "
+                f"({next(pipe.vision_module.parameters()).dtype}), side {side}, text width "
+                f"{lm.embed_dim}")
+            url = f"http://127.0.0.1:{server.server_port}"
+            k2_keys, _ = record_launch_shapes(
+                forward_inputs(pipe, dev, 2 * batch, side, lm.embed_dim))
+            required = ("K1", "K2") + modes(k2_keys)
+            if "K2·struct" not in required:
+                raise AssertionError("web demo: the 256px forward has no packed launch shape")
+            with phase("web demo: /choices, a plain request, the same streamed, plain again, "
+                       "another seed"):
+                choices = json.loads(urllib.request.urlopen(f"{url}/choices", timeout=60).read())
+                log(f"/choices: {len(choices['configs'])} configs, "
+                    f"{len(choices['checkpoints'])} checkpoints")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts()
+                # the server's first request builds the sampling weights' layouts
+                img_p, wall_p, _, _ = demo_request(url, q, False, "plain request")
+                img_s, wall_s, first, n_prev = demo_request(url, q, True, "streamed request")
+                img_r, wall_r, _, _ = demo_request(url, q, False, "plain request again")
+                img_o, wall_o, _, _ = demo_request(url, dict(q, seed=1), False, "seed 1")
+                counts = read_counts("the web demo's four requests", required)
+                peak = torch.cuda.max_memory_allocated(dev)
+                for k in ("K3", "K3·A", "K3·B"):
+                    if counts[k]:
+                        raise AssertionError(f"web demo: {k} launched {counts[k]} times")
+                log(f"web demo launches: K2·pipe {counts['K2·pipe']}, K2·N {counts['K2·N']}, "
+                    f"K2·proj {counts['K2·proj']}")
+                for what, wall in (("plain (the first)", wall_p), ("streamed", wall_s),
+                                   ("plain again", wall_r), ("seed 1", wall_o)):
+                    log(f"web demo {what} request: batch {batch}, DDIM-{q['num_inference_steps']}, "
+                        f"guidance {q['guidance_scale']}: {wall:.4f} s wall, "
+                        f"{batch / wall:.4f} samples/s")
+                log(f"web demo streamed request: {n_prev} previews, the first after {first:.4f} s")
+                log(f"web demo: peak device memory over the requests {peak} bytes "
+                    f"({peak / 2**30:.3f} GiB)")
+                for img, what in ((img_p, "plain"), (img_s, "streamed final"),
+                                  (img_r, "plain again"), (img_o, "seed 1")):
+                    check_grid(img, batch, side, f"web demo {what} image")
+                if np.array_equal(img_o, img_p):
+                    raise AssertionError("web demo: seed 1 gave seed 0's image")
+            with phase("web demo: the streamed image against the plain ones, a planted fault, "
+                       "the plain route"):
+                check_stream(url, q, pipe, img_p, img_r, img_s)
+            with phase("web demo: the text tower on the request's captions, card against CPU"):
+                tok = models["tokenizer"]
+                tokens = np.asarray(process_text([q["negative_prompt"], q["prompt"]], tok,
+                                                 args.reader_config))
+                ms = cuda_ms(lambda: lm({"tokens": tokens}, tok), warmup=2, reps=5)
+                log(f"web demo text tower, tokens {tokens.shape}, f32: {ms:.4f} ms (CUDA events, "
+                    f"median of 5)")
+                got, mask = lm({"tokens": tokens}, tok)
+                check_tower_on_cpu(tmp, tokens, got.cpu(), mask.cpu())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+            gs._CACHE.clear()
+    return counts, dict(t5_params=n_t5, t5_ms=ms, wall_s=wall_s, first_s=first)
+
+
 # ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
 # -> "registers, spills", and for each probe instance of the same kernel,
 # (its PROBE word, packed), from the build logs (``nvcc_report``)
@@ -2018,6 +2321,8 @@ def main() -> int:
             "probe shape")
     torch.cuda.empty_cache()
     tot_probes, counts_probes = path_probes(dev, tot_k2_probe["K2"]["ms"])
+    torch.cuda.empty_cache()
+    counts_demo, demo = path_demo(dev)
 
     # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
     # slices), K2·struct and K2·pipe over those and the train_1024 step's
@@ -2035,13 +2340,21 @@ def main() -> int:
     launches["K2 64px"] = counts_64["K2"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
     launches.update({k: counts_probes[k] for k in ("P1", "P2")})
+    # the web demo's requests run the nested forward's kernels too
+    server = {k: counts_demo[k] for k in ("K1", "K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe")}
+    for k, v in server.items():
+        launches[k] += v
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
         f"64px batch-64 request (K2 64px), the nested matmul-route requests and the "
         f"train_1024 preset's timed steps (K2·struct, K2·pipe: {counts_256['K2·struct']} + "
         f"{counts_1024['K2·struct']} + {counts_t1024['K2·struct']} and {counts_256['K2·pipe']} + "
         f"{counts_1024['K2·pipe']} + {counts_t1024['K2·pipe']}), the train_256 preset's timed "
         f"steps (K3, K3·A, K3·B), the flash-route "
-        f"requests (64px and 256px; K4) and the probes' tables (P1, P2): {launches}")
+        f"requests (64px and 256px; K4) and the probes' tables (P1, P2), and, for K1-K2·pipe, "
+        f"the web demo's four requests ({server}): {launches}")
+    log(f"web demo: text tower {demo['t5_params']} parameters, {demo['t5_ms']:.4f} ms for the "
+        f"request's captions; streamed request {demo['wall_s']:.4f} s, first preview after "
+        f"{demo['first_s']:.4f} s")
     for what, t in (("64px forward's", totals["K2 64px"]), ("nested forwards'", totals["K2"])):
         log(f"K2 over the {what} {t['shapes']} shapes: kernel {t['ms']:.4f} ms "
             f"({t['ms'] / t['library_ms']:.3f}x the library), library {t['library_ms']:.4f} ms, "
@@ -2065,7 +2378,8 @@ def main() -> int:
     def entry(name, mode, route, source, replaces, library=True, **extra):
         t = totals[mode]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": launches[mode], "max_abs_err": t["err"], "ms": t["ms"],
+                "launches": launches[mode], "server_launches": server.get(mode, 0),
+                "max_abs_err": t["err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
                 "library_ms": t["library_ms"] if library else None,

@@ -3,11 +3,13 @@ and the sampling entries.
 
 Counterpart of ``ml_mdm_tpu/diffusion.py`` ``Model``, ``Diffusion``,
 ``NestedModel`` and ``NestedDiffusion``: ``get_loss`` of both pipelines
-(without the JAX package's packed loss boundary: the port does not pack)
-and ``sample``. A pipeline owns its U-Net module, so there is no separate
-params argument; ``vision_module.train()`` selects the training route of
-its ResNets. A loss takes its timesteps and noise from the caller or
-draws them from an explicit ``torch.Generator``.
+(without the JAX package's packed loss boundary: the port does not pack),
+``sample``, ``sample_stream`` (the web demo's previews), ``sample_chunked``
+and, on the single-resolution pipeline, ``partial_diffusion`` (img2img). A
+pipeline owns its U-Net module, so there is no separate params argument;
+``vision_module.train()`` selects the training route of its ResNets. A loss
+takes its timesteps and noise from the caller or draws them from an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ml_mdm_tpu_torch.config import DiffusionConfig, NestedDiffusionConfig
+from ml_mdm_tpu_torch.config import (
+    DiffusionConfig,
+    NestedDiffusionConfig,
+    register_pipeline,
+    register_pipeline_config,
+)
 from ml_mdm_tpu_torch.samplers import NestedSampler, Sampler
 from ml_mdm_tpu_torch.utils.resize import resize_nhwc
 
@@ -85,6 +92,11 @@ class Model:
         return out
 
 
+register_pipeline_config("unet")(DiffusionConfig)
+register_pipeline_config("nested_unet")(NestedDiffusionConfig)
+
+
+@register_pipeline("unet")
 class Diffusion:
     def __init__(self, vision_module: torch.nn.Module,
                  diffusion_config: DiffusionConfig):
@@ -145,14 +157,46 @@ class Diffusion:
         (B or 2B rows with guidance) and ``lm_mask``; the initial noise is
         ``noise`` (B, side, side, C) or drawn from ``generator``. Keyword
         arguments go to ``Sampler.sample`` (num_inference_steps, ddim_eta,
-        guidance_scale, resample_steps, t_start). Returns images in
-        [-1, 1], NHWC."""
+        guidance_scale, resample_steps, t_start, return_sequence,
+        step_noise). Returns images in [-1, 1], NHWC."""
+        return self._run(self.sampler.sample, num_examples, sample, image_side, generator,
+                         noise, kwargs)
+
+    def _run(self, entry, num_examples, sample, image_side, generator, noise, kwargs):
+        """``entry`` (a sampler loop) from ``noise`` or a draw of it."""
         if noise is None:
             noise = self.get_noise(num_examples, image_side, generator)
-        return self.sampler.sample(
-            self.model, noise, sample["lm_outputs"], sample["lm_mask"],
-            self.get_micro_conditioning(sample), generator, **kwargs,
-        )
+        return entry(self.model, noise, sample["lm_outputs"], sample["lm_mask"],
+                     self.get_micro_conditioning(sample), generator, **kwargs)
+
+    @torch.no_grad()
+    def sample_stream(self, num_examples: int, sample: Dict[str, Any], image_side: int,
+                      generator: Optional[torch.Generator] = None, *, noise=None, **kwargs):
+        """``sample`` as a generator of (x0, x_t, (g, g_last)) per step
+        (``Sampler.sample_stream``), for the web demo's previews."""
+        yield from self._run(self.sampler.sample_stream, num_examples, sample, image_side,
+                             generator, noise, kwargs)
+
+    @torch.no_grad()
+    def sample_chunked(self, *args, chunk_steps: int = 50, **kwargs):
+        """``sample`` itself (``chunk_steps`` is unused, as in
+        ``Sampler.sample_chunked``)."""
+        return self.sample(*args, **kwargs)
+
+    @torch.no_grad()
+    def partial_diffusion(self, images: torch.Tensor, t: int, sample: Dict[str, Any],
+                          generator: Optional[torch.Generator] = None, *,
+                          eps: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
+        """img2img: ``images`` (B, H, W, C) in [-1, 1] noised to level t with
+        ``eps`` (else a draw from ``generator``), then denoised from t
+        (``sample``'s loop with ``t_start=t``)."""
+        if eps is None:
+            eps = torch.randn(images.shape, generator=generator, device=images.device,
+                              dtype=images.dtype)
+        g = self.sampler.read_gamma(torch.full((images.shape[0],), t, device=images.device))
+        x_t = self.sampler.get_xt(self.sampler.get_image_rescaled(images), eps, g)
+        return self._run(self.sampler.sample, images.shape[0], sample, images.shape[1],
+                         generator, x_t, dict(kwargs, t_start=t))
 
 
 class NestedModel(Model):
@@ -208,6 +252,7 @@ class NestedModel(Model):
         return p_t
 
 
+@register_pipeline("nested_unet")
 class NestedDiffusion(Diffusion):
     """Nested (Matryoshka) pipeline: all resolutions denoised jointly by one
     ``NestedUNet``; a sample is the highest resolution."""
@@ -297,12 +342,12 @@ class NestedDiffusion(Diffusion):
         """Text-conditioned nested sampling; ``noise`` is the list of x_T
         per resolution (else drawn from ``generator``). Keyword arguments go
         to ``NestedSampler.sample`` (num_inference_steps, ddim_eta,
-        guidance_scale, resample_steps, t_start, output_inner, step_noise).
+        guidance_scale, resample_steps, t_start, return_sequence,
+        output_inner, step_noise).
         Returns images in [-1, 1], NHWC, at ``image_side``."""
-        if noise is None:
-            noise = self.get_noise(num_examples, image_side, generator)
-        return self.sampler.sample(
-            self.model, noise, sample["lm_outputs"], sample["lm_mask"],
-            self.get_micro_conditioning(sample), generator,
-            scales=self.scales, **kwargs,
-        )
+        return self._run(self.sampler.sample, num_examples, sample, image_side, generator,
+                         noise, kwargs)
+
+    def _run(self, entry, num_examples, sample, image_side, generator, noise, kwargs):
+        return super()._run(entry, num_examples, sample, image_side, generator, noise,
+                            dict(kwargs, scales=self.scales))

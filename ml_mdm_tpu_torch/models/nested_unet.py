@@ -25,7 +25,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ml_mdm_tpu_torch.config import NestedUNetConfig
+from ml_mdm_tpu_torch.config import (
+    Nested2UNetConfig,
+    Nested3UNetConfig,
+    Nested4UNetConfig,
+    NestedUNetConfig,
+    register_model,
+    register_model_config,
+)
 from ml_mdm_tpu_torch.models.layers import conv2d_nhwc
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.models.unet import UNet
@@ -44,6 +51,12 @@ def compute_nest_ratio(config) -> List[int]:
     return [ratio]
 
 
+for _name, _cls in (("nested_unet", NestedUNetConfig), ("nested2_unet", Nested2UNetConfig),
+                   ("nested3_unet", Nested3UNetConfig), ("nested4_unet", Nested4UNetConfig)):
+    register_model_config(_name, "nested_unet")(_cls)
+
+
+@register_model("nested_unet")
 class NestedUNet(UNet):
     def __init__(self, input_channels: int, output_channels: int,
                  config: NestedUNetConfig, cond_dim_override=None, text_dim=None):

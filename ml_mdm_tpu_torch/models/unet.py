@@ -39,7 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ml_mdm_tpu_torch.config import UNetConfig
+from ml_mdm_tpu_torch.config import UNetConfig, register_model, register_model_config
 from ml_mdm_tpu_torch.models.layers import (
     GroupNormF32,
     ResNetBlockStage,
@@ -128,6 +128,10 @@ def sinusoidal_embedding(times: torch.Tensor, temporal_dim: int) -> torch.Tensor
     return torch.cat([torch.sin(temb), torch.cos(temb)], dim=1)
 
 
+register_model_config("unet", "unet")(UNetConfig)
+
+
+@register_model("unet")
 class UNet(nn.Module):
     compute_dtype: Optional[torch.dtype] = None
 

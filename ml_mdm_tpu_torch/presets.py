@@ -121,16 +121,17 @@ def init_params_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
     return module
 
 
-def _build(cls, ucfg, device, seed: int, train: bool):
-    """The U-Net with seeded weights: bf16 in eval mode, or f32 with bf16
-    compute in training mode."""
+def build_unet(cls, ucfg, device, seed: int, train: bool = False,
+               dtype: torch.dtype = torch.bfloat16):
+    """The U-Net (``cls``: ``UNet`` or ``NestedUNet``) with seeded weights:
+    ``dtype`` in eval mode, or f32 with bf16 compute in training mode."""
     with torch.device("meta"):
         unet = cls(3, 3, ucfg)
     unet = unet.to_empty(device=device)
     init_params_(unet, torch.Generator(device=device).manual_seed(seed))
     if train:
         return unet.set_compute_dtype(torch.bfloat16).train()
-    return unet.to(torch.bfloat16).eval()
+    return unet.to(dtype).eval()
 
 
 def flagship_64px(device, seed: int = 0, scaled: bool = False,
@@ -140,7 +141,7 @@ def flagship_64px(device, seed: int = 0, scaled: bool = False,
     f32 weights and bf16 compute). Returns (pipeline, text width, image
     side)."""
     ucfg, dcfg, lm_dim, side = flagship_configs(scaled)
-    return Diffusion(_build(UNet, ucfg, device, seed, train), dcfg), lm_dim, side
+    return Diffusion(build_unet(UNet, ucfg, device, seed, train), dcfg), lm_dim, side
 
 
 def _shell(channels, resnets, micro: str, temporal_dim: int, groups: int,
@@ -217,7 +218,7 @@ def nested_preset(name: str, device, seed: int = 0, scaled: bool = False,
     or with ``train`` f32 weights and bf16 compute; ``pack_min_side`` as in
     ``nested_configs``). Returns (pipeline, text width, image side)."""
     ucfg, dcfg, lm_dim, side = nested_configs(name, scaled, pack_min_side)
-    return NestedDiffusion(_build(NestedUNet, ucfg, device, seed, train), dcfg), lm_dim, side
+    return NestedDiffusion(build_unet(NestedUNet, ucfg, device, seed, train), dcfg), lm_dim, side
 
 
 class TrainPreset(NamedTuple):

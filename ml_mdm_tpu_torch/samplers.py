@@ -3,8 +3,10 @@ nested (multi-resolution) sampler.
 
 Counterpart of ``ml_mdm_tpu/samplers.py`` ``Sampler`` and
 ``NestedSampler``. The gamma tables are the JAX package's numpy builders,
-copied here because importing them would import JAX. The denoise loop is a
-Python loop over the timestep table. Per-image gammas broadcast as
+copied here because importing them would import JAX. The denoise loop is
+one Python loop over the timestep table (``_steps``), behind ``sample``
+(with ``return_sequence``), the web demo's ``sample_stream`` and
+``sample_chunked``. Per-image gammas broadcast as
 (B, 1, 1, 1) against NHWC images; coefficients are computed in f32 and
 applied in the carry's dtype.
 
@@ -309,43 +311,94 @@ class Sampler:
         return ts
 
     def step(self, model_fn: ModelFn, x_t, t: int, t_last: int, lm_outputs,
-             lm_mask, micros, generator: Optional[torch.Generator] = None,
+             lm_mask, micros, noise: Optional[torch.Tensor] = None,
              guidance_scale=1.0, ddim_eta=None):
         """One denoise step t -> t_last; the model sees time t - 1.
-        Noise is drawn (from ``generator``) only when the step uses it."""
+        ``noise`` is the standard normal of the stochastic update, or None
+        where the step adds none (``_step_noise``)."""
         b = x_t.shape[0]
         tt = torch.full((b,), t, dtype=torch.long, device=x_t.device)
         ss = torch.full((b,), t_last, dtype=torch.long, device=x_t.device)
         g, g_last = self.read_gamma(tt), self.read_gamma(ss)
         pred = self.forward_model(model_fn, x_t, tt - 1, lm_outputs, lm_mask,
                                   micros, guidance_scale)
-        need_noise = t_last != 0 and (ddim_eta is None or ddim_eta != 0)
-        noise = None
-        if need_noise:
-            noise = torch.randn(x_t.shape, generator=generator,
-                                device=x_t.device, dtype=x_t.dtype)
         x0, x_s, _ = self.get_prediction_xt_last(
             x_t, pred, g, g_last,
             prediction_type=self.config.prediction_type,
-            clip_fn=self.clip_sample, need_noise=need_noise,
+            clip_fn=self.clip_sample, need_noise=noise is not None,
             ddim_eta=ddim_eta, input_noise=noise,
             image_scale=self.config.rescale_signal,
         )
         return x0, x_s
+
+    def _step_noise(self, i: int, t: int, t_last: int, x, ddim_eta,
+                    generator: Optional[torch.Generator], step_noise: Optional[NoiseFn]):
+        """The noise of step ``i`` (t -> t_last), drawn only where the step
+        uses it (eta not 0 and t_last not 0): ``step_noise(i, 0, x)`` when
+        given, else a draw from ``generator``."""
+        if (ddim_eta is not None and ddim_eta == 0) or t_last == 0:
+            return None
+        if step_noise is not None:
+            return step_noise(i, 0, x)
+        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+    def _steps(self, model_fn: ModelFn, x_t, lm_outputs, lm_mask, micros, generator,
+               num_inference_steps, ddim_eta, guidance_scale, resample_steps, t_start,
+               step_noise, **step_kw):
+        """The denoise loop as a generator of (t, t_last, x0, x_t) per step:
+        the one loop behind ``sample`` and ``sample_stream``."""
+        ts = self._timestep_table(num_inference_steps, resample_steps, t_start)
+        for i, (t, t_last) in enumerate(zip(ts[:-1].tolist(), ts[1:].tolist())):
+            noise = self._step_noise(i, t, t_last, x_t, ddim_eta, generator, step_noise)
+            x0, x_t = self.step(model_fn, x_t, t, t_last, lm_outputs, lm_mask, micros,
+                                noise, guidance_scale, ddim_eta, **step_kw)
+            yield t, t_last, x0, x_t
 
     def sample(self, model_fn: ModelFn, x_t, lm_outputs, lm_mask,
                micros: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                num_inference_steps: int = 2000, ddim_eta=None,
                guidance_scale: float = 1.0, resample_steps: bool = False,
-               t_start: int = -1):
+               t_start: int = -1, return_sequence: bool = False,
+               step_noise: Optional[NoiseFn] = None):
         """Full denoise loop; returns the final image rescaled and clipped
-        to [-1, 1]."""
-        ts = self._timestep_table(num_inference_steps, resample_steps, t_start)
-        for t, t_last in zip(ts[:-1].tolist(), ts[1:].tolist()):
-            _, x_t = self.step(model_fn, x_t, t, t_last, lm_outputs, lm_mask,
-                               micros, generator, guidance_scale, ddim_eta)
-        return self._postprocess(x_t, clip=True)
+        to [-1, 1], and with ``return_sequence`` also every step's x_t
+        stacked (S, B, H, W, C), rescaled and not clipped. The stochastic
+        update's noise comes from ``step_noise(step, 0, x)`` when given (a
+        test feeds the JAX package's draws through it), else from
+        ``generator``."""
+        seq = []
+        for _, _, _, x_t in self._steps(model_fn, x_t, lm_outputs, lm_mask, micros, generator,
+                                        num_inference_steps, ddim_eta, guidance_scale,
+                                        resample_steps, t_start, step_noise):
+            if return_sequence:
+                seq.append(x_t)
+        out = self._postprocess(x_t, clip=True)
+        if return_sequence:
+            return out, self._postprocess(torch.stack(seq))
+        return out
+
+    def sample_chunked(self, *args, chunk_steps: int = 50, **kwargs):
+        """``sample`` itself. ``chunk_steps`` is unused: the JAX package runs
+        its scan in chunks of that many steps to stay under a TPU runtime's
+        call deadline, and the port's loop is a host loop."""
+        return self.sample(*args, **kwargs)
+
+    def sample_stream(self, model_fn: ModelFn, x_t, lm_outputs, lm_mask, micros,
+                      generator: Optional[torch.Generator] = None,
+                      num_inference_steps: int = 2000, ddim_eta=None,
+                      guidance_scale: float = 1.0, resample_steps: bool = False,
+                      t_start: int = -1, step_noise: Optional[NoiseFn] = None):
+        """The denoise loop as a generator of (x0, x_t, (g, g_last)) per
+        step, both images rescaled and only the last x_t clipped (the web
+        demo's previews); g and g_last are the step's gammas (f32 scalars)."""
+        steps = self._steps(model_fn, x_t, lm_outputs, lm_mask, micros, generator,
+                            num_inference_steps, ddim_eta, guidance_scale, resample_steps,
+                            t_start, step_noise)
+        n = len(self._timestep_table(num_inference_steps, resample_steps, t_start)) - 1
+        for i, (t, t_last, x0, x_t) in enumerate(steps):
+            yield (self._postprocess(x0), self._postprocess(x_t, clip=i == n - 1),
+                   (self.gammas[t], self.gammas[t_last]))
 
     def _postprocess(self, x_t, clip=False, image_scale=None):
         if image_scale is None:
@@ -412,7 +465,7 @@ class NestedSampler(Sampler):
         """One lockstep denoise step t -> t_last at every resolution; the
         model sees time t - 1. ``noise`` holds one standard-normal tensor
         per resolution for the stochastic update, or None when the step
-        adds none (the JAX step adds it whenever t != 1)."""
+        adds none (``_step_noise``)."""
         b = x_t[0].shape[0]
         dev = x_t[0].device
         tt = torch.full((b,), t, dtype=torch.long, device=dev)
@@ -443,33 +496,62 @@ class NestedSampler(Sampler):
         return [torch.randn((batch, side, side, channels), generator=generator,
                             dtype=dtype, device=device) for side in sides]
 
+    def _step_noise(self, i: int, t: int, t_last: int, x, ddim_eta,
+                    generator: Optional[torch.Generator], step_noise: Optional[NoiseFn]):
+        """One normal per resolution for step ``i``, drawn where the JAX
+        step adds noise (eta not 0 and t not 1): ``step_noise(i, level, x)``
+        when given, else draws from ``generator``."""
+        if (ddim_eta is not None and ddim_eta == 0) or t == 1:
+            return None
+        if step_noise is not None:
+            return [step_noise(i, j, xj) for j, xj in enumerate(x)]
+        return [torch.randn(xj.shape, generator=generator, device=xj.device, dtype=xj.dtype)
+                for xj in x]
+
     def sample(self, model_fn: ModelFn, x_t: List[torch.Tensor], lm_outputs,
                lm_mask, micros: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None, *,
                scales: Sequence[float], num_inference_steps: int = 2000,
                ddim_eta=None, guidance_scale: float = 1.0,
                resample_steps: bool = False, t_start: int = -1,
-               output_inner: bool = False,
+               return_sequence: bool = False, output_inner: bool = False,
                step_noise: Optional[NoiseFn] = None):
         """Full lockstep denoise loop. The stochastic update's noise comes
         from ``step_noise(step, level, x)`` when given (a test feeds the
         JAX package's draws through it), else from ``generator``. Returns
         the highest resolution rescaled and clipped to [-1, 1], or with
-        ``output_inner`` every resolution side by side."""
-        ts = self._timestep_table(num_inference_steps, resample_steps, t_start)
-        xs = list(x_t)
-        stochastic = ddim_eta is None or ddim_eta != 0
-        for i, (t, t_last) in enumerate(zip(ts[:-1].tolist(), ts[1:].tolist())):
-            noise = None
-            if stochastic and t != 1:
-                if step_noise is not None:
-                    noise = [step_noise(i, j, x) for j, x in enumerate(xs)]
-                else:
-                    noise = [torch.randn(x.shape, generator=generator, device=x.device,
-                                         dtype=x.dtype) for x in xs]
-            _, xs = self.step(model_fn, xs, t, t_last, lm_outputs, lm_mask, micros,
-                              noise, guidance_scale, ddim_eta, scales)
-        return self._postprocess_nested(xs, clip=True, output_inner=output_inner)
+        ``output_inner`` every resolution side by side; with
+        ``return_sequence`` also the highest resolution's x_t of every step
+        stacked (S, B, H, W, C), as the sampler carries it (the JAX nested
+        sampler neither rescales nor clips it)."""
+        seq, xs = [], list(x_t)
+        for _, _, _, xs in self._steps(model_fn, xs, lm_outputs, lm_mask, micros, generator,
+                                       num_inference_steps, ddim_eta, guidance_scale,
+                                       resample_steps, t_start, step_noise, scales=scales):
+            if return_sequence:
+                seq.append(xs[0])
+        out = self._postprocess_nested(xs, clip=True, output_inner=output_inner)
+        if return_sequence:
+            return out, torch.stack(seq)
+        return out
+
+    def sample_stream(self, model_fn: ModelFn, x_t: List[torch.Tensor], lm_outputs,
+                      lm_mask, micros, generator: Optional[torch.Generator] = None, *,
+                      scales: Sequence[float], num_inference_steps: int = 2000,
+                      ddim_eta=None, guidance_scale: float = 1.0,
+                      resample_steps: bool = False, t_start: int = -1,
+                      output_inner: bool = False, step_noise: Optional[NoiseFn] = None):
+        """The lockstep loop as a generator of (x0, x_t, (g, g_last)) per
+        step, each image as ``_postprocess_nested`` gives it (only the last
+        x_t clipped)."""
+        steps = self._steps(model_fn, list(x_t), lm_outputs, lm_mask, micros, generator,
+                            num_inference_steps, ddim_eta, guidance_scale, resample_steps,
+                            t_start, step_noise, scales=scales)
+        n = len(self._timestep_table(num_inference_steps, resample_steps, t_start)) - 1
+        for i, (t, t_last, x0s, xs) in enumerate(steps):
+            yield (self._postprocess_nested(x0s, output_inner=output_inner),
+                   self._postprocess_nested(xs, clip=i == n - 1, output_inner=output_inner),
+                   (self.gammas[t], self.gammas[t_last]))
 
     def _postprocess_nested(self, x_t: List[torch.Tensor], clip=False,
                             output_inner=False):

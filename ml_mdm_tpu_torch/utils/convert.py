@@ -14,6 +14,10 @@ Repeats the mapping of ``ml_mdm_tpu/utils/torch_compat.py``
   (``lm_head_<i>/attn``, ``t_attn_<i>/attn``) stay ``nn.Linear``;
 - norm ``scale`` becomes ``weight``.
 
+``t5_params_from_jax`` carries the JAX ``T5Encoder``'s tree
+(``ml_mdm_tpu/language_models/t5.py``) onto the port's T5, whose names are
+Hugging Face's.
+
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (parameters,
 EMA copy, optax Adam moments and count, step) into the port's
 ``trainer.TrainState`` with the same mapping.
@@ -81,6 +85,34 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
             out[key] = torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
         else:
             out[key] = torch.from_numpy(np.array(v, order="C"))
+    return out
+
+
+# the JAX T5 block's submodules -> the Hugging Face names under
+# ``encoder.block.<i>.layer``
+_T5_BLOCK = {"ln_0": "0.layer_norm", "attn": "0.SelfAttention", "ln_1": "1.layer_norm",
+             "ff": "1.DenseReluDense"}
+
+
+def t5_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A JAX ``T5Encoder`` params tree of numpy arrays -> the port's
+    ``T5Encoder`` state dict: dense kernels (in, out) -> (out, in),
+    embeddings as they are, RMSNorm ``scale`` -> ``weight``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        v = np.asarray(value, dtype=np.float32)
+        head, leaf = path[0], path[-1]
+        if leaf == "kernel":
+            v = v.T
+        if head.startswith("blocks_"):
+            i = head[len("blocks_"):]
+            inner = ".".join((_T5_BLOCK[path[1]],) + path[2:-1])
+            key = f"encoder.block.{i}.layer.{inner}.weight"
+        elif head == "shared":
+            key = "shared.weight"
+        else:
+            key = f"encoder.{head}.weight"
+        out[key] = torch.from_numpy(np.array(v, order="C"))
     return out
 
 

@@ -918,3 +918,24 @@ def test_flash_route_on_the_card(dev):
             attention.dot_product_attention(q.clone().requires_grad_(True), k, v)
     finally:
         attention.use_flash(None)
+
+
+@pytest.mark.cuda
+def test_t5_encoder_on_the_card_matches_the_cpu(dev):
+    """The text tower in f32 on the card against the same weights on the
+    CPU, padded rows included: <= 1e-4 * max|ref| (the same f32 sums in
+    another order, TF32 off)."""
+    from ml_mdm_tpu_torch.language_models import t5
+
+    cfg = t5.T5Config(vocab_size=1000, d_model=256, d_kv=32, d_ff=640, num_layers=4,
+                      num_heads=8)
+    enc = t5.init_t5_(t5.T5Encoder(cfg), torch.Generator().manual_seed(0)).eval()
+    ids = torch.randint(0, 1000, (3, 150), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones((3, 150))
+    mask[1, 90:] = 0
+    mask[2, 7:] = 0
+    with torch.no_grad():
+        ref = enc(ids, mask)
+        got = enc.to(dev)(ids.to(dev), mask.to(dev))
+    assert got.dtype == torch.float32
+    assert _rel(got.cpu(), ref) <= 1e-4

@@ -131,7 +131,7 @@ def test_nested_yaml_and_preset_match_jax_loader(name):
     path = os.path.join(REPO, f"configs/models/{name}.yaml")
     args = get_arguments(args=["--config_path", path], mode="sampler")
     ucfg, dcfg = tcfg.load_model_config(path)
-    assert type(ucfg).__name__ == "NestedUNetConfig"
+    assert type(ucfg).__name__ == type(args.unet_config).__name__
     assert _plain(ucfg) == _plain(args.unet_config)
     assert _plain(dcfg) == _plain(args.diffusion_config)
     # the preset is the YAML with the T5-XL text width on the outer shell,
