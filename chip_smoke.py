@@ -45,7 +45,10 @@ weights from a seed:
      against plain path; the ``train_256`` preset of ``bench.py`` (batch
      16, lr 5e-5, warmup 10, clip 2.0, no remat): one untimed and five
      timed steps; one profiled step; then cc12m_64x64 (``Diffusion.
-     get_loss``) at batch 32 for two steps.
+     get_loss``) at batch 32, the batch of phase 9's CLI: every K1, K2 and
+     K3 launch shape of one step held against its plain version and timed
+     (K3 with its two passes), then one untimed and three timed steps
+     (their steps/s stand beside phase 9's CLI).
   5. The train_1024 preset (``presets.train_1024``: cc12m_1024x1024 with
      its thin shells packed, batch 2, selective remat): every K1, K2 and K3
      launch shape of one step held against its plain version and timed
@@ -96,6 +99,28 @@ weights from a seed:
      (``check_stream``). Then the text
      tower's time on the request's captions (CUDA events) and the card's
      f32 tower against the same weights on the CPU.
+  9. The user's training and evaluation path through the port's own CLIs,
+     in this process (``path_cli``): one tar shard of 512 JPEGs (quality
+     90, sides drawn from 256-512 px from the seed, captions from
+     data/prompts_cc12m-64x64.tsv) and its index; the C++ data plane built
+     with g++ (its result printed; where it does not build, the PIL route
+     runs and is said so); the reader alone, 20 batches of 32 at the YAML's
+     readers (8 threads), images/s and the decodes by route; then
+     ``clis/train_parallel.main`` on configs/models/cc12m_64x64.yaml with
+     the tower of phase 8 (``--fp16 1``, batch 32, 12 steps, warmup 10,
+     saves at 6 and 12): every loss finite, no step skipped, both ``.pth``
+     files and the train state at 6 and 12, K1, K2, K3, K3·A and K3·B
+     launched, the CLI's steps/s (its own step time, steps 3-12) beside the
+     64px training phase's, the peak device memory; the step-12 train state
+     loaded into a fresh state, bitwise equal to what ``main`` returned; a
+     resume from step 6 to 12 with one CLI iteration (text tower, step,
+     metrics, next batch) profiled: its busy time and idle share; then
+     ``clis/generate_batch.main`` on the step-12 EMA checkpoint: 64 samples
+     at batch 32, guidance 5 with the negative prompt "low quality",
+     DDIM-50, eta 0, with K1, K2, K2·N and K2·proj launched: 64 ``s_*.png``,
+     the ``ref_*.png``, ``lst.json`` and ``index.html``, samples/s. The
+     checkpoints (about 11 GB a save) are deleted at the end, the samples
+     stay under chiprun_out/cli/.
 
 Every K2 launch runs the implicit-GEMM kernel on wgmma, at 9 taps
 unpacked and at the 4 combined taps packed (its ``conv_plan`` and the ptxas
@@ -121,8 +146,12 @@ request, K2·struct and K2·pipe during the 256px and 1024px matmul-route
 requests and the train_1024 preset's timed steps,
 K3 and its passes during the train_256 preset's timed steps, K4 during the
 flash-route requests, P1 and P2 during the probes' tables; K1-K2·pipe also
-the web demo's requests, which ``server_launches`` gives apart), its error and
-its times; the last line is one JSON object with "ok" and the device.
+the web demo's requests, which ``server_launches`` gives apart; K1, K2 64px,
+K2·N, K2·proj and K3-K3·B also phase 9's CLI runs, ``cli_launches``), its error
+and its times; K1, K2 64px and K3-K3·B also their check at the 64px
+batch-32 training step's shapes, those of the training CLI (``cli_shapes``;
+generate_batch's CFG forwards are the 64px batch-64 forward of phase 1);
+the last line is one JSON object with "ok" and the device.
 """
 from __future__ import annotations
 
@@ -133,6 +162,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from typing import NamedTuple
@@ -841,12 +871,49 @@ def forward_inputs(pipe, dev, batch: int, side: int, lm_dim: int):
     return lambda: pipe.model(x, t, cond["lm_outputs"], cond["lm_mask"], {})
 
 
+def busy_and_window(events):
+    """(device busy ms, window ms) of profiler events: the union of the
+    device kernels' spans, over the span from the first event to the last
+    kernel's end."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return None, None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e3, (spans[-1][1] - min(e.time_range.start for e in events)) / 1e3
+
+
+def top_kernels(events, busy: float, n: int):
+    """Log the ``n`` kernels with the most device time (without the named
+    ranges' device spans), each with its share of ``busy`` ms; returns
+    name -> (us, launches) of every kernel."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            tot, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), k + 1)
+    for name, (tot, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]:
+        log(f"  {tot / 1e3:9.3f} ms {100 * tot / 1e3 / busy:5.1f}%  x{k:<5d} {name[:88]}")
+    return by_name
+
+
 def profile_forward(forward, what: str):
     """Time of one forward (CUDA events) and the host's time to enqueue it,
     then its device time by kernel and the device's idle share from a
     profiler trace."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -864,30 +931,14 @@ def profile_forward(forward, what: str):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 forward()
                 torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    busy, window = busy_and_window(prof.events())
+    if busy is None:
         log(f"{what} profile: the profiler recorded no device time")
         return ms, None, None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    start = min(e.time_range.start for e in prof.events())
-    window = spans[-1][1] - start
-    log(f"{what} profile: device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window, "
+    log(f"{what} profile: device busy {busy:.3f} ms of a {window:.3f} ms window, "
         f"idle share {1 - busy / window:.4f}")
-    by_name = {}
-    for e in kernels:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
-    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {tot / 1e3:9.3f} ms {100 * tot / busy:5.1f}%  x{n:<5d} {name[:88]}")
-    return ms, busy / 1e3, window / 1e3
+    top_kernels(prof.events(), busy, 12)
+    return ms, busy, window
 
 
 # -- the paths --------------------------------------------------------------
@@ -1337,30 +1388,13 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
             state, m = step(state, data, gen)
             torch.cuda.synchronize()
     events = prof.events()
-    # device events, without the device-side spans of the named ranges
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
+    busy, window = busy_and_window(events)
+    if busy is None:
         log(f"{label} profile: the profiler recorded no device time")
         return None, None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - min(e.time_range.start for e in events)
-    log(f"{label} profile, one step B={batch}: device busy {busy / 1e3:.3f} ms of a "
-        f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}")
-    by_name = {}
-    for e in kernels:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
-    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"  {tot / 1e3:9.3f} ms {100 * tot / busy:5.1f}%  x{n:<5d} {name[:88]}")
+    log(f"{label} profile, one step B={batch}: device busy {busy:.3f} ms of a "
+        f"{window:.3f} ms window, idle share {1 - busy / window:.4f}")
+    by_name = top_kernels(events, busy, 15)
 
     def range_us(name):
         """Device time of the kernels launched inside a named range."""
@@ -1389,14 +1423,16 @@ def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: in
         parts["K3 pass A (fold, Triton, by name)"] + parts["K3 pass B (chain, Triton, by name)"]
         + parts["K3 pass ranges A and B (partial sums, attributed launches)"])
     for name, us in parts.items():
-        log(f"  {name}: {us / 1e3:.3f} ms device, {100 * us / busy:.1f}% of busy")
-    return busy / 1e3, window / 1e3
+        log(f"  {name}: {us / 1e3:.3f} ms device, {100 * us / 1e3 / busy:.1f}% of busy")
+    return busy, window
 
 
 def path_train(dev):
     """Training: cc12m_256x256 (K3 shapes, kernel vs plain, the train_256
-    preset, one profiled step), then cc12m_64x64. Returns (K3 totals, the
-    launch counts of the train_256 preset's timed steps)."""
+    preset, one profiled step), then cc12m_64x64 at batch 32 (K1, K2 and K3
+    shapes, the steps). Returns (K3 totals, the launch counts of the
+    train_256 preset's timed steps, the 64px steps/s, the totals of K1, K2,
+    K3, K3·A and K3·B over the 64px batch-32 step's shapes)."""
     import gc
 
     import torch
@@ -1470,22 +1506,47 @@ def path_train(dev):
     del pipe, unet, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("64px train: Diffusion.get_loss, batch 32, 2 steps"):
+    with phase("64px train: K1, K2 and K3 launch shapes of a batch-32 step"):
+        # the shapes of phase 9's CLI steps (the same model and batch)
         pipe, lm_dim, side = flagship_64px(dev, seed=SEED, train=True)
+        unet = pipe.vision_module
+        data = {k: v.to(torch.bfloat16)
+                for k, v in train_batch(dev, 32, side, lm_dim, gen).items()}
+
+        def one_backward():
+            unet.zero_grad(set_to_none=True)
+            pipe.get_loss(data, gen)[0].mean().backward()
+
+        k3_box = []
+        k2_keys, k1_keys = record_launch_shapes(
+            lambda: k3_box.append(record_k3_shapes(one_backward)), grad=True)
+        unet.zero_grad(set_to_none=True)
+        del data
+        log(f"64px train: {len(k1_keys)} K1, {len(k2_keys)} K2 and {len(k3_box[0])} K3 launch "
+            f"shapes in a batch-32 step")
+        tot_64 = check_kernels(k2_keys, k1_keys, dev, "64px train")
+        tot_64 = {"K1": tot_64["K1"], "K2": tot_64["K2"],
+                  **check_k3(k3_box[0], dev, "64px train")}
+    with phase("64px train: Diffusion.get_loss, batch 32, 1 untimed and 3 timed steps"):
         cfg = trainer.TrainerConfig(lr=5e-5, warmup_steps=10, gradient_clip_norm=2.0)
         state = trainer.TrainState.create(pipe.vision_module)
         step = trainer.make_train_step(pipe, cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        run_train_steps(step, state, pipe, dev, "64px train", 2, 32, side, lm_dim, gen)
+        run_train_steps(step, state, pipe, dev, "64px train", 1, 32, side, lm_dim, gen,
+                        timed=False)
+        times = run_train_steps(step, state, pipe, dev, "64px train", 3, 32, side, lm_dim, gen)
         read_counts("the 64px training steps", TRAINING_KERNELS)
         peak = torch.cuda.max_memory_allocated(dev)
-        log(f"64px train: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
-    del pipe, state, step
+        steps_64 = len(times) / sum(times)
+        log(f"64px train (batch 32, random batches on the card): {steps_64:.4f} steps/s "
+            f"(mean of 3 steps after 1 untimed); peak device memory {peak} bytes "
+            f"({peak / 2**30:.3f} GiB)")
+    del pipe, unet, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return tot_k3, counts
+    return tot_k3, counts, steps_64, tot_64
 
 
 # -- 1024px training: the train_1024 preset ----------------------------------------
@@ -2114,11 +2175,11 @@ def check_stream(url: str, q: dict, pipe, plain, again, streamed):
         raise AssertionError("web demo: on the plain route the streamed image is not the plain one")
 
 
-def path_demo(dev):
+def path_demo(dev, tmp: str):
     """Phase 8: the web demo's server (``ml_mdm_tpu_torch/clis/
-    generate_sample.py``) on cc12m_256x256 with a flan-t5-xl-shaped text
-    tower loaded from a local directory, driven through HTTP."""
-    import tempfile
+    generate_sample.py``) on cc12m_256x256 with the flan-t5-xl-shaped text
+    tower in the local directory ``tmp`` (``write_text_tower``), driven
+    through HTTP."""
     import urllib.request
 
     import numpy as np
@@ -2131,82 +2192,412 @@ def path_demo(dev):
     q = DEMO_QUERY
     batch = q["batch_size"]
     log(f"web demo on {nvidia_smi_line()}")
-    with tempfile.TemporaryDirectory() as tmp:
-        with phase("web demo: the text tower at flan-t5-xl's shape, written to a local directory"):
-            n_t5 = write_text_tower(dev, tmp)
-        with phase("web demo: start the server (cc12m_256x256, --text-model that directory)"):
-            t0 = time.perf_counter()
-            args = get_arguments(["--config_path", DEMO_CONFIG, "--text-model", tmp], mode="demo")
-            args.model_file = ""
-            server = gs.make_builtin_server(args, port=0)
-            thread = threading.Thread(target=server.serve_forever, daemon=True)
-            thread.start()
-        try:
-            models = gs._CACHE[f"{DEMO_CONFIG}::"]
-            pipe, side, lm = models["pipeline"], models["image_side"], models["language_model"]
-            log(f"server set up in {time.perf_counter() - t0:.3f} s: text tower "
-                f"{sum(p.numel() for p in lm.encoder.parameters())} parameters "
-                f"({next(lm.encoder.parameters()).dtype}), vision model "
-                f"{sum(p.numel() for p in pipe.vision_module.parameters())} parameters "
-                f"({next(pipe.vision_module.parameters()).dtype}), side {side}, text width "
-                f"{lm.embed_dim}")
-            url = f"http://127.0.0.1:{server.server_port}"
-            k2_keys, _ = record_launch_shapes(
-                forward_inputs(pipe, dev, 2 * batch, side, lm.embed_dim))
-            required = ("K1", "K2") + modes(k2_keys)
-            if "K2·struct" not in required:
-                raise AssertionError("web demo: the 256px forward has no packed launch shape")
-            with phase("web demo: /choices, a plain request, the same streamed, plain again, "
-                       "another seed"):
-                choices = json.loads(urllib.request.urlopen(f"{url}/choices", timeout=60).read())
-                log(f"/choices: {len(choices['configs'])} configs, "
-                    f"{len(choices['checkpoints'])} checkpoints")
+    with phase("web demo: start the server (cc12m_256x256, --text-model that directory)"):
+        t0 = time.perf_counter()
+        args = get_arguments(["--config_path", DEMO_CONFIG, "--text-model", tmp], mode="demo")
+        args.model_file = ""
+        server = gs.make_builtin_server(args, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+    try:
+        models = gs._CACHE[f"{DEMO_CONFIG}::"]
+        pipe, side, lm = models["pipeline"], models["image_side"], models["language_model"]
+        log(f"server set up in {time.perf_counter() - t0:.3f} s: text tower "
+            f"{sum(p.numel() for p in lm.encoder.parameters())} parameters "
+            f"({next(lm.encoder.parameters()).dtype}), vision model "
+            f"{sum(p.numel() for p in pipe.vision_module.parameters())} parameters "
+            f"({next(pipe.vision_module.parameters()).dtype}), side {side}, text width "
+            f"{lm.embed_dim}")
+        url = f"http://127.0.0.1:{server.server_port}"
+        k2_keys, _ = record_launch_shapes(
+            forward_inputs(pipe, dev, 2 * batch, side, lm.embed_dim))
+        required = ("K1", "K2") + modes(k2_keys)
+        if "K2·struct" not in required:
+            raise AssertionError("web demo: the 256px forward has no packed launch shape")
+        with phase("web demo: /choices, a plain request, the same streamed, plain again, "
+                   "another seed"):
+            choices = json.loads(urllib.request.urlopen(f"{url}/choices", timeout=60).read())
+            log(f"/choices: {len(choices['configs'])} configs, "
+                f"{len(choices['checkpoints'])} checkpoints")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            # the server's first request builds the sampling weights' layouts
+            img_p, wall_p, _, _ = demo_request(url, q, False, "plain request")
+            img_s, wall_s, first, n_prev = demo_request(url, q, True, "streamed request")
+            img_r, wall_r, _, _ = demo_request(url, q, False, "plain request again")
+            img_o, wall_o, _, _ = demo_request(url, dict(q, seed=1), False, "seed 1")
+            counts = read_counts("the web demo's four requests", required)
+            peak = torch.cuda.max_memory_allocated(dev)
+            for k in ("K3", "K3·A", "K3·B"):
+                if counts[k]:
+                    raise AssertionError(f"web demo: {k} launched {counts[k]} times")
+            log(f"web demo launches: K2·pipe {counts['K2·pipe']}, K2·N {counts['K2·N']}, "
+                f"K2·proj {counts['K2·proj']}")
+            for what, wall in (("plain (the first)", wall_p), ("streamed", wall_s),
+                               ("plain again", wall_r), ("seed 1", wall_o)):
+                log(f"web demo {what} request: batch {batch}, DDIM-{q['num_inference_steps']}, "
+                    f"guidance {q['guidance_scale']}: {wall:.4f} s wall, "
+                    f"{batch / wall:.4f} samples/s")
+            log(f"web demo streamed request: {n_prev} previews, the first after {first:.4f} s")
+            log(f"web demo: peak device memory over the requests {peak} bytes "
+                f"({peak / 2**30:.3f} GiB)")
+            for img, what in ((img_p, "plain"), (img_s, "streamed final"),
+                              (img_r, "plain again"), (img_o, "seed 1")):
+                check_grid(img, batch, side, f"web demo {what} image")
+            if np.array_equal(img_o, img_p):
+                raise AssertionError("web demo: seed 1 gave seed 0's image")
+        with phase("web demo: the streamed image against the plain ones, a planted fault, "
+                   "the plain route"):
+            check_stream(url, q, pipe, img_p, img_r, img_s)
+        with phase("web demo: the text tower on the request's captions, card against CPU"):
+            tok = models["tokenizer"]
+            tokens = np.asarray(process_text([q["negative_prompt"], q["prompt"]], tok,
+                                             args.reader_config))
+            ms = cuda_ms(lambda: lm({"tokens": tokens}, tok), warmup=2, reps=5)
+            log(f"web demo text tower, tokens {tokens.shape}, f32: {ms:.4f} ms (CUDA events, "
+                f"median of 5)")
+            got, mask = lm({"tokens": tokens}, tok)
+            check_tower_on_cpu(tmp, tokens, got.cpu(), mask.cpu())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        gs._CACHE.clear()
+    return counts, dict(t5_ms=ms, wall_s=wall_s, first_s=first)
+
+
+# -- the training CLI and generate_batch ---------------------------------------------
+
+CLI_CONFIG = "configs/models/cc12m_64x64.yaml"
+CLI_PROMPTS = "data/prompts_cc12m-64x64.tsv"
+CLI_IMAGES = 512
+CLI_STEPS, CLI_SAVE = 12, 6
+CLI_BATCH = 32
+
+
+def write_shard(path: str):
+    """One tar shard of CLI_IMAGES JPEGs (quality 90), each side drawn from
+    256-512 px by a generator seeded by SEED (smooth colour fields: seeded
+    8 x 8 noise upsampled), captioned in turn by the lines of CLI_PROMPTS;
+    its TSV and an index TSV of it. Returns the index's path."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    with open(CLI_PROMPTS, encoding="utf-8") as f:
+        next(f)
+        captions = [line.strip() for line in f if line.strip()]
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    size = 0
+    with tarfile.open(f"{path}/images_00000.tar", "w", format=tarfile.USTAR_FORMAT) as tf, \
+            open(f"{path}/images_00000.tsv", "w", encoding="utf-8") as tsv:
+        tsv.write("tar\tfile\tcaption\n")
+        for i in range(CLI_IMAGES):
+            w, h = (int(v) for v in rng.integers(256, 513, size=2))
+            small = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+            buf = io.BytesIO()
+            small.resize((w, h), Image.BICUBIC).save(buf, "JPEG", quality=90)
+            info = tarfile.TarInfo(f"{i:010d}.jpg")
+            info.size = len(buf.getvalue())
+            size += info.size
+            tf.addfile(info, io.BytesIO(buf.getvalue()))
+            tsv.write(f"{path}/images_00000.tar\t{info.name}\t{captions[i % len(captions)]}\n")
+    with open(f"{path}/index.tsv", "w") as f:
+        f.write(f"filename\n{path}/images_00000.tsv\n")
+    log(f"data: {CLI_IMAGES} JPEGs (quality 90, sides 256-512 px), {size} bytes, captions from "
+        f"{CLI_PROMPTS}, written in {time.perf_counter() - t0:.3f} s")
+    return f"{path}/index.tsv"
+
+
+class CliProfiler:
+    """A profiler over one iteration of ``train_parallel.main``'s loop in
+    this process: from its n-th ``load_batch`` to the next one (the text
+    tower, the step, the metrics, the next reader batch), taken twice
+    (n - 2 and n; the first pays the tracer's set-up) and the second kept."""
+
+    def __init__(self, profile_at: int):
+        self.profile_at = profile_at
+        self.calls = 0
+        self.prof = None
+        self.window = None
+
+    def __enter__(self):
+        from ml_mdm_tpu_torch.clis import train_parallel
+
+        self._tp, self._load = train_parallel, train_parallel.load_batch
+        self._tp.load_batch = self._load_batch
+        return self
+
+    def _load_batch(self, *a):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.calls += 1
+        n = self.profile_at
+        if self.calls in (n - 2, n):
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self._t0 = time.perf_counter()
+        elif self.calls in (n - 1, n + 1):
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.window = time.perf_counter() - self._t0
+        return self._load(*a)
+
+    def __exit__(self, *exc):
+        self._tp.load_batch = self._load
+
+
+def cli_args(argv, mode):
+    from ml_mdm_tpu_torch.config import get_arguments
+
+    return get_arguments(["--config_path", CLI_CONFIG, "--seed", str(SEED), "--device", "cuda",
+                          *argv], mode=mode)
+
+
+def check_cli_run(history, what: str, first: int, last: int):
+    """Every step from ``first`` to ``last`` of ``train_parallel.main``'s
+    history has a finite loss."""
+    nums = [n for n, *_ in history]
+    if nums != list(range(first, last + 1)):
+        raise AssertionError(f"{what}: steps consumed {nums}, expected {first}..{last}")
+    bad = [(n, loss) for n, loss, *_ in history if not math.isfinite(loss)]
+    if bad:
+        raise AssertionError(f"{what}: non-finite losses {bad}")
+    log(f"{what}: losses " + ", ".join(f"{n}: {loss:.6f} (norm {norm:.4f})"
+                                      for n, loss, norm, _ in history))
+
+
+def state_tensors(state):
+    """Parameters, EMA and the Adam state of a train state, by name."""
+    out = {f"param {k}": p.detach() for k, p in state.params.items()}
+    out.update({f"ema {k}": v for k, v in state.ema_params.items()})
+    for k, p in state.params.items():
+        for name, v in state.optimizer.state.get(p, {}).items():
+            out[f"{name} {k}"] = v
+    return out
+
+
+def path_cli(dev, tower: str, preset_steps_s: float):
+    """Phase 9: the user's path of training and evaluation through the
+    port's own CLIs, in this process (so the launch counts can be read):
+    a tar shard of JPEGs made from the seed, the reader alone, the C++ data
+    plane, ``train_parallel`` on cc12m_64x64 at its YAML's batch with the
+    flan-t5-xl-shaped tower at ``tower`` (12 steps, saves at 6 and 12), the
+    train state reloaded bit for bit, a resume from step 6, and
+    ``generate_batch`` on the step-12 checkpoint. The checkpoints (about 11
+    GB a save) are deleted at the end; the samples stay under
+    chiprun_out/."""
+    import gc
+    import logging
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ml_mdm_tpu_torch import native, reader
+    from ml_mdm_tpu_torch.clis import generate_batch, train_parallel
+    from ml_mdm_tpu_torch.config import get_model
+    from ml_mdm_tpu_torch.language_models.factory import create_tokenizer
+    from ml_mdm_tpu_torch.presets import build_unet
+    from ml_mdm_tpu_torch.trainer import TrainerConfig, TrainState
+    from ml_mdm_tpu_torch.utils import checkpoint as ckpt
+
+    out = os.path.abspath("chiprun_out/cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("  cli: %(message)s"))
+    root = logging.getLogger()
+    # the CLIs' log on stdout alone for the phase (an earlier phase may
+    # have given the root logger its default stderr handler)
+    handlers, level = root.handlers[:], root.level
+    root.handlers = [handler]
+    root.setLevel(logging.INFO)
+    result = {}
+    try:
+        with tempfile.TemporaryDirectory() as data:
+            with phase("CLI: a tar shard of JPEGs and its index, from the seed"):
+                index = write_shard(data)
+                free = shutil.disk_usage(out).free
+                log(f"disk free under {out}: {free} bytes")
+            with phase("CLI: the C++ data plane (g++ at first use)"):
+                ok = native.available()
+                report = native.build_report()
+                log(f"data plane: {report.get('command', 'already built')}: return code "
+                    f"{report.get('returncode')}, {report.get('seconds', 0.0):.3f} s, "
+                    f"library {report.get('path')}, available {ok}")
+                if not ok:
+                    log("data plane unavailable (jpeglib.h or g++ missing?): the reader decodes "
+                        "with PIL and tokenizes with the Python search; output: "
+                        f"{report.get('output', '')[-1500:]}")
+            with phase("CLI: the reader alone, 20 batches of 32"):
+                args = cli_args(["--file-list", index], "trainer")
+                side = args.reader_config.image_size
+                tok = create_tokenizer(args.vocab_file)
+                loader = reader.get_dataset_partition(
+                    0, 1, tok, CLI_BATCH, index, args.reader_config, -1, is_index_file=True)
+                t0 = time.perf_counter()
+                firsts = []
+                try:
+                    for i, batch in enumerate(loader):
+                        firsts.append(time.perf_counter() - t0)
+                        if batch["image"].shape != (CLI_BATCH, side, side, 3):
+                            raise AssertionError(f"reader: batch shape {batch['image'].shape}")
+                        if i == 19:
+                            break
+                finally:
+                    loader.close()
+                wall = firsts[-1]
+                rate = 20 * CLI_BATCH / wall
+                steady = 19 * CLI_BATCH / (wall - firsts[0])
+                log(f"reader: 20 batches of {CLI_BATCH} in {wall:.4f} s: {rate:.2f} images/s "
+                    f"({steady:.2f} after the first batch, which came at {firsts[0]:.4f} s), "
+                    f"{min(args.reader_config.num_readers, 8)} workers on {os.cpu_count()} "
+                    f"cores; decodes {loader.decodes}")
+                result.update(reader_images_s=rate, reader_steady_images_s=steady,
+                              decodes=dict(loader.decodes))
+            common = ["--file-list", index, "--text-model", tower, "--fp16", "1",
+                      "--batch-size", str(CLI_BATCH), "--num-training-steps", str(CLI_STEPS),
+                      "--save-freq", str(CLI_SAVE), "--warmup-steps", "10"]
+            run1, run2 = f"{out}/run1", f"{out}/resumed"
+            with phase(f"CLI: train_parallel, cc12m_64x64, batch {CLI_BATCH}, {CLI_STEPS} steps, "
+                       f"--fp16 1, saves at {CLI_SAVE} and {CLI_STEPS}"):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)
                 reset_counts()
-                # the server's first request builds the sampling weights' layouts
-                img_p, wall_p, _, _ = demo_request(url, q, False, "plain request")
-                img_s, wall_s, first, n_prev = demo_request(url, q, True, "streamed request")
-                img_r, wall_r, _, _ = demo_request(url, q, False, "plain request again")
-                img_o, wall_o, _, _ = demo_request(url, dict(q, seed=1), False, "seed 1")
-                counts = read_counts("the web demo's four requests", required)
+                t0 = time.perf_counter()
+                history = []
+                state = train_parallel.main(cli_args(common + ["--output-dir", run1], "trainer"),
+                                            history)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts_train = read_counts("the training CLI's 12 steps", TRAINING_KERNELS)
                 peak = torch.cuda.max_memory_allocated(dev)
-                for k in ("K3", "K3·A", "K3·B"):
-                    if counts[k]:
-                        raise AssertionError(f"web demo: {k} launched {counts[k]} times")
-                log(f"web demo launches: K2·pipe {counts['K2·pipe']}, K2·N {counts['K2·N']}, "
-                    f"K2·proj {counts['K2·proj']}")
-                for what, wall in (("plain (the first)", wall_p), ("streamed", wall_s),
-                                   ("plain again", wall_r), ("seed 1", wall_o)):
-                    log(f"web demo {what} request: batch {batch}, DDIM-{q['num_inference_steps']}, "
-                        f"guidance {q['guidance_scale']}: {wall:.4f} s wall, "
-                        f"{batch / wall:.4f} samples/s")
-                log(f"web demo streamed request: {n_prev} previews, the first after {first:.4f} s")
-                log(f"web demo: peak device memory over the requests {peak} bytes "
-                    f"({peak / 2**30:.3f} GiB)")
-                for img, what in ((img_p, "plain"), (img_s, "streamed final"),
-                                  (img_r, "plain again"), (img_o, "seed 1")):
-                    check_grid(img, batch, side, f"web demo {what} image")
-                if np.array_equal(img_o, img_p):
-                    raise AssertionError("web demo: seed 1 gave seed 0's image")
-            with phase("web demo: the streamed image against the plain ones, a planted fault, "
-                       "the plain route"):
-                check_stream(url, q, pipe, img_p, img_r, img_s)
-            with phase("web demo: the text tower on the request's captions, card against CPU"):
-                tok = models["tokenizer"]
-                tokens = np.asarray(process_text([q["negative_prompt"], q["prompt"]], tok,
-                                                 args.reader_config))
-                ms = cuda_ms(lambda: lm({"tokens": tokens}, tok), warmup=2, reps=5)
-                log(f"web demo text tower, tokens {tokens.shape}, f32: {ms:.4f} ms (CUDA events, "
-                    f"median of 5)")
-                got, mask = lm({"tokens": tokens}, tok)
-                check_tower_on_cpu(tmp, tokens, got.cpu(), mask.cpu())
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=60)
-            gs._CACHE.clear()
-    return counts, dict(t5_params=n_t5, t5_ms=ms, wall_s=wall_s, first_s=first)
+                check_cli_run(history, "CLI run", 1, CLI_STEPS)
+                if state.step != CLI_STEPS:
+                    raise AssertionError(f"CLI run: {CLI_STEPS - state.step} steps skipped")
+                n_params = sum(p.numel() for p in state.params.values())
+                per_step = statistics.fmean(t for n, *_, t in history if n > 2)
+                log(f"CLI run: {n_params} parameters, {CLI_STEPS} steps in {wall:.3f} s wall "
+                    f"(set-up and saves included); the CLI's step time over steps 3-{CLI_STEPS} "
+                    f"{per_step * 1e3:.3f} ms: {1 / per_step:.4f} steps/s, "
+                    f"{CLI_BATCH / per_step:.2f} images/s, against the 64px training phase's "
+                    f"{preset_steps_s:.4f} steps/s (random batches on the card, same call); peak "
+                    f"device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+                for n in (CLI_SAVE, CLI_STEPS):
+                    for name in (f"vis_model_{n:06d}.pth", f"vis_model_noema_{n:06d}.pth",
+                                 f"train_state_{n:06d}/state.pt",
+                                 f"train_state_{n:06d}/train_meta.json"):
+                        if not os.path.exists(f"{run1}/{name}"):
+                            raise AssertionError(f"CLI run: {name} was not written")
+                log(f"CLI run: checkpoints written at steps {CLI_SAVE} and {CLI_STEPS}: "
+                    f"{sorted(os.listdir(run1))}")
+                result.update(cli_steps_s=1 / per_step, cli_wall_s=wall, cli_peak=peak,
+                              preset_steps_s=preset_steps_s, n_params=n_params)
+            with phase(f"CLI: train_state_{CLI_STEPS:06d} into a fresh state, bit for bit"):
+                args = cli_args(common, "trainer")
+                args.unet_config.conditioning_feature_dim = FLAN_T5_XL["d_model"]
+                module = build_unet(get_model(args.model), args.unet_config, dev, SEED + 1,
+                                    dtype=torch.float32).train()
+                fresh = TrainState.create(module, TrainerConfig(use_adamw=True))
+                fresh, other = ckpt.load_train_state(f"{run1}/train_state_{CLI_STEPS:06d}", fresh)
+                want, got = state_tensors(state), state_tensors(fresh)
+                if set(want) != set(got) or fresh.step != state.step:
+                    raise AssertionError(f"train state: keys or step differ ({fresh.step})")
+                diff = [k for k in want if want[k].dtype != got[k].dtype
+                        or not torch.equal(want[k], got[k])]
+                if diff:
+                    raise AssertionError(f"train state: {len(diff)} tensors differ: {diff[:6]}")
+                log(f"train state reloaded: step {fresh.step}, {len(want)} tensors (parameters, "
+                    f"EMA, both Adam moments, counts) bitwise equal; meta {other}")
+                del module, fresh, state, want, got
+                gc.collect()
+                torch.cuda.empty_cache()
+                for name in (f"vis_model_{CLI_STEPS:06d}.pth", f"vis_model_noema_{CLI_STEPS:06d}.pth"):
+                    os.remove(f"{run1}/{name}")
+                shutil.rmtree(f"{run1}/train_state_{CLI_STEPS:06d}")
+            with phase(f"CLI: --resume-from-train-state train_state_{CLI_SAVE:06d} to step "
+                       f"{CLI_STEPS}, one iteration profiled"):
+                history = []
+                with CliProfiler(profile_at=CLI_STEPS - CLI_SAVE - 1) as rec:
+                    state = train_parallel.main(cli_args(
+                        common + ["--output-dir", run2, "--resume-from-train-state",
+                                  f"{run1}/train_state_{CLI_SAVE:06d}"], "trainer"), history)
+                check_cli_run(history, "resumed run", CLI_SAVE + 1, CLI_STEPS)
+                if state.step != CLI_STEPS:
+                    raise AssertionError(f"resumed run: ended at step {state.step}")
+                busy, window = busy_and_window(rec.prof.events())
+                if busy is None:
+                    log("CLI iteration profile: the profiler recorded no device time")
+                else:
+                    log(f"CLI iteration profile (step {CLI_STEPS - 1}: text tower, step, metrics, "
+                        f"next reader batch): device busy {busy:.3f} ms of a {window:.3f} ms "
+                        f"window ({rec.window * 1e3:.3f} ms on the host clock), idle share "
+                        f"{1 - busy / window:.4f}")
+                    top_kernels(rec.prof.events(), busy, 12)
+                    tower_ms = sum(e.device_time_total for e in rec.prof.events()
+                                   if e.name == "text tower" and e.device_type.name == "CPU") / 1e3
+                    log(f"  the text tower (its range, f32 on 32 captions): {tower_ms:.3f} ms "
+                        f"device, {100 * tower_ms / busy:.1f}% of busy")
+                    result["tower_ms"] = tower_ms
+                result.update(busy_ms=busy, window_ms=window)
+                del state
+                gc.collect()
+                torch.cuda.empty_cache()
+            with phase(f"CLI: generate_batch on vis_model_{CLI_STEPS:06d}.pth, 64 samples, batch "
+                       f"{CLI_BATCH}, guidance 5, DDIM-50, eta 0"):
+                samples = f"{out}/samples"
+                times = []
+                reset_counts()
+                t0 = time.perf_counter()
+                n = generate_batch.main(
+                    cli_args(["--text-model", tower, "--model-file",
+                              f"{run2}/vis_model_{CLI_STEPS:06d}.pth", "--test-file-list",
+                              index, "--sample-dir", samples, "--min-examples", "64",
+                              "--batch-size", str(CLI_BATCH)], "sampler"),
+                    negative_prompt="low quality", guidance_scale=5.0,
+                    num_inference_steps=50, ddim_eta=0.0, times=times)
+                wall = time.perf_counter() - t0
+                counts_gen = read_counts("generate_batch", SAMPLING_KERNELS)
+                rank0 = f"{samples}/rank0"
+                names = sorted(os.listdir(rank0))
+                s_png = [f for f in names if f.startswith("s_")]
+                refs = [f for f in names if f.startswith("ref_")]
+                with open(f"{rank0}/lst.json") as f:
+                    manifest = json.load(f)
+                if n != 64 or len(s_png) != 64 or len(refs) != 64 or sorted(manifest) != s_png \
+                        or not os.path.exists(f"{samples}/index.html"):
+                    raise AssertionError(f"generate_batch: {n} samples, {len(s_png)} s_*.png, "
+                                         f"{len(refs)} ref_*.png, {len(manifest)} in lst.json")
+                pixels = np.stack([np.asarray(Image.open(f"{rank0}/{f}")) for f in s_png])
+                if pixels.shape != (64, side, side, 3) or pixels.min() == pixels.max():
+                    raise AssertionError(f"generate_batch: samples {pixels.shape}, values "
+                                         f"{pixels.min()}..{pixels.max()}")
+                rate = n / sum(times)
+                log(f"generate_batch: {n} samples, {len(refs)} references, lst.json, index.html; "
+                    f"sampling {[round(t, 4) for t in times]} s: {rate:.4f} samples/s; "
+                    f"{wall:.3f} s wall in all (set-up, references, checkpoint); sample pixels "
+                    f"{pixels.min()}..{pixels.max()}, mean {pixels.mean():.3f}, std "
+                    f"{pixels.std():.3f}")
+                result.update(samples_s=rate, generate_wall_s=wall)
+    finally:
+        root.handlers = handlers
+        root.setLevel(level)
+        for run in ("run1", "resumed"):
+            shutil.rmtree(f"{out}/{run}", ignore_errors=True)  # ~11 GB a save
+    cli = {"K1": counts_train["K1"] + counts_gen["K1"],
+           "K2 64px": counts_train["K2"] + counts_gen["K2"],
+           **{k: counts_gen[k] for k in ("K2·N", "K2·proj")},
+           **{k: counts_train[k] for k in ("K3", "K3·A", "K3·B")}}
+    return cli, result
 
 
 # ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
@@ -2306,7 +2697,7 @@ def main() -> int:
     tot_1024, counts_1024 = path_1024(dev)
 
     torch.cuda.empty_cache()
-    tot_k3, counts_train = path_train(dev)
+    tot_k3, counts_train, steps_64, tot_train_64 = path_train(dev)
     torch.cuda.empty_cache()
     tot_t1024, tot_k3_1024, counts_t1024 = path_train_1024(dev)
     torch.cuda.empty_cache()
@@ -2322,7 +2713,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     tot_probes, counts_probes = path_probes(dev, tot_k2_probe["K2"]["ms"])
     torch.cuda.empty_cache()
-    counts_demo, demo = path_demo(dev)
+    with tempfile.TemporaryDirectory() as tower:
+        with phase("the text tower at flan-t5-xl's shape, written to a local directory (phases "
+                   "8 and 9)"):
+            n_t5 = write_text_tower(dev, tower)
+        counts_demo, demo = path_demo(dev, tower)
+        torch.cuda.empty_cache()
+        with phase("training CLI and generate_batch"):
+            cli, cli_result = path_cli(dev, tower, steps_64)
 
     # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
     # slices), K2·struct and K2·pipe over those and the train_1024 step's
@@ -2344,6 +2742,9 @@ def main() -> int:
     server = {k: counts_demo[k] for k in ("K1", "K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe")}
     for k, v in server.items():
         launches[k] += v
+    # the CLIs' runs: the 64px model's training steps and generate_batch
+    for k, v in cli.items():
+        launches[k] += v
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
         f"64px batch-64 request (K2 64px), the nested matmul-route requests and the "
         f"train_1024 preset's timed steps (K2·struct, K2·pipe: {counts_256['K2·struct']} + "
@@ -2351,8 +2752,10 @@ def main() -> int:
         f"{counts_1024['K2·pipe']} + {counts_t1024['K2·pipe']}), the train_256 preset's timed "
         f"steps (K3, K3·A, K3·B), the flash-route "
         f"requests (64px and 256px; K4) and the probes' tables (P1, P2), and, for K1-K2·pipe, "
-        f"the web demo's four requests ({server}): {launches}")
-    log(f"web demo: text tower {demo['t5_params']} parameters, {demo['t5_ms']:.4f} ms for the "
+        f"the web demo's four requests ({server}), and, for K1, K2 64px, K2·N, K2·proj and "
+        f"K3-K3·B, the CLIs' runs ({cli}): {launches}")
+    log(f"CLIs: {cli_result}")
+    log(f"web demo: text tower {n_t5} parameters, {demo['t5_ms']:.4f} ms for the "
         f"request's captions; streamed request {demo['wall_s']:.4f} s, first preview after "
         f"{demo['first_s']:.4f} s")
     for what, t in (("64px forward's", totals["K2 64px"]), ("nested forwards'", totals["K2"])):
@@ -2360,7 +2763,8 @@ def main() -> int:
             f"({t['ms'] / t['library_ms']:.3f}x the library), library {t['library_ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_ms'] / t['ms']:.3f} of it)")
-    for what, t in (("train_256 step's", tot_k3["K3"]), ("train_1024 step's", tot_k3_1024["K3"])):
+    for what, t in (("train_256 step's", tot_k3["K3"]), ("train_1024 step's", tot_k3_1024["K3"]),
+                    ("64px batch-32 step's", tot_train_64["K3"])):
         log(f"K3 over the {what} {t['shapes']} shapes: backward {t['ms']:.4f} ms "
             f"({t['ms'] / t['library_ms']:.3f}x the library), plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
@@ -2375,15 +2779,30 @@ def main() -> int:
         f"{t1['bound_ms']:.4f} ms ({t1['bound_ms'] / t1['ms']:.3f} of it)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
 
+    # the CLI's training steps launch K1, K2, K3 and its passes at the 64px
+    # batch-32 step's shapes, held against their plain versions in phase 4:
+    # their totals stand apart in each row (``cli_shapes``, the same keys),
+    # and the row's error is the larger of the two
+    train_64 = {"K1": "K1", "K2 64px": "K2", "K3": "K3", "K3·A": "K3·A", "K3·B": "K3·B"}
+
     def entry(name, mode, route, source, replaces, library=True, **extra):
         t = totals[mode]
+        row = {}
+        if mode in train_64:
+            c = tot_train_64[train_64[mode]]
+            row["cli_shapes"] = {
+                "shapes": c["shapes"], "max_abs_err": c["err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "library_ms": c["library_ms"] if library else None}
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[mode], "server_launches": server.get(mode, 0),
-                "max_abs_err": t["err"], "ms": t["ms"],
+                "cli_launches": cli.get(mode, 0),
+                "max_abs_err": max(t["err"], row.get("cli_shapes", {}).get("max_abs_err", 0.0)),
+                "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
                 "library_ms": t["library_ms"] if library else None,
-                **{k: t[v] for k, v in extra.items()}}
+                **{k: t[v] for k, v in extra.items()}, **row}
 
     cu = "ml_mdm_tpu_torch/csrc/fused_resnet.cu"
     kernels = [

@@ -13,7 +13,7 @@ Counterpart of ``ml_mdm_tpu/language_models/factory.py``:
   (``t5.load_t5_from_torch``).
 
 As in the JAX package, the mask is ``tokens != pad`` and the outputs are
-multiplied by it.
+multiplied by it. The encoder runs in the profiler range "text tower".
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ml_mdm_tpu_torch.language_models.t5 import T5Config, T5Encoder, init_t5_, load_t5_from_torch
 from ml_mdm_tpu_torch.language_models.tokenizer import Tokenizer
@@ -50,7 +51,8 @@ class LanguageModel:
             lm_outputs = torch.as_tensor(np.asarray(sample["text_embedding"]),
                                          dtype=torch.float32, device=self.device)
         else:
-            lm_outputs = self.encoder(tokens, lm_mask).float()
+            with record_function("text tower"):
+                lm_outputs = self.encoder(tokens, lm_mask).float()
         return lm_outputs * lm_mask[..., None], lm_mask
 
 

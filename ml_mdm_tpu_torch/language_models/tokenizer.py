@@ -11,9 +11,10 @@ vocabulary dialects, each with the JAX package's conventions:
 - spm (the default): the specials <pad> <s> </s> first, the <0xNN> byte
   tokens inserted as bytes, specials scored max + 1.
 
-The JAX ``Tokenizer`` may answer through its C++ trie (``ml_mdm_tpu/
-native``); this copy always runs the Python search, which gives the same
-tokens.
+``Tokenizer.tokenize_shortest`` answers through the port's C++ trie
+(``ml_mdm_tpu_torch/native``, built at first use), as the JAX one does
+through its own; where that library is unavailable it runs the Python
+search, which gives the same ids.
 """
 from __future__ import annotations
 
@@ -195,6 +196,7 @@ class Tokenizer:
         read = {"t5": read_dictionary_t5, "bert": read_dictionary_bert}.get(mode, read_dictionary)
         self._trie, self._trie_key_scores, self.eos, self.bos, self.pad = read(vocab_file)
         self.vocab_size = self._trie.num_keys()
+        self._native = None  # the C++ trie, attached at first use (False: unavailable)
 
     @property
     def trie(self):
@@ -214,6 +216,15 @@ class Tokenizer:
         return node.id
 
     def tokenize_shortest(self, text, use_scores: bool = True) -> List[int]:
+        if self._native is None:
+            from ml_mdm_tpu_torch.native import trie_tokenizer
+
+            try:
+                self._native = trie_tokenizer.NativeTokenizer(self._trie, self._trie_key_scores)
+            except RuntimeError:  # the library did not build or load
+                self._native = False
+        if self._native:
+            return self._native.tokenize_shortest(text, use_scores)
         return tokenize_shortest(self._trie, text,
                                  self._trie_key_scores if use_scores else None,
                                  ignore_unk=True)

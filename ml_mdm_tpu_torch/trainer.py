@@ -3,10 +3,20 @@ the clip and NaN-skip fold, Adam, EMA.
 
 Semantics kept from the JAX package:
 
-- Adam (the JAX package's AdamW option has weight decay 0, so it is the
-  same update), eps 1e-8, with the learning rate ``schedule(count)``,
-  where count is the number of updates taken before this one; the bias
-  corrections use count + 1, as optax's do;
+- Adam, eps 1e-8, with the learning rate ``schedule(count)``, where count
+  is the number of updates taken before this one; the bias corrections use
+  count + 1, as optax's do. ``use_adamw`` selects ``torch.optim.AdamW``
+  with weight decay 0, as the JAX package selects ``optax.adamw`` with
+  weight decay 0: the same update;
+- ``adam_mu_dtype`` "bfloat16" keeps Adam's first moment in bf16 (the
+  second stays f32), as ``optax.adam(mu_dtype=jnp.bfloat16)`` does:
+  ``BF16MomentAdam`` (``torch.optim.Adam`` keeps its moments in the
+  parameter's dtype);
+- ``freeze_mask`` (``make_optimizer``, from the CLI's ``freeze_inner_unet``)
+  labels parameters "freeze" or "train", as the JAX ``optax.
+  multi_transform`` with ``set_to_zero``: a frozen parameter has no
+  moments and takes no update, but its gradient still counts in the
+  clip's global norm;
 - the global norm of the f32 gradients, and one scalar
   ``clip / max(norm, clip)`` on them;
 - a step whose loss or gradient norm is not finite changes nothing: not
@@ -47,7 +57,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -62,6 +72,7 @@ class TrainerConfig:
     lr: float = 5e-5
     warmup_steps: int = 5000
     gradient_clip_norm: float = 2.0
+    use_adamw: bool = False
     num_gradient_accumulations: int = 1
     loss_factor: float = 1.0
     lr_scaling_factor: float = 1.0
@@ -69,6 +80,7 @@ class TrainerConfig:
     ema_warmup_steps: int = 0
     remat: bool = False
     remat_save_conv_max_side: int = 128
+    adam_mu_dtype: str = "float32"
 
 
 @dataclass
@@ -76,23 +88,96 @@ class TrainState:
     step: int
     params: Dict[str, torch.nn.Parameter]
     ema_params: Dict[str, torch.Tensor]
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Optimizer
 
     @classmethod
-    def create(cls, module: torch.nn.Module) -> "TrainState":
+    def create(cls, module: torch.nn.Module, config: Optional[TrainerConfig] = None,
+               freeze_mask: Optional[Dict[str, str]] = None) -> "TrainState":
         params = dict(module.named_parameters())
         ema = {k: p.detach().clone() for k, p in params.items()}
-        return cls(0, params, ema, make_optimizer(params.values()))
+        return cls(0, params, ema, make_optimizer(params, config, freeze_mask))
 
 
-def make_optimizer(params: Iterable[torch.Tensor]) -> torch.optim.Adam:
-    """optax.adam(schedule, eps=1e-8) (b1 0.9, b2 0.999, eps_root 0) over
-    ``params``; the train step sets the learning rate before each update.
-    The clip is not part of the optimizer: the step folds it into one
-    scalar."""
-    params = list(params)
-    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                            fused=all(p.is_cuda for p in params))
+class BF16MomentAdam(torch.optim.Optimizer):
+    """Adam with its first moment kept in a low-precision dtype, step for
+    step ``optax.scale_by_adam(mu_dtype=...)`` followed by the learning
+    rate: mu = (1 - b1) g + (b1 mu), where b1 mu is a product in the
+    moment's dtype with b1 rounded to it (JAX's weak-typed scalar);
+    nu = (1 - b2) g^2 + b2 nu in f32; the update mu / (1 - b1^count) over
+    sqrt(nu / (1 - b2^count)) + eps, from the f32 mu before it is rounded
+    to the moment's dtype. The state keys are ``torch.optim.Adam``'s
+    (``step``, ``exp_avg``, ``exp_avg_sq``)."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            b1_low = float(torch.tensor(b1).to(self.mu_dtype))
+            params = [p for p in group["params"] if p.grad is not None]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st["step"] += 1
+            if not params:
+                continue
+            count = torch.tensor(float(self.state[params[0]]["step"]), dtype=torch.float32)
+            bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** count)
+            bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** count)
+            grads = [p.grad.float() for p in params]
+            mus = [self.state[p]["exp_avg"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            mu32 = torch._foreach_mul(grads, 1 - b1)
+            torch._foreach_add_(mu32, [m.float() for m in torch._foreach_mul(mus, b1_low)])
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(mu32, bc1)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+            for m, new in zip(mus, mu32):
+                m.copy_(new)
+        return None
+
+    def load_state_dict(self, state_dict):
+        # torch casts every loaded moment to its parameter's dtype: the
+        # first moment goes back to its own (bf16 -> f32 -> bf16 is exact)
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+
+
+def make_optimizer(params: Dict[str, torch.Tensor], config: Optional[TrainerConfig] = None,
+                   freeze_mask: Optional[Dict[str, str]] = None) -> torch.optim.Optimizer:
+    """optax.adam(schedule, eps=1e-8) (b1 0.9, b2 0.999, eps_root 0), or
+    optax.adamw with weight decay 0 (``config.use_adamw``), over ``params``
+    (by name), with the first moment in ``config.adam_mu_dtype``; the train
+    step sets the learning rate before each update. The parameters
+    ``freeze_mask`` labels "freeze" are left out: no moments, no update. The
+    clip is not part of the optimizer: the step folds it into one scalar."""
+    config = config or TrainerConfig()
+    params = [p for k, p in params.items() if (freeze_mask or {}).get(k) != "freeze"]
+    kw = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    mu_dtype = getattr(torch, config.adam_mu_dtype)
+    if mu_dtype != torch.float32:
+        return BF16MomentAdam(params, mu_dtype=mu_dtype, **kw)
+    fused = bool(params) and all(p.is_cuda for p in params)
+    if config.use_adamw:
+        return torch.optim.AdamW(params, weight_decay=0.0, fused=fused, **kw)
+    return torch.optim.Adam(params, fused=fused, **kw)
 
 
 def make_schedule(config: TrainerConfig) -> Callable[[int], float]:
@@ -101,7 +186,7 @@ def make_schedule(config: TrainerConfig) -> Callable[[int], float]:
         config.warmup_steps, config.lr)
 
 
-def adam_count(optimizer: torch.optim.Adam) -> int:
+def adam_count(optimizer: torch.optim.Optimizer) -> int:
     """The updates ``optimizer`` has taken (optax's ``count``)."""
     first = optimizer.param_groups[0]["params"][0]
     st = optimizer.state.get(first)
@@ -139,7 +224,8 @@ def _microbatch(tree, i: int, n: int):
     return tree
 
 
-def make_train_step(pipeline, config: TrainerConfig):
+def make_train_step(pipeline, config: TrainerConfig,
+                    all_reduce: Optional[Callable[[List[torch.Tensor]], None]] = None):
     """Returns train_step(state, batch, generator=None, noise=None) ->
     (state, metrics). ``batch`` holds images (B, H, W, C), lm_outputs,
     lm_mask and any micro-conditions; ``noise`` holds keyword arguments of
@@ -149,7 +235,10 @@ def make_train_step(pipeline, config: TrainerConfig):
     through loss and backward before one update. The batch is cast to the
     module's compute dtype. The state is updated in place; metrics are the
     loss, the gradient norm and ``skipped``. With ``config.remat`` it sets
-    the module's stages to recompute (``set_remat``)."""
+    the module's stages to recompute (``set_remat``). ``all_reduce``, in a
+    data-parallel run, averages in place a list of tensors over the
+    processes (``parallel.mesh.all_reduce_mean``): the step hands it the
+    loss and the gradients before the norm."""
     dtype = pipeline.vision_module.dtype
     set_remat(pipeline.vision_module,
               config.remat_save_conv_max_side if config.remat else None)
@@ -186,6 +275,10 @@ def make_train_step(pipeline, config: TrainerConfig):
         grads = [p.grad for p in params]
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
+        if all_reduce is not None:
+            loss = loss.float().reshape(1)
+            all_reduce([loss] + grads)
+            loss = loss[0]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         loss_v, norm_v = torch.stack([loss.float(), norm.float()]).tolist()
         ok = math.isfinite(loss_v) and math.isfinite(norm_v)

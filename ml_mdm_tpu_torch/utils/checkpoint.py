@@ -1,35 +1,55 @@
-"""Vision-model checkpoints in the reference's ``.pth`` format.
+"""Checkpoints: the vision model's ``.pth`` files, the train state, the
+inner U-Net's warm start and the choice of the file to resume from.
 
-Counterpart of the ``.pth`` half of ``ml_mdm_tpu/utils/checkpoint.py``
-``save_vision_model`` / ``load_vision_model`` (the format of
-``ml_mdm_tpu/utils/torch_compat.py``): one ``torch.save`` of
-``{"state_dict": <reference torch names>, **other_items}``. The port's
-modules carry the reference names and layouts, so a state dict goes in and
-out as it is. Loading is non-strict, as in the JAX package: the key
-differences are reported and the shared keys are loaded, with
-``load_state_dict`` (never through ``.data``: the sampling weights cached
-by ``models/layers.py`` ``cached_weights`` are keyed on each parameter's
-version). Orbax directories, the JAX package's native format, are the
-train state's and not read here.
+Counterpart of ``ml_mdm_tpu/utils/checkpoint.py``:
+
+- ``save_vision_model`` / ``load_vision_model``: the reference's ``.pth``
+  format (that of ``ml_mdm_tpu/utils/torch_compat.py``), one
+  ``torch.save`` of ``{"state_dict": <reference torch names>,
+  **other_items}``. The port's modules carry the reference names and
+  layouts, so a state dict goes in and out as it is. Loading is
+  non-strict, as in the JAX package: the key differences are reported and
+  the shared keys are loaded.
+- ``save_train_state`` / ``load_train_state``: the JAX package writes the
+  train state with Orbax; the port writes a directory ``train_state_N``
+  holding one ``torch.save`` (``state.pt``) of the step, the parameters,
+  the EMA, the optimizer's state (both Adam moments and its count) and the
+  other items (the ``RobustLossTracker`` stats), and beside it the same
+  ``train_meta.json`` as the JAX package. It restores all of them bit for
+  bit.
+- ``apply_inner_warm_start`` loads the ``.pth`` files that
+  ``initialize_inner_with_pretrained`` names into the inner U-Nets; an
+  Orbax directory or an ``s3://`` path, which the JAX package also reads,
+  raises here.
+- ``select_resume_checkpoint``: ``--resume-from-ema``'s redirection of a
+  ``vis_model_noema_N.pth`` to its EMA sibling.
+
+Parameters are written with ``load_state_dict`` or ``copy_`` under
+``no_grad``, never through ``.data``: the sampling weights cached by
+``models/layers.py`` ``cached_weights`` are keyed on each parameter's
+version.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pickle
 import types
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 
-def save_vision_model(path: str, module: torch.nn.Module,
+def save_vision_model(path: str, module: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
                       other_items: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``module``'s parameters (and buffers) to the ``.pth`` file
-    ``path``, with ``other_items`` beside them."""
+    """Write ``module``'s parameters (and buffers), or a state dict, to the
+    ``.pth`` file ``path``, with ``other_items`` beside them."""
     if not path.endswith(".pth"):
         raise ValueError(f"{path!r}: the port writes vision checkpoints as .pth files only")
-    checkpoint = {"state_dict": {k: v.detach().cpu() for k, v in module.state_dict().items()}}
+    state = module if isinstance(module, Mapping) else module.state_dict()
+    checkpoint = {"state_dict": {k: v.detach().cpu() for k, v in state.items()}}
     checkpoint.update(other_items or {})
     torch.save(checkpoint, path)
 
@@ -83,3 +103,118 @@ def load_vision_model(path: str, module: torch.nn.Module) -> Tuple[torch.nn.Modu
                         f"{len(unfilled)} module keys not in the checkpoint {unfilled}")
     module.load_state_dict(shared, strict=False)
     return module, {k: v for k, v in checkpoint.items() if k != "state_dict"}
+
+
+def _resolve_pretrained_path(path: str) -> str:
+    """The local file a warm start names. The JAX package also fetches
+    ``s3://`` paths (``s3_helpers``, not ported); here they raise, and so
+    does a missing file (a warm start never silently trains from scratch)."""
+    if path.startswith("s3://"):
+        raise NotImplementedError(f"initialize_inner_with_pretrained: {path!r}: the port reads "
+                                  "local .pth files only (s3 downloads are not ported)")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"initialize_inner_with_pretrained: checkpoint {path!r} not found (set the field "
+            "to a local .pth path, or remove it to train the inner UNet from scratch)")
+    return path
+
+
+def apply_inner_warm_start(module: torch.nn.Module, unet_config) -> torch.nn.Module:
+    """Load the inner U-Nets of a nested ``module`` from the checkpoints
+    that ``initialize_inner_with_pretrained`` names, level by level of
+    ``unet_config`` (the Matryoshka recipe: the 256px model's inner U-Net
+    starts from a trained 64px model). Call it before the EMA copy is made,
+    so both start from the loaded weights. Non-strict, as
+    ``load_vision_model``; the outer shells are untouched."""
+    cfg, key_path = unet_config, []
+    while cfg is not None and hasattr(cfg, "inner_config"):
+        key_path.append("inner_unet")
+        pretrained = getattr(cfg, "initialize_inner_with_pretrained", None)
+        if pretrained:
+            local = _resolve_pretrained_path(str(pretrained))
+            logging.info(f"Warm-starting {'.'.join(key_path)} from {local}")
+            load_vision_model(local, module.get_submodule(".".join(key_path)))
+        cfg = getattr(cfg, "inner_config", None)
+    return module
+
+
+def select_resume_checkpoint(path: str, resume_from_ema: bool) -> str:
+    """With ``--resume-from-ema``, a ``vis_model_noema_N.pth`` path becomes
+    its EMA sibling ``vis_model_N.pth`` where that exists (the trainer
+    writes both); otherwise ``path`` itself."""
+    if not resume_from_ema:
+        return path
+    base = os.path.basename(path)
+    if "noema_" not in base:
+        return path  # the EMA file already, by its name
+    sibling = os.path.join(os.path.dirname(path), base.replace("noema_", ""))
+    if os.path.exists(sibling):
+        logging.info(f"--resume-from-ema: loading {sibling} instead of {path}")
+        return sibling
+    logging.warning(f"--resume-from-ema set but EMA sibling {sibling} not found; loading {path}")
+    return path
+
+
+def _jsonable(d: Dict[str, Any]) -> Dict[str, Any]:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, (np.integer, np.floating)):  # np.float64 is a float too
+            out[k] = v.item()
+        elif isinstance(v, (int, float, str, bool, type(None))):
+            out[k] = v
+        elif hasattr(v, "item") and getattr(v, "ndim", 1) == 0:
+            out[k] = v.item()
+        else:
+            out[k] = str(v)
+    return out
+
+
+def save_train_state(path: str, state, other_items: Optional[Dict[str, Any]] = None,
+                     write_meta: bool = True) -> None:
+    """Write ``state`` (``trainer.TrainState``) to the directory ``path``:
+    ``state.pt`` and, with ``other_items``, ``train_meta.json``. In a
+    data-parallel run every process holds the same state, and only the one
+    with ``write_meta`` (rank 0) writes."""
+    if not write_meta:
+        return
+    os.makedirs(path, exist_ok=True)
+    payload = {
+        "step": int(state.step),
+        "params": {k: p.detach().cpu() for k, p in state.params.items()},
+        "ema_params": {k: v.detach().cpu() for k, v in state.ema_params.items()},
+        "optimizer": state.optimizer.state_dict(),
+        "other_items": _jsonable(other_items or {}),
+    }
+    tmp = os.path.join(path, f"state.pt.{os.getpid()}.tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, "state.pt"))
+    if other_items:
+        with open(os.path.join(path, "train_meta.json"), "w") as f:
+            json.dump(_jsonable(other_items), f)
+
+
+@torch.no_grad()
+def load_train_state(path: str, state):
+    """Restore ``state`` (built over the same module and optimizer) from
+    the directory ``path`` in place: parameters (``copy_``), EMA, the
+    optimizer's state and the step, bit for bit. Returns (state, the other
+    items of ``train_meta.json``)."""
+    if not os.path.exists(os.path.join(path, "state.pt")):
+        raise FileNotFoundError(f"{path!r} holds no state.pt (an Orbax train state of the JAX "
+                                "package is not read by the port)")
+    payload = torch.load(os.path.join(path, "state.pt"), map_location="cpu", weights_only=True)
+    missing = set(state.params) ^ set(payload["params"])
+    if missing:
+        raise ValueError(f"{path}: the train state's parameters differ from the model's: "
+                         f"{sorted(missing)[:8]}")
+    for k, p in state.params.items():
+        p.copy_(payload["params"][k])
+        state.ema_params[k].copy_(payload["ema_params"][k])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    other = dict(payload.get("other_items", {}))
+    meta = os.path.join(path, "train_meta.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            other.update(json.load(f))
+    return state, other

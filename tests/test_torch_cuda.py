@@ -939,3 +939,61 @@ def test_t5_encoder_on_the_card_matches_the_cpu(dev):
         got = enc.to(dev)(ids.to(dev), mask.to(dev))
     assert got.dtype == torch.float32
     assert _rel(got.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_data_plane_is_built_into_the_ports_build_directory(dev):
+    """The reader's C++ data plane is compiled from the port's own
+    datacore.cpp into ml_mdm_tpu_torch/_build/ and loaded from there, never
+    from the JAX package's ml_mdm_tpu/native/."""
+    import os
+
+    from ml_mdm_tpu_torch import native
+
+    ok = native.available()
+    report = native.build_report()
+    assert report["path"].startswith(str(native.BUILD_DIR) + os.sep)
+    assert "ml_mdm_tpu" + os.sep + "native" not in report.get("command", "")
+    if not ok:
+        pytest.skip(f"the data plane did not build on this machine: {report}")
+    lib_path = os.path.realpath(native.load()._name)
+    assert lib_path.startswith(str(native.BUILD_DIR) + os.sep), lib_path
+    assert "ml_mdm_tpu" + os.sep + "native" not in lib_path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype,adamw", [("float32", True), ("bfloat16", False)])
+def test_train_state_round_trip_on_the_card(dev, tmp_path, mu_dtype, adamw):
+    """Two steps of the scaled flagship on the card (fused AdamW, or the
+    bf16 first moment), the train state saved and loaded into a fresh
+    state: parameters, EMA, both moments (a bf16 ``exp_avg`` stays bf16),
+    the counts and the step, bit for bit."""
+    from ml_mdm_tpu_torch import trainer
+    from ml_mdm_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = trainer.TrainerConfig(lr=1e-4, warmup_steps=2, use_adamw=adamw,
+                                adam_mu_dtype=mu_dtype)
+    pipe, lm_dim, side = flagship_64px(dev, seed=1, scaled=True, train=True)
+    state = trainer.TrainState.create(pipe.vision_module, cfg)
+    step = trainer.make_train_step(pipe, cfg)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(2):
+        batch = {"images": torch.rand((3, side, side, 3), generator=g, device=dev) * 2 - 1,
+                 "lm_outputs": torch.randn((3, 8, lm_dim), generator=g, device=dev),
+                 "lm_mask": torch.ones((3, 8), device=dev)}
+        state, m = step(state, batch, g)
+        assert m["skipped"] == 0
+    ckpt.save_train_state(str(tmp_path / "ts"), state, {"batch_num": 2})
+    fresh_pipe, _, _ = flagship_64px(dev, seed=9, scaled=True, train=True)
+    fresh = trainer.TrainState.create(fresh_pipe.vision_module, cfg)
+    fresh, other = ckpt.load_train_state(str(tmp_path / "ts"), fresh)
+    assert fresh.step == 2 and other["batch_num"] == 2
+    for k, p in state.params.items():
+        assert torch.equal(fresh.params[k], p), k
+        assert torch.equal(fresh.ema_params[k], state.ema_params[k]), k
+        mine, theirs = fresh.optimizer.state[fresh.params[k]], state.optimizer.state[p]
+        assert set(mine) == set(theirs) == {"step", "exp_avg", "exp_avg_sq"}
+        for name in theirs:
+            assert mine[name].dtype == theirs[name].dtype, (k, name)
+            assert torch.equal(mine[name].cpu(), theirs[name].cpu()), (k, name)
+        assert mine["exp_avg"].dtype == getattr(torch, mu_dtype)
