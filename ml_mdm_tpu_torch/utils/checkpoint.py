@@ -18,9 +18,9 @@ Counterpart of ``ml_mdm_tpu/utils/checkpoint.py``:
   ``train_meta.json`` as the JAX package. It restores all of them bit for
   bit.
 - ``apply_inner_warm_start`` loads the ``.pth`` files that
-  ``initialize_inner_with_pretrained`` names into the inner U-Nets; an
-  Orbax directory or an ``s3://`` path, which the JAX package also reads,
-  raises here.
+  ``initialize_inner_with_pretrained`` names into the inner U-Nets,
+  fetching an ``s3://`` path first as the JAX package does; an Orbax
+  directory, which the JAX package also reads, raises here.
 - ``select_resume_checkpoint``: ``--resume-from-ema``'s redirection of a
   ``vis_model_noema_N.pth`` to its EMA sibling.
 
@@ -106,16 +106,29 @@ def load_vision_model(path: str, module: torch.nn.Module) -> Tuple[torch.nn.Modu
 
 
 def _resolve_pretrained_path(path: str) -> str:
-    """The local file a warm start names. The JAX package also fetches
-    ``s3://`` paths (``s3_helpers``, not ported); here they raise, and so
-    does a missing file (a warm start never silently trains from scratch)."""
-    if path.startswith("s3://"):
-        raise NotImplementedError(f"initialize_inner_with_pretrained: {path!r}: the port reads "
-                                  "local .pth files only (s3 downloads are not ported)")
+    """The local file a warm start names, as the JAX package resolves it
+    (``ml_mdm_tpu/utils/checkpoint.py`` ``_resolve_pretrained_path``): an
+    ``s3://`` path, or a ``bucket/key`` path that is no local file and
+    starts with neither ``.`` nor ``/``, is downloaded once by process 0
+    through ``s3_helpers`` (which raises without ``boto3``) into the file
+    named by the path with its slashes as underscores, and every process
+    meets at a barrier; a missing file raises (a warm start never silently
+    trains from scratch)."""
+    if path.startswith("s3://") or (
+            "/" in path and not os.path.exists(path) and not path.startswith((".", "/"))):
+        from ml_mdm_tpu_torch import s3_helpers
+        from ml_mdm_tpu_torch.distributed import barrier, get_rank
+
+        local_file = path.replace("s3://", "").replace("/", "_")
+        if get_rank() == 0 and not os.path.exists(local_file):
+            s3_helpers.download_object_from_full_path(path, download_path=local_file)
+        barrier("inner_warm_start_download")
+        path = local_file
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"initialize_inner_with_pretrained: checkpoint {path!r} not found (set the field "
-            "to a local .pth path, or remove it to train the inner UNet from scratch)")
+            "to a local .pth path or an s3:// url, or remove it to train the inner UNet from "
+            "scratch)")
     return path
 
 

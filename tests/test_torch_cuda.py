@@ -32,7 +32,8 @@ bf16 operands on the card against the f32 products of the same values:
 (``ops/kernel_anatomy.py``) against their plain versions: <= 2e-2 *
 max|ref| (as K2); a double-buffered probe against its single buffer:
 bitwise equal; a zero-filled probe on the cells its fill reaches: within 2
-bf16 ULPs of each cell + 5e-4 * max|ref|.
+bf16 ULPs of each cell + 5e-4 * max|ref|. The f32 towers (T5, CLIP) against
+the same weights on the CPU: <= 1e-4 * max|ref| (TF32 off).
 
 The unpacked K2 (``conv3x3_wgmma_kernel``) is held at every border tap, at
 rows of 8 to 96 pixels and ragged heights, at channel counts that are
@@ -939,6 +940,40 @@ def test_t5_encoder_on_the_card_matches_the_cpu(dev):
         got = enc.to(dev)(ids.to(dev), mask.to(dev))
     assert got.dtype == torch.float32
     assert _rel(got.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_clip_towers_on_the_card_match_the_cpu(dev):
+    """The CLIP image and text towers (``language_models/clip.py``, seeded
+    random weights, 4 layers each, patch 16 at 224 px) in f32 on the card
+    against the same weights on the CPU, padded captions included:
+    <= 1e-4 * max|ref| each (the same f32 sums in another order, TF32
+    off)."""
+    from ml_mdm_tpu_torch.language_models import clip
+
+    cfg = clip.CLIPConfig(
+        text=clip._tower(dict(hidden_size=256, intermediate_size=1024, num_hidden_layers=4,
+                              num_attention_heads=4, vocab_size=1000), {}),
+        vision=clip._tower(dict(hidden_size=384, intermediate_size=1536, num_hidden_layers=4,
+                                num_attention_heads=6, image_size=224, patch_size=16), {}),
+        projection_dim=128)
+    model = clip.init_clip_(clip.CLIPModel(cfg), torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    pixels = torch.randn((5, 3, 224, 224), generator=g)
+    eos = model.text_model.config.eos_token_id = 999
+    ids = torch.randint(0, eos, (3, 20), generator=g)
+    mask = torch.ones_like(ids)
+    ids[:, -1] = eos
+    ids[1, 9:] = eos  # a caption of 10 tokens, padded with the end token
+    mask[1, 10:] = 0
+    with torch.no_grad():
+        ref = (model.get_image_features(pixels), model.get_text_features(ids, mask))
+        model.to(dev)
+        got = (model.get_image_features(pixels.to(dev)),
+               model.get_text_features(ids.to(dev), mask.to(dev)))
+    for g_, r in zip(got, ref):
+        assert g_.dtype == torch.float32 and g_.shape == r.shape
+        assert _rel(g_.cpu(), r) <= 1e-4
 
 
 @pytest.mark.cuda

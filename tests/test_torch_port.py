@@ -44,11 +44,15 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 10
-    # the training and evaluation slice's modules among them
+    # the training and evaluation slices' modules among them
     assert {f"ml_mdm_tpu_torch.{m}" for m in (
         "native", "native.image", "native.tar", "native.trie_tokenizer", "reader",
         "utils.simple_logger", "trainer", "utils.checkpoint", "distributed", "parallel.mesh",
-        "clis.train_parallel", "generate_html", "clis.generate_batch")} <= names
+        "clis.train_parallel", "generate_html", "clis.generate_batch",
+        # the evaluation slice's
+        "clis.run_torchmetrics", "clis.build_vocab", "clis.download_tar_from_index",
+        "clis.scrape_cc12m", "s3_helpers", "core", "language_models.clip",
+        "language_models.clip_tokenizer", "tools.quality_gate")} <= names
 
 
 def test_converter_matches_jax_exporter():

@@ -27,7 +27,8 @@ the same thing.
   resumed run are the straight run's steps 3 and 4; the port, as the JAX
   CLI, does not save the reader's position); ``--resume-from-ema``;
   ``select_resume_checkpoint``'s cases; the inner warm start (from a
-  ``.pth``, and raising for a missing file, an Orbax directory or s3);
+  ``.pth``, and raising for a missing file, an Orbax directory or, without
+  ``boto3``, s3);
   ``freeze_inner_unet`` through the CLI; ``--mesh-shape``; the
   ``python -m`` entry point.
 """
@@ -480,14 +481,20 @@ def test_inner_warm_start_from_pth(tmp_path):
 
 
 @pytest.mark.parametrize("where", ["missing", "orbax", "s3"])
-def test_inner_warm_start_refuses(tmp_path, where):
+def test_inner_warm_start_refuses(tmp_path, monkeypatch, where):
+    # boto3 absent whatever another test file of this process put into
+    # sys.modules (tests/ref_loader.py stubs it)
+    monkeypatch.setitem(sys.modules, "boto3", None)
+    monkeypatch.chdir(tmp_path)
     args = cli_args(yaml=NESTED_YAML)
     module = _nested_module(args, 3)
     path = {"missing": str(tmp_path / "nope.pth"), "s3": "s3://bucket/inner.pth",
             "orbax": str(tmp_path)}[where]
     args.unet_config.initialize_inner_with_pretrained = path
-    error = {"missing": FileNotFoundError, "orbax": ValueError, "s3": NotImplementedError}[where]
-    with pytest.raises(error):
+    # s3: the JAX route, a download through s3_helpers, whose RuntimeError
+    # says that boto3 is absent
+    error = {"missing": FileNotFoundError, "orbax": ValueError, "s3": RuntimeError}[where]
+    with pytest.raises(error, match="boto3" if where == "s3" else None):
         ckpt.apply_inner_warm_start(module, args.unet_config)
 
 
