@@ -147,6 +147,31 @@ weights from a seed:
      and K2 in the probes) and (b) ``use_kernels(False)`` in f32, where no
      kernel may launch. Both must pass; where (a) fails and (b) passes, the
      plain route runs in bf16 too, to tell bf16 from a kernel fault.
+ 12. FSDP training through the CLI (``path_fsdp``): ``train_parallel`` on
+     cc12m_64x64 (batch 32, ``--fp16 1``, phase 9's tower, a shard made as
+     phase 9's) with ``--mesh-shape data:1,fsdp:N`` for 4 steps, N the
+     cards, one process a card over NCCL (rank 0 in this process, the
+     others spawned with torchrun's environment; one card: the CLI joins a
+     one-process group, so the sharded code and its collectives run). Every
+     loss finite, no step skipped, K1-K3·B launched; the step-4 train state
+     loaded into a plain ``TrainState`` holds rank 0's shards bitwise; with
+     one card, step 1 against the data-parallel step on the same batch and
+     noise (loss 1e-2 relative, norm 5e-2), phase 9's step 1 beside; rank
+     0's shard bytes beside its peak memory and phase 9's.
+ 13. configs/models/cifar10_32x32.yaml with dropout 0.1 (``path_cifar``),
+     at its full width and batch 128, ``--fp16 1``: every K1, K2, K3 and
+     identity-prologue K3 (``conv3x3_vjp``, the dropout ResNet's conv2)
+     launch shape of one step held against plain and timed; a kernel step
+     against a plain one with the same masks (the step tolerances); then
+     ``train_parallel`` for 10 steps on a shard of 1280 class-captioned
+     JPEGs (losses finite, every mask's kept fraction within 4 sigma of 0.9,
+     K3·id launched; steps/s) and ``generate_batch`` on its checkpoint (128
+     samples, DDIM-50; samples/s).
+ 14. The one-process data-parallel sampler (``path_dp_sampler``):
+     ``parallel.sample_data_parallel`` on the 64px model, batch 8, guidance
+     5, DDIM-25, over every card or over cuda:0 twice: within two one-device
+     calls' spread on the kernels (``within_spread``); on the plain route
+     bitwise equal to one device sampling each replica's rows.
 
 Every K2 launch runs the implicit-GEMM kernel on wgmma, at 9 taps
 unpacked and at the 4 combined taps packed (its ``conv_plan`` and the ptxas
@@ -174,12 +199,16 @@ K3 and its passes during the train_256 preset's timed steps, K4 during the
 flash-route requests, P1 and P2 during the probes' tables; K1-K2·pipe also
 the web demo's requests, which ``server_launches`` gives apart; K1, K2 64px,
 K2·N, K2·proj and K3-K3·B also phase 9's CLI runs, ``cli_launches``, and
-phase 11's kernel route, ``gate_launches``), its error
+phase 11's kernel route, ``gate_launches``; phases 12-14 add their
+launches, ``fsdp_launches``, ``cifar_launches`` and ``dp_sampler_launches``,
+and K3 the identity-prologue backwards apart, ``identity_launches``), its error
 and its times; K1, K2 64px and K3-K3·B also their check at the 64px
 batch-32 training step's shapes, those of the training CLI (``cli_shapes``;
 generate_batch's CFG forwards are the 64px batch-64 forward of phase 1),
 and K1-K2·proj and K3-K3·B their check at the quality gate's shapes
-(``gate_shapes``); the last line is one JSON object with "ok" and the
+(``gate_shapes``), and K1, K2, K3-K3·B their check at the cifar10_32x32
+step's shapes (``cifar_shapes``; K3 also the identity-prologue backward's,
+``identity_shapes``); the last line is one JSON object with "ok" and the
 device.
 """
 from __future__ import annotations
@@ -2533,7 +2562,8 @@ def path_cli(dev, tower: str, preset_steps_s: float):
                 log(f"CLI run: checkpoints written at steps {CLI_SAVE} and {CLI_STEPS}: "
                     f"{sorted(os.listdir(run1))}")
                 result.update(cli_steps_s=1 / per_step, cli_wall_s=wall, cli_peak=peak,
-                              preset_steps_s=preset_steps_s, n_params=n_params)
+                              preset_steps_s=preset_steps_s, n_params=n_params,
+                              history=history)
             with phase(f"CLI: train_state_{CLI_STEPS:06d} into a fresh state, bit for bit"):
                 args = cli_args(common, "trainer")
                 args.unet_config.conditioning_feature_dim = FLAN_T5_XL["d_model"]
@@ -2935,6 +2965,660 @@ def path_gate(dev):
     return runs
 
 
+# -- phase 12: FSDP training through the CLI --------------------------------------------
+
+FSDP_STEPS = 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_bytes(state):
+    """This process's parameter, gradient and optimizer bytes, counted from
+    its shards (each gradient has its parameter's local shape)."""
+    import torch
+
+    local = state.local_params()
+    params = sum(t.numel() * t.element_size() for t in local.values())
+    opt = sum(v.numel() * v.element_size() for st in state.optimizer.state.values()
+              for v in st.values() if torch.is_tensor(v))
+    return params, params, opt
+
+
+def run_cli_ranks(argv, n: int, out: str, history):
+    """``train_parallel`` over ``n`` processes, one a card: rank 0 in this
+    process (its metrics appended to ``history``), ranks 1..n-1 spawned with
+    torchrun's environment, their logs in ``out/rank<r>.log``. Returns rank
+    0's state and the other ranks' last log lines."""
+    from ml_mdm_tpu_torch.clis import train_parallel
+
+    env_keys = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    procs = []
+    try:
+        if n > 1:
+            port = str(_free_port())
+            for r in range(1, n):
+                env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n),
+                           MASTER_ADDR="localhost", MASTER_PORT=port, PYTHONPATH=HERE)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "ml_mdm_tpu_torch.clis.train_parallel",
+                     "--config_path", CLI_CONFIG, "--seed", str(SEED), "--device", "cuda", *argv],
+                    env=env, cwd=HERE, stdout=open(f"{out}/rank{r}.log", "w"),
+                    stderr=subprocess.STDOUT))
+            os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(n),
+                              MASTER_ADDR="localhost", MASTER_PORT=port)
+        state = train_parallel.main(cli_args(argv, "trainer"), history)
+        tails = []
+        for r, p in enumerate(procs, start=1):
+            code = p.wait(timeout=600)
+            with open(f"{out}/rank{r}.log") as f:
+                lines = f.read().splitlines()
+            if code != 0:
+                raise AssertionError(f"rank {r} exited {code}: " + "\n".join(lines[-30:]))
+            tails.append([line.strip() for line in lines if "peak device memory" in line])
+        return state, tails
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def path_fsdp(dev, tower: str, cli_history, cli_peak):
+    """Phase 12: ``train_parallel`` on cc12m_64x64 (batch 32, ``--fp16 1``,
+    phase 9's flan-t5-xl-shaped tower and a shard made as phase 9's) with
+    ``--mesh-shape data:1,fsdp:N`` for FSDP_STEPS steps, N the cards: one
+    process a card over NCCL (``run_cli_ranks``); with one card the CLI
+    joins a process group of its own, so the sharded code and its
+    collectives run. Every loss finite, no step skipped, K1-K3·B launched;
+    the step-4 train state loaded into a plain ``TrainState`` holds rank 0's
+    shards bit for bit. Step 1's loss and norm against the data-parallel
+    step on the same batch and noise (the step tolerances): with one card
+    the step on the batch the run took, in this process; with N the
+    data-parallel CLI (``--mesh-shape data:N``) for one step on the same
+    processes, both runs with one reader thread a process (a fixed order).
+    Phase 9's step 1 beside. Prints each process's shard bytes and peak
+    memory beside phase 9's peak."""
+    import gc
+    import logging
+
+    import torch
+    import torch.distributed as dist
+
+    from ml_mdm_tpu_torch import trainer
+    from ml_mdm_tpu_torch.clis import train_parallel
+    from ml_mdm_tpu_torch.config import get_model, get_pipeline
+    from ml_mdm_tpu_torch.presets import build_unet
+    from ml_mdm_tpu_torch.utils import checkpoint as ckpt
+
+    n = torch.cuda.device_count()
+    out = os.path.abspath("chiprun_out/fsdp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("  fsdp: %(message)s"))
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    root.handlers = [handler]
+    root.setLevel(logging.INFO)
+    result = {}
+    try:
+        with tempfile.TemporaryDirectory() as data:
+            with phase("FSDP: a tar shard of JPEGs and its index, from the seed"):
+                index = write_shard(data)
+            argv = ["--file-list", index, "--text-model", tower, "--fp16", "1",
+                    "--batch-size", str(CLI_BATCH), "--warmup-steps", "10"]
+            if n > 1:
+                argv += ["--reader_config.num_readers", "1"]
+            with phase(f"FSDP: train_parallel, cc12m_64x64, batch {CLI_BATCH}, {FSDP_STEPS} "
+                       f"steps, --mesh-shape data:1,fsdp:{n}, {n} process(es)"):
+                first = {}
+                device_batch = train_parallel._device_batch
+
+                def keep_first(*a):
+                    b = device_batch(*a)
+                    if not first:
+                        first.update({k: v.clone() for k, v in b.items()})
+                    return b
+
+                train_parallel._device_batch = keep_first
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts()
+                history = []
+                t0 = time.perf_counter()
+                try:
+                    state, tails = run_cli_ranks(
+                        argv + ["--mesh-shape", f"data:1,fsdp:{n}", "--num-training-steps",
+                                str(FSDP_STEPS), "--save-freq", str(FSDP_STEPS), "--output-dir",
+                                out], n, out, history)
+                finally:
+                    train_parallel._device_batch = device_batch
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts(f"the FSDP run's {FSDP_STEPS} steps", TRAINING_KERNELS)
+                peak = torch.cuda.max_memory_allocated(dev)
+                check_cli_run(history, "FSDP run", 1, FSDP_STEPS)
+                if state.step != FSDP_STEPS:
+                    raise AssertionError(f"FSDP run: {FSDP_STEPS - state.step} steps skipped")
+                layout = state.layout
+                if layout is None or not layout.dims:
+                    raise AssertionError("FSDP run: no parameter was sharded")
+                pb, gb, ob = shard_bytes(state)
+                per_step = statistics.fmean(t for num, *_, t in history if num > 1)
+                n_params = sum(p.numel() for p in state.params.values())
+                log(f"FSDP run: {len(layout.dims)} of {len(state.params)} parameters sharded "
+                    f"over {n} process(es), {n_params} elements; rank 0 holds parameters {pb}, "
+                    f"gradients {gb}, optimizer {ob} bytes ({(pb + gb + ob) / 2**30:.3f} GiB), "
+                    f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) against phase "
+                    f"9's {cli_peak} ({cli_peak / 2**30:.3f} GiB); step time over steps "
+                    f"2-{FSDP_STEPS} {per_step * 1e3:.3f} ms ({1 / per_step:.4f} steps/s); "
+                    f"{wall:.3f} s wall with set-up and the save")
+                for r, lines in enumerate(tails, start=1):
+                    log(f"FSDP run, rank {r}: {lines}")
+                result.update(fsdp_peak=peak, fsdp_bytes=(pb, gb, ob), fsdp_steps_s=1 / per_step,
+                              fsdp_wall_s=wall, shards=len(layout.dims), processes=n)
+            with phase(f"FSDP: train_state_{FSDP_STEPS:06d} into a plain TrainState, against "
+                       "rank 0's shards bit for bit"):
+                args = cli_args(argv, "trainer")
+                args.unet_config.conditioning_feature_dim = FLAN_T5_XL["d_model"]
+                module = build_unet(get_model(args.model), args.unet_config, dev, SEED + 1,
+                                    dtype=torch.float32).train()
+                fresh = trainer.TrainState.create(module, trainer.TrainerConfig(use_adamw=True))
+                fresh, _ = ckpt.load_train_state(f"{out}/train_state_{FSDP_STEPS:06d}", fresh)
+                local = state.local_params()
+                names = ckpt.optimizer_names(state)
+                opt_local = {names[i]: state.optimizer.state[t] for i, t in enumerate(
+                    t for g in state.optimizer.param_groups for t in g["params"])}
+                diff = []
+                for k, p in fresh.params.items():
+                    pairs = [("param", p.detach(), local[k]),
+                             ("ema", fresh.ema_params[k], state.ema_params[k])]
+                    mine = fresh.optimizer.state[p]
+                    pairs += [(m, mine[m], opt_local[k][m]) for m in ("exp_avg", "exp_avg_sq")]
+                    for what, full, shard in pairs:
+                        if not torch.equal(layout.shard_of(k, full), shard):
+                            diff.append(f"{what} {k}")
+                    if int(mine["step"]) != int(opt_local[k]["step"]):
+                        diff.append(f"step {k}")
+                if diff or fresh.step != state.step:
+                    raise AssertionError(f"FSDP train state: {len(diff)} tensors differ from the "
+                                         f"shards: {diff[:6]} (step {fresh.step})")
+                log(f"FSDP train state reloaded: step {fresh.step}, {4 * len(fresh.params)} "
+                    "tensors (parameters, EMA, both Adam moments) hold rank 0's shards bitwise")
+                del module, fresh, state, local, opt_local
+                shutil.rmtree(f"{out}/train_state_{FSDP_STEPS:06d}")
+                gc.collect()
+                torch.cuda.empty_cache()
+            with phase("FSDP: step 1 against the data-parallel step on its batch and noise"):
+                nums = {num: (loss, norm) for num, loss, norm, _ in cli_history}
+                log(f"phase 9's step 1 (its own batch: the reader's 8 workers fix no order): "
+                    f"loss {nums[1][0]:.6f}, norm {nums[1][1]:.4f}")
+                if n > 1:
+                    dist.destroy_process_group()
+                    dp_history = []
+                    run_cli_ranks(argv + ["--mesh-shape", f"data:{n}", "--num-training-steps",
+                                          "1", "--save-freq", "1000", "--output-dir",
+                                          f"{out}/dp"], n, out, dp_history)
+                    _, dp_loss, dp_norm, _ = dp_history[0]
+                else:
+                    args = cli_args(argv, "trainer")
+                    args.unet_config.conditioning_feature_dim = FLAN_T5_XL["d_model"]
+                    module = build_unet(get_model(args.model), args.unet_config, dev, SEED,
+                                        dtype=torch.float32).train()
+                    module.set_compute_dtype(torch.bfloat16)
+                    pipe = get_pipeline(args.model)(module, args.diffusion_config)
+                    tcfg = trainer.TrainerConfig(
+                        lr=args.lr, warmup_steps=args.warmup_steps,
+                        gradient_clip_norm=args.gradient_clip_norm, use_adamw=args.use_adamw,
+                        num_gradient_accumulations=args.num_gradient_accumulations,
+                        loss_factor=args.loss_factor)
+                    dp_state = trainer.TrainState.create(module, tcfg)
+                    gen = torch.Generator(device=dev).manual_seed(
+                        train_parallel.step_seed(SEED, 0, 0))
+                    _, m = trainer.make_train_step(pipe, tcfg)(dp_state, first, gen)
+                    dp_loss, dp_norm = m["loss"], m["grad_norm"]
+                    del module, pipe, dp_state
+                _, loss, norm, _ = history[0]
+                log(f"step 1: FSDP loss {loss:.6f} norm {norm:.4f}; data parallel loss "
+                    f"{dp_loss:.6f} norm {dp_norm:.4f}")
+                if not (abs(loss - dp_loss) <= 1e-2 * abs(dp_loss)
+                        and abs(norm - dp_norm) <= 5e-2 * dp_norm):
+                    raise AssertionError("FSDP step 1 is off the data-parallel step")
+                result.update(step1=(loss, norm), dp_step1=(dp_loss, dp_norm))
+        del first
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        root.handlers = handlers
+        root.setLevel(level)
+        shutil.rmtree(out, ignore_errors=True)  # ~11 GB a save
+        gc.collect()
+        torch.cuda.empty_cache()
+    fsdp = {"K1": counts["K1"], "K2 64px": counts["K2"],
+            **{k: counts[k] for k in ("K3", "K3·A", "K3·B")}}
+    return fsdp, result
+
+
+# -- phase 13: cifar10_32x32, dropout 0.1, through the CLIs -----------------------------
+
+CIFAR_CONFIG = "configs/models/cifar10_32x32.yaml"
+CIFAR_STEPS = 10
+CIFAR_BATCH = 128
+CIFAR_IMAGES = 1280
+# the reader settings the categorical recipe needs: data/cifar10.vocab has
+# no "<pad>" (the YAML's padding token), and the one-hot reads the second
+# token, which is the class name's only after a BOS
+CIFAR_READER = ["--reader_config.padding_token", "</s>", "--reader_config.prepad_bos", "true"]
+DROPOUT_SIGMAS = 4
+
+
+def write_cifar_shard(path: str):
+    """One tar shard of CIFAR_IMAGES JPEGs (quality 90, sides 32-64 px from
+    the seed, seeded 4 x 4 noise upsampled) captioned in turn with the class
+    names of data/cifar10.vocab; its TSV and an index. Returns the index."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    with open("data/cifar10.vocab") as f:
+        classes = [line.split("\t")[0] for line in f][3:]
+    rng = np.random.default_rng(SEED + 13)
+    t0 = time.perf_counter()
+    with tarfile.open(f"{path}/cifar_00000.tar", "w", format=tarfile.USTAR_FORMAT) as tf, \
+            open(f"{path}/cifar_00000.tsv", "w") as tsv:
+        tsv.write("tar\tfile\tcaption\n")
+        for i in range(CIFAR_IMAGES):
+            w, h = (int(v) for v in rng.integers(32, 65, size=2))
+            small = Image.fromarray(rng.integers(0, 256, (4, 4, 3), dtype=np.uint8))
+            buf = io.BytesIO()
+            small.resize((w, h), Image.BICUBIC).save(buf, "JPEG", quality=90)
+            info = tarfile.TarInfo(f"{i:08d}.jpg")
+            info.size = len(buf.getvalue())
+            tf.addfile(info, io.BytesIO(buf.getvalue()))
+            tsv.write(f"{path}/cifar_00000.tar\t{info.name}\t{classes[i % len(classes)]}\n")
+    with open(f"{path}/index.tsv", "w") as f:
+        f.write(f"filename\n{path}/cifar_00000.tsv\n")
+    log(f"data: {CIFAR_IMAGES} JPEGs (sides 32-64 px), captions the classes of "
+        f"data/cifar10.vocab, written in {time.perf_counter() - t0:.3f} s")
+    return f"{path}/index.tsv"
+
+
+def record_identity_shapes(run):
+    """Run ``run()`` (a forward and backward) with ``conv3x3_vjp`` wrapped;
+    its distinct launch shapes (B, H, W, C, Cout, residual, packed)."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import fused_resnet
+
+    keys = set()
+    vjp = fused_resnet.conv3x3_vjp
+
+    def rec(x, w, bias, residual=None, **kw):
+        keys.add((*x.shape, w.shape[-1], residual is not None, bool(kw.get("packed_struct"))))
+        return vjp(x, w, bias, residual, **kw)
+
+    fused_resnet.conv3x3_vjp = rec
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        fused_resnet.conv3x3_vjp = vjp
+    return sorted(keys)
+
+
+def check_identity_k3(keys, dev, label: str):
+    """Each ``conv3x3_vjp`` launch shape (K3 without its chain): the backward
+    against autograd of the plain twin (K2_TOL), then its time beside the
+    plain backward's, the library's (cuDNN's dgrad and wgrad) and the
+    bound: the two convolutions' tensor-core FLOPs (2 x 2 B H W 9 C Cout),
+    or the bytes (x and dy read, dx written, the f32 weights read and their
+    gradient written, dbias). Returns the totals."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import fused_resnet
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    tot = _new_totals()
+    for key in keys:
+        bsz, h, w, c, cout, residual, struct = key
+        if struct:
+            raise AssertionError(f"{label}: a packed identity-prologue launch {key}")
+        bf = torch.bfloat16
+        x = torch.randn((bsz, h, w, c), generator=g, device=dev).to(bf)
+        wt = torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5
+        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+        res = torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf) if residual else None
+        dy = torch.randn((bsz, h, w, cout), generator=g, device=dev).to(bf)
+
+        def backward_of(fn):
+            leaves = [t.detach().requires_grad_(True) for t in (x, wt, bias)]
+            rl = res.detach().requires_grad_(True) if res is not None else None
+            y = fn(*leaves, rl)
+            targets = leaves + ([rl] if rl is not None else [])
+            return lambda: torch.autograd.grad(y, targets, dy, retain_graph=True)
+
+        kernel = backward_of(lambda *a: fused_resnet.conv3x3_vjp(*a))
+        plain = backward_of(lambda xx, ww, bb, rr: fused_resnet.affine_silu_conv3x3_plain(
+            xx, None, None, ww, bb, rr, apply_silu=False))
+        got, ref = kernel(), plain()
+        errs = [rel_err(o, r) for o, r in zip(got, ref)]
+        if not max(errs) <= K2_TOL:
+            raise AssertionError(f"{label} identity-prologue K3 {key}: rel errs {errs}")
+        ms = cuda_ms(kernel)
+        pms = cuda_ms(plain, warmup=1, reps=3)
+        w16 = wt.to(bf).permute(3, 2, 0, 1)
+        dy_nchw, x_nchw = dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+
+        def library():
+            return (torch.nn.grad.conv2d_input(x_nchw.shape, w16, dy_nchw, padding=1),
+                    torch.nn.grad.conv2d_weight(x_nchw, w16.shape, dy_nchw, padding=1),
+                    dy.float().sum(dim=(0, 1, 2)))
+
+        lms = cuda_ms(library)
+        px = bsz * h * w
+        t_ops = 4 * px * 9 * c * cout / PEAK_BF16_TENSOR
+        t_bytes = (2 * px * c * 2 + 2 * px * cout + 2 * 4 * 9 * c * cout + 4 * cout) / PEAK_HBM
+        bound, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+        log(f"{label} identity-prologue K3 B={bsz} {h}x{w} {c}->{cout}"
+            f"{' residual' if residual else ''}: rel errs (dx, dw, dbias"
+            f"{', dres' if residual else ''}) {', '.join(f'{e:.3e}' for e in errs)}; backward "
+            f"{ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound {bound:.4f} ms ({by})")
+        _add(tot, max(abs_err(o, r) for o, r in zip(got, ref)), ms, pms, lms, bound, by)
+    log(f"{label} identity-prologue K3 over {tot['shapes']} shapes: backward {tot['ms']:.4f} ms, "
+        f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms")
+    return tot
+
+
+def path_cifar(dev):
+    """Phase 13: configs/models/cifar10_32x32.yaml (dropout 0.1, categorical
+    conditioning through data/cifar10.vocab) at its full width and batch
+    through the port's CLIs, bf16 compute (``--fp16 1``; the YAML's 0 would
+    run plain PyTorch on the card): every K1, K2, K3 and identity-prologue
+    K3 launch shape of one step held against plain; one step with kernels
+    against one without, the same masks (the step tolerances); then
+    ``train_parallel`` on a shard of class-captioned JPEGs for CIFAR_STEPS
+    steps (losses finite, each mask's kept fraction within 4 sigma of 0.9,
+    K3·id launched), steps/s, and ``generate_batch`` on its checkpoint
+    (CIFAR_BATCH samples, DDIM-50), samples/s. Returns (launches, shape
+    totals, result)."""
+    import gc
+    import logging
+
+    import numpy as np
+    import torch
+
+    from ml_mdm_tpu_torch import diffusion
+    from ml_mdm_tpu_torch.clis import generate_batch, train_parallel
+    from ml_mdm_tpu_torch.config import get_arguments, get_model, get_pipeline
+    from ml_mdm_tpu_torch.models import layers
+    from ml_mdm_tpu_torch.presets import build_unet
+
+    out = os.path.abspath("chiprun_out/cifar")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    result = {}
+
+    def args_of(argv, mode):
+        return get_arguments(["--config_path", CIFAR_CONFIG, "--seed", str(SEED), "--device",
+                              "cuda", *CIFAR_READER, *argv], mode=mode)
+
+    args = args_of([], "trainer")
+    args.unet_config.conditioning_feature_dim = 13  # the vocabulary's one-hot
+    with phase(f"cifar10_32x32: every launch shape of a batch-{CIFAR_BATCH} step, held "
+               "against plain; a kernel step against a plain step with the same masks"):
+        module = build_unet(get_model(args.model), args.unet_config, dev, SEED,
+                            dtype=torch.float32).train()
+        module.set_compute_dtype(torch.bfloat16)
+        n_params = sum(p.numel() for p in module.parameters())
+        pipe = get_pipeline(args.model)(module, args.diffusion_config)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        classes = torch.randint(3, 13, (CIFAR_BATCH,), generator=gen, device=dev)
+        batch = {"images": (torch.rand((CIFAR_BATCH, 32, 32, 3), generator=gen, device=dev) * 2
+                            - 1).to(torch.bfloat16),
+                 "lm_outputs": torch.nn.functional.one_hot(classes, 13).float()[:, None, :]
+                 .to(torch.bfloat16)}
+        time_ = torch.randint(0, 1000, (CIFAR_BATCH,), generator=gen, device=dev)
+        eps = torch.randn((CIFAR_BATCH, 32, 32, 3), generator=gen, device=dev)
+        masks = layers.DropoutMasks(module, gen)
+
+        def one_backward():
+            module.zero_grad(set_to_none=True)
+            loss = pipe.get_loss(batch, time=time_, eps=eps, dropout=masks)[0].mean()
+            loss.backward()
+            return float(loss)
+
+        k3_box, id_box = [], []
+        k2_keys, k1_keys = record_launch_shapes(lambda: k3_box.append(record_k3_shapes(
+            lambda: id_box.append(record_identity_shapes(one_backward)))), grad=True)
+        log(f"cifar10_32x32 ({n_params} parameters): {len(k1_keys)} K1, {len(k2_keys)} K2, "
+            f"{len(k3_box[0])} K3 and {len(id_box[0])} identity-prologue K3 launch shapes in "
+            f"a batch-{CIFAR_BATCH} step")
+        tot = check_kernels(k2_keys, k1_keys, dev, "cifar train")
+        shapes = {"K1": tot["K1"], "K2": tot["K2"], **check_k3(k3_box[0], dev, "cifar train"),
+                  "K3·id": check_identity_k3(id_box[0], dev, "cifar train")}
+        runs = []
+        for kernels in (True, False):
+            module.use_kernels(kernels)
+            loss = one_backward()
+            grads = torch.cat([p.grad.flatten() for p in module.parameters()
+                               if p.grad is not None])
+            runs.append((loss, grads))
+        module.use_kernels(True)
+        (lk, gk), (lp, gp) = runs
+        cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+        log(f"cifar10_32x32 step, the same masks: loss kernels {lk:.6f} plain {lp:.6f}, gradient "
+            f"norm {float(gk.norm()):.6f} against {float(gp.norm()):.6f}, cosine {cos:.6f}")
+        if not (abs(lk - lp) <= 1e-2 * abs(lp)
+                and abs(float(gk.norm()) - float(gp.norm())) <= 5e-2 * float(gp.norm())
+                and cos >= 0.99):
+            raise AssertionError("cifar10_32x32: kernel step off the plain step")
+        del module, pipe, runs, gk, gp, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("  cifar: %(message)s"))
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    root.handlers = [handler]
+    root.setLevel(logging.INFO)
+    made = []
+
+    class Recorded(layers.DropoutMasks):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    try:
+        with tempfile.TemporaryDirectory() as data:
+            index = write_cifar_shard(data)
+            with phase(f"cifar10_32x32: train_parallel, batch {CIFAR_BATCH}, {CIFAR_STEPS} "
+                       "steps, --fp16 1, dropout 0.1"):
+                diffusion.DropoutMasks = Recorded
+                reset_counts()
+                history = []
+                t0 = time.perf_counter()
+                try:
+                    state = train_parallel.main(args_of(
+                        ["--file-list", index, "--fp16", "1", "--batch-size", str(CIFAR_BATCH),
+                         "--num-training-steps", str(CIFAR_STEPS), "--save-freq",
+                         str(CIFAR_STEPS), "--output-dir", out], "trainer"), history)
+                finally:
+                    diffusion.DropoutMasks = layers.DropoutMasks
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts_train = read_counts("the cifar10_32x32 CLI's steps",
+                                           TRAINING_KERNELS + ("K3·id",))
+                check_cli_run(history, "cifar10_32x32 run", 1, CIFAR_STEPS)
+                if state.step != CIFAR_STEPS:
+                    raise AssertionError(f"cifar10_32x32: {CIFAR_STEPS - state.step} steps "
+                                         "skipped")
+                fracs = [float(kept) / n for m in made for kept, n in m.kept.values()]
+                sigma = max(np.sqrt(0.1 * 0.9 / n) for m in made for _, n in m.kept.values())
+                worst = max(abs(f - 0.9) for f in fracs) / sigma
+                log(f"cifar10_32x32 dropout: {len(fracs)} masks in {len(made)} steps, kept "
+                    f"fractions {min(fracs):.6f}-{max(fracs):.6f}, worst {worst:.3f} sigma of "
+                    "0.9")
+                if len(made) != CIFAR_STEPS or worst > DROPOUT_SIGMAS:
+                    raise AssertionError(f"cifar10_32x32 dropout: {len(made)} mask sets, worst "
+                                         f"{worst:.3f} sigma")
+                per_step = statistics.fmean(t for num, *_, t in history if num > 2)
+                log(f"cifar10_32x32 run: {CIFAR_STEPS} steps, step time over steps 3-"
+                    f"{CIFAR_STEPS} {per_step * 1e3:.3f} ms: {1 / per_step:.4f} steps/s, "
+                    f"{CIFAR_BATCH / per_step:.2f} images/s; {wall:.3f} s wall")
+                result.update(cifar_steps_s=1 / per_step, cifar_wall_s=wall,
+                              cifar_params=n_params, dropout_worst_sigma=worst)
+                del state
+            with phase(f"cifar10_32x32: generate_batch on vis_model_{CIFAR_STEPS:06d}.pth, "
+                       f"{CIFAR_BATCH} samples, DDIM-50"):
+                samples = f"{out}/samples"
+                times = []
+                reset_counts()
+                n = generate_batch.main(args_of(
+                    ["--model-file", f"{out}/vis_model_{CIFAR_STEPS:06d}.pth", "--test-file-list",
+                     index, "--sample-dir", samples, "--min-examples", str(CIFAR_BATCH),
+                     "--batch-size", str(CIFAR_BATCH)], "sampler"),
+                    num_inference_steps=50, ddim_eta=0.0, times=times)
+                counts_gen = read_counts("cifar10_32x32 generate_batch", SAMPLING_KERNELS)
+                from PIL import Image
+
+                pngs = sorted(f for f in os.listdir(f"{samples}/rank0") if f.startswith("s_"))
+                pixels = np.stack([np.asarray(Image.open(f"{samples}/rank0/{f}")) for f in pngs])
+                if n != CIFAR_BATCH or pixels.shape != (CIFAR_BATCH, 32, 32, 3) \
+                        or pixels.min() == pixels.max():
+                    raise AssertionError(f"cifar10_32x32 generate_batch: {n} samples, "
+                                         f"{pixels.shape}")
+                rate = n / sum(times)
+                log(f"cifar10_32x32 generate_batch: {n} samples in {sum(times):.4f} s: "
+                    f"{rate:.4f} samples/s; pixels {pixels.min()}..{pixels.max()}, mean "
+                    f"{pixels.mean():.3f}")
+                result.update(cifar_samples_s=rate)
+    finally:
+        diffusion.DropoutMasks = layers.DropoutMasks
+        root.handlers = handlers
+        root.setLevel(level)
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cifar = {"K1": counts_train["K1"] + counts_gen["K1"],
+             "K2": counts_train["K2"] + counts_gen["K2"],
+             **{k: counts_gen[k] for k in ("K2·N", "K2·proj")},
+             **{k: counts_train[k] for k in ("K3", "K3·A", "K3·B", "K3·id")}}
+    return cifar, shapes, result
+
+
+# -- phase 14: the one-process data-parallel sampler --------------------------------------
+
+
+def _u8(x):
+    """Images in [-1, 1] as the CLIs write them: uint8 levels."""
+    import numpy as np
+
+    return np.clip(x.clamp(-1, 1).float().cpu().numpy() * 128 + 127, 0, 255).astype(np.uint8)
+
+
+def path_dp_sampler(dev):
+    """Phase 14: ``parallel.sample_data_parallel`` on the 64px model at batch
+    8, guidance 5 (16 text rows), DDIM-25, over every card, or over cuda:0
+    twice with one card. Kernels: within the spread of two one-device calls
+    of the whole batch (``within_spread``), K1-K2·proj launched. Plain route
+    (``use_kernels(False)``): bitwise equal to one device sampling each
+    replica's rows from the noise drawn in full (the same call shapes; a
+    call over the whole batch differs by the library's batch-dependent
+    algorithms, logged). Returns (launches, result)."""
+    import gc
+
+    import torch
+
+    from ml_mdm_tpu_torch import parallel
+    from ml_mdm_tpu_torch.presets import flagship_64px
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n)] if n > 1 else [dev, dev]
+    batch = 8 if 8 % len(devices) == 0 else 2 * len(devices)
+    pipe, lm_dim, side = flagship_64px(dev, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cond = text_conditioning(dev, 2 * batch, lm_dim, gen)
+    kw = dict(num_inference_steps=25, resample_steps=True, ddim_eta=0.0, guidance_scale=5.0)
+    result = {}
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    with phase(f"one-process sampler: batch {batch} over {[str(d) for d in devices]}, "
+               "kernels, against two one-device calls"):
+        # the runner's first call copies the model and builds the copies'
+        # sampling weights; the second is timed
+        run = parallel.make_data_parallel_sampler(pipe, batch, side, devices, **kw)
+        run(cond, seeded())
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dp = run(cond, seeded())
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        counts = read_counts("the one-process sampler", SAMPLING_KERNELS)
+        check_images(dp, (batch, side, side, 3), "one-process sampler")
+        t0 = time.perf_counter()
+        one = pipe.sample(batch, cond, side, seeded(), **kw)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        again = pipe.sample(batch, cond, side, seeded(), **kw)
+        if not within_spread(_u8(one), _u8(again), _u8(dp), "one-process sampler"):
+            raise AssertionError("one-process sampler: outside two one-device calls' spread")
+        log(f"one-process sampler: {batch / dp_s:.4f} samples/s over {len(devices)} replicas, "
+            f"{batch / one_s:.4f} on one device (host clock, one call each, after one untimed "
+            "call of the runner)")
+        result.update(dp_samples_s=batch / dp_s, one_samples_s=batch / one_s)
+        del run
+    with phase("one-process sampler, plain route: against one device, replica by replica"):
+        pipe.vision_module.use_kernels(False)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dp = parallel.sample_data_parallel(pipe, batch, cond, side, seeded(), devices, **kw)
+            noise = pipe.get_noise(batch, side, seeded())
+            per = batch // len(devices)
+            parts = []
+            for k in range(len(devices)):
+                lo, hi = k * per, (k + 1) * per
+                rows = {key: torch.cat([v[lo:hi], v[batch + lo:batch + hi]])
+                        for key, v in cond.items()}
+                parts.append(pipe.sample(per, rows, side, None, noise=noise[lo:hi], **kw))
+            split = torch.cat(parts)
+            whole = pipe.sample(batch, cond, side, seeded(), **kw)
+        finally:
+            pipe.vision_module.use_kernels(True)
+            torch.backends.cudnn.deterministic = deterministic
+        if not torch.equal(dp.to(split.device), split):
+            raise AssertionError("one-process sampler, plain route: the replicas differ from "
+                                 "one device's calls on their rows")
+        levels = _levels(_u8(dp), _u8(whole))
+        log(f"one-process sampler, plain route: bitwise equal to one device, replica by "
+            f"replica; against one call over the whole batch: largest, count, mean of the "
+            f"level differences {levels}")
+        result["plain_vs_whole"] = levels
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"K1": counts["K1"], "K2 64px": counts["K2"],
+            **{k: counts[k] for k in ("K2·N", "K2·proj")}}, result
+
+
 # ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
 # -> "registers, spills", and for each probe instance of the same kernel,
 # (its PROBE word, packed), from the build logs (``nvcc_report``)
@@ -3056,6 +3740,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         with phase("training CLI and generate_batch"):
             cli, cli_result = path_cli(dev, tower, steps_64)
+        torch.cuda.empty_cache()
+        with phase("FSDP training through the CLI (phase 12)"):
+            fsdp, fsdp_result = path_fsdp(dev, tower, cli_result.pop("history"),
+                                          cli_result["cli_peak"])
     torch.cuda.empty_cache()
     samples = os.path.abspath("chiprun_out/cli/samples")
     try:
@@ -3067,6 +3755,12 @@ def main() -> int:
     with phase("quality gate on the card"):
         gate_routes = path_gate(dev)
     gate_result, gate_train, gate_probe, tot_gate = gate_routes["a"]
+    torch.cuda.empty_cache()
+    with phase("cifar10_32x32 with dropout through the CLIs (phase 13)"):
+        cifar, tot_cifar, cifar_result = path_cifar(dev)
+    torch.cuda.empty_cache()
+    with phase("the one-process data-parallel sampler (phase 14)"):
+        dp_sampler, dp_result = path_dp_sampler(dev)
 
     # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
     # slices), K2·struct and K2·pipe over those and the train_1024 step's
@@ -3097,6 +3791,11 @@ def main() -> int:
             **{k: gate_train[k] for k in ("K3", "K3·A", "K3·B")}}
     for k, v in gate.items():
         launches[k] += v
+    # phases 12-14: FSDP training, cifar10_32x32 (its K3 launches count its
+    # identity-prologue backwards, K3·id, too), the one-process sampler
+    for part in (fsdp, {k: v for k, v in cifar.items() if k != "K3·id"}, dp_sampler):
+        for k, v in part.items():
+            launches[k] += v
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
         f"64px batch-64 request (K2 64px), the nested matmul-route requests and the "
         f"train_1024 preset's timed steps (K2·struct, K2·pipe: {counts_256['K2·struct']} + "
@@ -3108,6 +3807,9 @@ def main() -> int:
         f"K3-K3·B, the CLIs' runs ({cli}), and, for K1, K2, K2·N, K2·proj and K3-K3·B, the "
         f"quality gate's kernel route ({gate}): {launches}")
     log(f"CLIs: {cli_result}")
+    log(f"FSDP (phase 12): launches {fsdp}; {fsdp_result}")
+    log(f"cifar10_32x32 (phase 13): launches {cifar}; {cifar_result}")
+    log(f"one-process sampler (phase 14): launches {dp_sampler}; {dp_result}")
     log(f"evaluation: {evaluation}")
     for route, (result, train_counts, probe_counts, _) in gate_routes.items():
         log(f"quality gate ({route}): {result}; launches in training {train_counts}, in the "
@@ -3158,9 +3860,20 @@ def main() -> int:
             row["cli_shapes"] = shapes_row(tot_train_64[train_64[mode]], library)
         if mode in gate_rows and tot_gate[gate_rows[mode]]["shapes"]:
             row["gate_shapes"] = shapes_row(tot_gate[gate_rows[mode]], library)
+        # phase 13's cifar10_32x32 step's shapes (K2's row holds every K2 one)
+        cifar_key = {"K2 64px": None}.get(mode, mode)
+        if cifar_key in tot_cifar and tot_cifar[cifar_key]["shapes"]:
+            row["cifar_shapes"] = shapes_row(tot_cifar[cifar_key], library)
+        if mode == "K3":
+            # the identity-prologue backward (conv3x3_vjp), counted in K3's launches
+            row["identity_shapes"] = shapes_row(tot_cifar["K3·id"], library)
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[mode], "server_launches": server.get(mode, 0),
                 "cli_launches": cli.get(mode, 0), "gate_launches": gate.get(mode, 0),
+                "fsdp_launches": fsdp.get(mode, 0),
+                "cifar_launches": cifar.get(mode, 0),
+                "dp_sampler_launches": dp_sampler.get(mode, 0),
+                **({"identity_launches": cifar["K3·id"]} if mode == "K3" else {}),
                 "max_abs_err": max([t["err"]] + [r["max_abs_err"] for r in row.values()]),
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

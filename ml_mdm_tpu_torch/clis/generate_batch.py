@@ -15,8 +15,12 @@ as the unconditional ones when ``guidance_scale != 1``), writes
 ``s_N.png`` and the manifest of the samples. The last batch may be short.
 
 ``chunk_steps`` is accepted and unused: the port's ``sample_chunked`` is
-``sample``. The JAX CLI's multi-device fan-out of one process's batch is
-that batch on the process's one card.
+``sample``. As the JAX CLI fans one process's batch out over the devices
+it sees, a process that sees more than one card (a run of one process on
+a machine of several) samples each batch whose size their count divides
+through ``parallel.make_data_parallel_sampler`` (one replica of the model
+a card, the rows split over them, the same images as one card); otherwise
+a batch runs on the process's one card.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from ml_mdm_tpu_torch import generate_html, helpers, reader
+from ml_mdm_tpu_torch import generate_html, helpers, parallel, reader
 from ml_mdm_tpu_torch.config import get_arguments, get_model, get_pipeline
 from ml_mdm_tpu_torch.distributed import barrier, init_distributed_singlenode
 from ml_mdm_tpu_torch.language_models import factory
@@ -89,6 +93,14 @@ def generate_data(args, tokenizer, language_model, num_examples: int, negative_p
     return cached
 
 
+def local_devices(device: torch.device, world_size: int):
+    """The devices one process samples on: every card when a CUDA process
+    runs alone, else its own device."""
+    if device.type == "cuda" and world_size == 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def main(args, negative_prompt=None, guidance_scale=1.0, ddim_eta=None,
          num_inference_steps=None, chunk_steps=None, times=None):
     """Write the reference images, the samples, ``lst.json`` and
@@ -147,6 +159,8 @@ def main(args, negative_prompt=None, guidance_scale=1.0, ddim_eta=None,
         sample_kwargs["ddim_eta"] = ddim_eta
 
     generator = torch.Generator(device=device).manual_seed(seed)
+    devices = local_devices(device, world_size)
+    samplers = {}
     out_idx = 0
     manifest = {}
     for batch in cached:
@@ -154,8 +168,16 @@ def main(args, negative_prompt=None, guidance_scale=1.0, ddim_eta=None,
         cond = {"lm_outputs": batch["lm_outputs"].to(device),
                 "lm_mask": None if batch["lm_mask"] is None else batch["lm_mask"].to(device)}
         t0 = time.perf_counter()
-        out = pipeline.sample(b, cond, image_side, generator, guidance_scale=guidance_scale,
-                              **sample_kwargs)
+        if len(devices) > 1 and b % len(devices) == 0:
+            if b not in samplers:
+                logging.info(f"batch {b}: data parallel over {len(devices)} devices")
+                samplers[b] = parallel.make_data_parallel_sampler(
+                    pipeline, b, image_side, devices, guidance_scale=guidance_scale,
+                    **sample_kwargs)
+            out = samplers[b](cond, generator)
+        else:
+            out = pipeline.sample(b, cond, image_side, generator, guidance_scale=guidance_scale,
+                                  **sample_kwargs)
         out = out.clamp(-1, 1).float().cpu().numpy()
         if times is not None:
             times.append(time.perf_counter() - t0)

@@ -22,9 +22,11 @@ The server is the JAX package's built-in stdlib server, a
 them (``models/layers.py`` ``cached_weights``, the kernels' launch
 counters, the flash switch) are shared, so one lock serialises their use,
 and each request samples under ``torch.no_grad()`` in its own thread
-(grad mode is per thread). The JAX package's Gradio app is not ported:
-``main`` serves the built-in page, as the JAX ``main`` does where Gradio
-is missing.
+(grad mode is per thread). ``build_gradio_app`` is the JAX package's Gradio
+app (the same components and the same ``run`` generator over ``run_demo``:
+a preview a step, then the final image, the logSNR pane and the video);
+``main`` serves it where ``import gradio`` succeeds, else the built-in
+page, as the JAX ``main`` does. ``gradio`` is imported only there.
 """
 from __future__ import annotations
 
@@ -488,10 +490,99 @@ def serve_builtin(args):
     server.serve_forever()
 
 
+def build_gradio_app(args):
+    """The Gradio Blocks app (not launched) with the JAX package's surface:
+    config and checkpoint dropdowns, prompt, negative prompt, style, batch,
+    guidance, threshold, steps, eta, seed, the diffusion-path toggles, Run
+    and Stop, the output image, the path's video, the system output and
+    the logSNR pane. Returns (demo, run): the app and the generator wired
+    to Run, which yields (image, None, text, None) a preview, then (image,
+    logSNR plot, text, video path)."""
+    import gradio as gr
+
+    # load the default models now, so that the first request does not
+    get_cached_models(args.config_path, getattr(args, "model_file", None), args.device,
+                      getattr(args, "text_model", None))
+    configs, ckpts = list_demo_choices(args)
+
+    def run(config, ckpt, prompt, negative, style, batch, guidance, thresh,
+            steps, eta, seed, show_path, save_path, show_xt, output_inner):
+        with _LOCK, torch.no_grad():
+            models = get_cached_models(config, ckpt or None, args.device,
+                                       getattr(args, "text_model", None))
+            for ev in run_demo(models, prompt, negative_prompt=negative, style=style,
+                               batch_size=int(batch), guidance_scale=float(guidance),
+                               threshold_function=thresh, num_inference_steps=int(steps),
+                               ddim_eta=float(eta), seed=int(seed),
+                               save_diffusion_path=bool(save_path),
+                               show_diffusion_path=bool(show_path), show_xt=bool(show_xt),
+                               output_inner=bool(output_inner)):
+                if ev["kind"] == "preview":
+                    yield ev["image"], None, ev["text"], None
+                else:
+                    yield ev["image"], ev.get("logsnr_plot"), ev["text"], ev.get("video_path")
+
+    with gr.Blocks(title="Matryoshka Diffusion — PyTorch demo") as demo:
+        gr.Markdown("# Matryoshka Diffusion — PyTorch demo")
+        with gr.Row():
+            config_dd = gr.Dropdown(configs, value=args.config_path, label="Config",
+                                    allow_custom_value=True)
+            ckpt_dd = gr.Dropdown([""] + ckpts, value=getattr(args, "model_file", "") or "",
+                                  label="Checkpoint", allow_custom_value=True)
+        with gr.Row():
+            prompt_tb = gr.Textbox(label="Prompt")
+            negative_tb = gr.Textbox(label="Negative prompt")
+        with gr.Row():
+            style_dd = gr.Dropdown(list(STYLE_TEMPLATES), value="none", label="Style")
+            batch_sl = gr.Slider(1, 128, value=4, step=1, label="Batch")
+            guidance_sl = gr.Slider(0, 50, value=7.5, label="Guidance")
+            thresh_dd = gr.Dropdown(["CLIP", "DYNAMIC", "DYNAMIC_IF", "NONE"], value="CLIP",
+                                    label="Threshold")
+        with gr.Row():
+            steps_sl = gr.Slider(1, 1000, value=50, step=1, label="Steps")
+            eta_sl = gr.Slider(0, 1, value=0.0, step=0.05, label="DDIM eta")
+            seed_nb = gr.Number(value=137, label="Seed", precision=0)
+        with gr.Row():
+            show_path_cb = gr.Checkbox(value=False, label="Show diffusion progress")
+            save_path_cb = gr.Checkbox(value=True, label="Show diffusion path as a video")
+            show_xt_cb = gr.Checkbox(value=False, label="Show predicted x_t")
+            inner_cb = gr.Checkbox(value=False,
+                                   label="Output inner UNet (high-res models only)")
+        run_btn = gr.Button(value="Run", variant="primary")
+        stop_btn = gr.Button(value="Stop", variant="stop")
+        with gr.Row():
+            out_img = gr.Image(label="Output image")
+            out_video = gr.Video(label="Diffusion path")
+        with gr.Row():
+            out_text = gr.Textbox(label="System output")
+            snr_img = gr.Image(label="Noise schedule (logSNR)")
+        run_event = run_btn.click(
+            fn=run,
+            inputs=[config_dd, ckpt_dd, prompt_tb, negative_tb, style_dd, batch_sl, guidance_sl,
+                    thresh_dd, steps_sl, eta_sl, seed_nb, show_path_cb, save_path_cb,
+                    show_xt_cb, inner_cb],
+            outputs=[out_img, snr_img, out_text, out_video],
+        )
+        stop_btn.click(fn=None, cancels=[run_event], queue=False)
+    return demo, run
+
+
+def serve_gradio(args):
+    demo, _ = build_gradio_app(args)
+    demo.queue(default_concurrency_limit=1).launch(server_name="0.0.0.0",
+                                                   server_port=args.port)
+
+
 def main(args):
-    """Serve the built-in page (the JAX package's Gradio app is not
-    ported)."""
-    serve_builtin(args)
+    """Serve the Gradio app where ``gradio`` imports, else the built-in
+    page."""
+    try:
+        import gradio  # noqa: F401
+    except ImportError:
+        logging.info("gradio not installed; using the built-in HTTP page")
+        serve_builtin(args)
+        return
+    serve_gradio(args)
 
 
 if __name__ == "__main__":

@@ -30,8 +30,14 @@ Differences from the JAX CLI, by design:
 - the noise of step n on process r comes from a generator seeded by
   (seed, r, n), so a resumed run draws what an uninterrupted one would;
 - data parallelism is one process a card (torchrun) with the gradients
-  averaged by ``parallel.mesh.all_reduce_mean``; ``--mesh-shape`` takes the
-  data axis only;
+  averaged by ``parallel.mesh.all_reduce_mean``; ``--mesh-shape
+  data:D,fsdp:F`` shards the large parameters, their gradients, the EMA and
+  the Adam moments over F processes with FSDP2 (``parallel.mesh.
+  shard_module``; the JAX CLI builds the mesh and then replicates the whole
+  state, ``ml_mdm_tpu/clis/train_parallel.py:203-209``), with the same
+  arithmetic; a run of one process with an ``fsdp`` axis joins a process
+  group of its own, so the sharded code runs there too. The checkpoints
+  hold whole tensors either way;
 - the JAX step is asynchronous and its metrics are read one step late;
   the port's step reads its loss and norm back (the NaN skip is a host
   check), and the metrics keep the JAX CLI's one-step-delayed ``consume``.
@@ -49,7 +55,14 @@ from ml_mdm_tpu_torch import helpers, reader, trainer
 from ml_mdm_tpu_torch.config import get_arguments, get_model, get_pipeline
 from ml_mdm_tpu_torch.distributed import barrier, init_distributed_singlenode
 from ml_mdm_tpu_torch.language_models import factory
-from ml_mdm_tpu_torch.parallel import all_reduce_mean, broadcast_module, data_axis_size
+from ml_mdm_tpu_torch.parallel import (
+    all_reduce_mean,
+    broadcast_module,
+    make_mesh,
+    mesh_shape,
+    shard_module,
+)
+from ml_mdm_tpu_torch.parallel.mesh import uses_fsdp
 from ml_mdm_tpu_torch.presets import build_unet
 from ml_mdm_tpu_torch.reader import convert
 from ml_mdm_tpu_torch.trainer import RobustLossTracker, TrainerConfig, TrainState
@@ -103,6 +116,9 @@ def main(args, history=None):
                                                                       device=device)
     if device.type == "cuda" and world_size > 1:
         device = torch.device("cuda", local_rank)
+    # a spec that cannot be built raises before anything is loaded
+    spec = getattr(args, "mesh_shape", None)
+    shape = mesh_shape(spec, world_size)
 
     if world_size > 1 and not args.reader_config.pad_to_max_length:
         # the processes' batches must have one token length (the global
@@ -158,6 +174,13 @@ def main(args, history=None):
         logging.info(f"Loaded model. Batch #: {start_batch_num}")
     if world_size > 1:
         broadcast_module(vision_module)
+    layout = None
+    if uses_fsdp(spec):
+        layout = shard_module(vision_module, make_mesh(shape, device))
+        n_local = sum(layout.local(p).numel() for p in vision_module.parameters())
+        logging.info(f"FSDP over a (data, fsdp) = {shape} mesh: {len(layout.dims)} of "
+                     f"{len(list(vision_module.parameters()))} parameters sharded, "
+                     f"{n_local} of {n_params} elements on this process")
 
     logger = None
     if global_rank == 0:
@@ -181,7 +204,7 @@ def main(args, history=None):
     if getattr(args.unet_config, "freeze_inner_unet", False):
         freeze_mask = {k: "freeze" if "inner_unet" in k.split(".") else "train"
                        for k, _ in vision_module.named_parameters()}
-    state = TrainState.create(vision_module, tcfg, freeze_mask)
+    state = TrainState.create(vision_module, tcfg, freeze_mask, layout)
     state.step = start_batch_num
 
     resume_dir = getattr(args, "resume_from_train_state", None)
@@ -192,8 +215,8 @@ def main(args, history=None):
         if getattr(args, "resume_from_ema", False):
             logging.info("--resume-from-ema: params <- ema_params")
             with torch.no_grad():
-                for k, p in state.params.items():
-                    p.copy_(state.ema_params[k])
+                for k, t in state.local_params().items():
+                    t.copy_(state.ema_params[k])
         start_batch_num = int(state.step)
         if other_items:
             tracker.load(float(other_items.get("exp_avg_loss", 0.0)),
@@ -202,9 +225,8 @@ def main(args, history=None):
         logging.info(f"Resumed the train state from {resume_dir} @ {start_batch_num}")
 
     # batch_size is per process, as in the JAX CLI and the reference's DDP
-    data_axis_size(getattr(args, "mesh_shape", None), world_size)
-    logging.info(f"data parallel over {world_size} process(es), "
-                 f"{args.batch_size * args.num_gradient_accumulations} rows each")
+    logging.info(f"{'FSDP' if layout is not None else 'data parallel'} over {world_size} "
+                 f"process(es), {args.batch_size * args.num_gradient_accumulations} rows each")
     train_step = trainer.make_train_step(pipeline, tcfg,
                                          all_reduce_mean if world_size > 1 else None)
 
@@ -296,14 +318,17 @@ def main(args, history=None):
                     "exp_avg_loss_var": tracker.exp_avg_loss_var,
                 }
                 out = args.output_dir or "."
+                # whole tensors (gathered under FSDP, where every process takes part)
+                own = ckpt.module_state_dict(vision_module, layout)
+                ema = ckpt.ema_state_dict(state)
                 if global_rank == 0:
                     logging.info(f"Saving model. Batch = {batch_num}")
-                    own = vision_module.state_dict()
                     ckpt.save_vision_model(os.path.join(out, f"vis_model_{batch_num:06d}.pth"),
-                                           {**own, **state.ema_params}, other_items=other)
+                                           {**own, **ema}, other_items=other)
                     ckpt.save_vision_model(
                         os.path.join(out, f"vis_model_noema_{batch_num:06d}.pth"),
                         own, other_items=other)
+                del own, ema
                 ckpt.save_train_state(os.path.join(out, f"train_state_{batch_num:06d}"),
                                       state, other_items=other, write_meta=global_rank == 0)
                 barrier("save")
@@ -316,6 +341,10 @@ def main(args, history=None):
     finally:
         train_loader.close()
     logging.info(f"reader decodes: {train_loader.decodes}")
+    if device.type == "cuda":
+        local = sum(t.numel() * t.element_size() for t in state.local_params().values())
+        logging.info(f"process {global_rank}: parameters {local} bytes on this process, peak "
+                     f"device memory {torch.cuda.max_memory_allocated(device)} bytes")
     return state
 
 

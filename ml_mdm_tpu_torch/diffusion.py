@@ -8,8 +8,8 @@ Counterpart of ``ml_mdm_tpu/diffusion.py`` ``Model``, ``Diffusion``,
 and, on the single-resolution pipeline, ``partial_diffusion`` (img2img). A
 pipeline owns its U-Net module, so there is no separate params argument;
 ``vision_module.train()`` selects the training route of its ResNets. A loss
-takes its timesteps and noise from the caller or draws them from an
-explicit ``torch.Generator``.
+takes its timesteps, noise and dropout masks from the caller or draws them
+from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from ml_mdm_tpu_torch.config import (
     register_pipeline,
     register_pipeline_config,
 )
+from ml_mdm_tpu_torch.models.layers import DropoutMasks, dropout_resnets, set_dropout_masks
 from ml_mdm_tpu_torch.samplers import NestedSampler, Sampler
 from ml_mdm_tpu_torch.utils.resize import resize_nhwc
 
@@ -122,19 +123,35 @@ class Diffusion:
         x0, _ = self.sampler.get_x0_eps_from_pred(x_t, pred, g, sc.prediction_type)
         return self.sampler.get_pred_from_x0_xt(x_t, x0, g, sc.loss_target_type)
 
+    def _set_dropout(self, generator, dropout):
+        """The dropout masks of this loss's forward: ``dropout`` (a callable
+        (resnet, shape, device) -> keep mask) or, for a module in training
+        mode with dropout ResNets, ``DropoutMasks`` drawn from ``generator``
+        (after the noise)."""
+        module = self.vision_module
+        if dropout is None and module.training and dropout_resnets(module):
+            if generator is None:
+                raise ValueError("the model has dropout: get_loss draws its masks from the "
+                                 "step's generator (or takes them as `dropout`)")
+            dropout = DropoutMasks(module, generator)
+        set_dropout_masks(module, dropout)
+
     def get_loss(self, sample: Dict[str, Any], generator: Optional[torch.Generator] = None,
-                 *, time: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):
+                 *, time: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None,
+                 dropout=None):
         """Per-image training loss of ``sample`` (``images`` (B, H, W, C) in
         [-1, 1], ``lm_outputs``, ``lm_mask``, micro-conditions). The
         timesteps ``time`` (B,) and the noise ``eps`` are given or drawn
-        from ``generator``. Returns (losses (B,) f32, time, x_t, model
-        output, target, VDM weights or None)."""
+        from ``generator``; so are the dropout masks of a training module
+        with dropout (``dropout``: see ``_set_dropout``). Returns (losses
+        (B,) f32, time, x_t, model output, target, VDM weights or None)."""
         images = sample["images"]
         eps, g, g_last, weights, time = self.sampler.get_eps_time(images, generator, time, eps)
         if not self.config.use_vdm_loss_weights:
             weights = None
         x_t = self.sampler.get_xt(self.sampler.get_image_rescaled(images), eps, g)
-        means = self.model(x_t, time, sample["lm_outputs"], sample["lm_mask"],
+        self._set_dropout(generator, dropout)
+        means = self.model(x_t, time, sample["lm_outputs"], sample.get("lm_mask"),
                            self.get_micro_conditioning(sample))
         tgt = self.sampler.get_prediction_targets(
             images, eps, g, g_last, self.config.sampler_config.loss_target_type)
@@ -276,7 +293,7 @@ class NestedDiffusion(Diffusion):
 
     def get_loss(self, sample: Dict[str, Any], generator: Optional[torch.Generator] = None,
                  *, time: Optional[torch.Tensor] = None,
-                 eps: Optional[Sequence[torch.Tensor]] = None):
+                 eps: Optional[Sequence[torch.Tensor]] = None, dropout=None):
         """Nested training loss: the images at every resolution
         (``image_pyramid``), each noised at its shifted gamma with its own
         normals, the loss of the highest resolution (of every one with ``use_double_loss``,
@@ -302,7 +319,8 @@ class NestedDiffusion(Diffusion):
                 torch.randn(x.shape, generator=generator, device=x.device, dtype=eps0.dtype)
                 if eps is None else eps[i].to(x.device, eps0.dtype))
         x_t = self.sampler.get_xt(images_list, eps_list, g_list, scales)
-        p_t = self.model(x_t, time, sample["lm_outputs"], sample["lm_mask"],
+        self._set_dropout(generator, dropout)
+        p_t = self.model(x_t, time, sample["lm_outputs"], sample.get("lm_mask"),
                          self.get_micro_conditioning(sample), mixed_ratio=self.mixed_ratio)
         tgt = self.sampler.get_prediction_targets(
             images_list, eps_list, g_list, g_last_list, scales,

@@ -229,17 +229,31 @@ def packed_struct_kernel(w: torch.Tensor) -> torch.Tensor:
     return fused_resnet.struct_weights(s2d.pack_conv3x3_kernel(w))
 
 
+# bumped by ``invalidate_cached_weights``: part of every ``cached_weights`` key
+_WEIGHTS_EPOCH = [0]
+
+
+def invalidate_cached_weights() -> None:
+    """Rebuild every ``cached_weights`` entry at its next use. The FSDP
+    train step calls it after each update: FSDP gathers a sharded parameter
+    into the same storage every time and keeps its version counter, so
+    storage and version alone would not see the update."""
+    _WEIGHTS_EPOCH[0] += 1
+
+
 def cached_weights(owner: nn.Module, name, modules, build):
     """``build()``, a function of the parameters of ``modules`` only (packed
     kernels, repeated vectors). With gradients off it is built once and kept
     on ``owner`` while those parameters keep their storage and version
-    counter (an optimizer step, ``load_state_dict`` or a move rebuilds it):
-    the port's counterpart of the JAX package's ``wcache``, so that each
-    denoising step does not transform the weights again. With gradients on
-    it is built afresh, for autograd to reach the parameters."""
+    counter (an optimizer step, ``load_state_dict`` or a move rebuilds it)
+    and no ``invalidate_cached_weights`` came between: the port's
+    counterpart of the JAX package's ``wcache``, so that each denoising step
+    does not transform the weights again. With gradients on it is built
+    afresh, for autograd to reach the parameters."""
     if torch.is_grad_enabled():
         return build()
-    key = tuple((p.device, p.data_ptr(), p._version) for m in modules for p in m.parameters())
+    key = (_WEIGHTS_EPOCH[0],) + tuple((p.device, p.data_ptr(), p._version)
+                                       for m in modules for p in m.parameters())
     cache = owner.__dict__.setdefault("_weights_cache", {})
     hit = cache.get(name)
     if hit is None or hit[0] != key:
@@ -266,8 +280,12 @@ class ResNet(nn.Module):
     built, conv1 runs through K3 with its output's sums, norm2 comes from
     those sums with FiLM folded in, the 1x1 shortcut is a separate dense
     ``conv3``, and conv2 runs through K3 with the shortcut (or x) as the
-    residual. Dropout is not ported: a training ResNet with dropout > 0
-    raises.
+    residual. With ``config.dropout`` > 0 (the JAX package's plain route,
+    ``layers.py:719-726``), conv2's input is silu(h a2 + b2) with Flax's
+    dropout applied (``dropout_masks``, which ``Diffusion.get_loss`` sets),
+    so conv2 takes no fused prologue: it runs through K2's identity
+    prologue with K3's backward without the chain
+    (``fused_resnet.conv3x3_vjp``), the residual added in the kernel.
 
     ``packed``: x (each operand) is space-to-depth packed, and so is the
     output. The same structure runs on the packed tensors: the GroupNorm
@@ -278,6 +296,8 @@ class ResNet(nn.Module):
     the block-diagonal packed 1x1 kernel."""
 
     compute_dtype: Optional[torch.dtype] = None
+    # (resnet, shape, device) -> the keep mask of this forward's dropout
+    dropout_masks = None
 
     def __init__(self, config: ResNetConfig, temporal_dim: int):
         super().__init__()
@@ -316,8 +336,6 @@ class ResNet(nn.Module):
         return (s2d.pack_conv1x1_kernel(k) if packed else k)[0, 0]
 
     def _forward_train(self, x, temb, packed: bool):
-        if self.config.dropout > 0:
-            raise NotImplementedError("a training ResNet with dropout > 0 is not ported yet")
         conv = (fused_resnet.affine_silu_conv3x3_vjp if self.kernels
                 else fused_resnet.affine_silu_conv3x3_plain)
         vec = s2d.pack_channel_vector if packed else _identity
@@ -336,8 +354,23 @@ class ResNet(nn.Module):
                            vec(self.conv3.bias).to(dt))
         else:
             res = x
-        return conv(h, a2, b2, kernel(self.conv2.weight.permute(2, 3, 1, 0)),
-                    vec(self.conv2.bias), res, packed_struct=packed)
+        w2, bias2 = kernel(self.conv2.weight.permute(2, 3, 1, 0)), vec(self.conv2.bias)
+        rate = self.config.dropout
+        if rate > 0:
+            if self.dropout_masks is None:
+                raise RuntimeError("a training ResNet with dropout needs its masks "
+                                   "(set_dropout_masks; Diffusion.get_loss sets them)")
+            # Flax's nn.Dropout after the SiLU, computed in f32 and rounded
+            # once: kept values divided by the keep probability
+            keep = self.dropout_masks(self, h.shape, h.device)
+            v = F.silu(h.float() * a2[:, None, None, :] + b2[:, None, None, :])
+            s = torch.where(keep, v / (1.0 - rate), 0.0).to(h.dtype)
+            if self.kernels:
+                return fused_resnet.conv3x3_vjp(s, w2, bias2, res, packed_struct=packed)
+            return fused_resnet.affine_silu_conv3x3_plain(s, None, None, w2, bias2, res,
+                                                          apply_silu=False,
+                                                          packed_struct=packed)
+        return conv(h, a2, b2, w2, bias2, res, packed_struct=packed)
 
     def _sampling_weights(self, cuts, packed: bool):
         """The sampling forward's weights: norm1's and norm2's scale and bias,
@@ -404,6 +437,44 @@ class ResNet(nn.Module):
         a2, b2 = self._norm2_film(h, hs1, hs2, temb, *wts["norm2"],
                                   s2d.pack_channel_vector if packed else _identity)
         return self._conv(h, a2, b2, wts["w2"], wts["b2"], res, packed_struct=packed)
+
+
+class DropoutMasks:
+    """The keep masks of the dropout ResNets of one training forward, drawn
+    as Flax's ``nn.Dropout`` draws them: each element kept with probability
+    1 - rate over the activation's full shape. ``generator`` (the step's)
+    gives one seed; ResNet i's mask comes from a generator seeded by it
+    plus i, its index among ``module``'s ResNets, so a stage recomputed in
+    the backward (remat) draws the same mask again, and no draw touches the
+    global RNG. ``kept`` holds each ResNet's (kept count, elements) of its
+    last mask, as tensors (read them after the step)."""
+
+    def __init__(self, module: nn.Module, generator: torch.Generator):
+        self.base = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                      device=generator.device))
+        self.index = {m: i for i, m in enumerate(m for m in module.modules()
+                                                 if isinstance(m, ResNet))}
+        self.kept = {}
+
+    def __call__(self, resnet: "ResNet", shape, device) -> torch.Tensor:
+        i = self.index[resnet]
+        g = torch.Generator(device=device).manual_seed(self.base + i)
+        keep = torch.rand(shape, generator=g, device=device) < 1.0 - resnet.config.dropout
+        self.kept[i] = (keep.sum(), keep.numel())
+        return keep
+
+
+def dropout_resnets(module: nn.Module) -> List["ResNet"]:
+    """The ResNets of ``module`` with dropout > 0."""
+    return [m for m in module.modules() if isinstance(m, ResNet) and m.config.dropout > 0]
+
+
+def set_dropout_masks(module: nn.Module, masks) -> None:
+    """Give every dropout ResNet of ``module`` ``masks``: a callable
+    (resnet, shape, device) -> bool keep mask (``DropoutMasks``, or the
+    caller's own, as a parity test feeds JAX's masks), or None."""
+    for m in dropout_resnets(module):
+        m.dropout_masks = masks
 
 
 class SelfAttention(nn.Module):

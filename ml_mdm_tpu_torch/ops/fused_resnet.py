@@ -65,6 +65,10 @@ named profiler ranges ("K3 backward", "K3 pass A (fold)", "K3 dx (K2)",
 "K3 pass B (chain)", "K3 dw (library)"), so a trace can split the
 backward's device time; a range costs a few microseconds of host time with
 the profiler off.
+
+``conv3x3_vjp`` is the differentiable identity-prologue convolution (a
+dropout ResNet's conv2, whose input is no affine-SiLU of a stored tensor):
+K2's identity prologue forward, and K3's backward without its passes.
 """
 from __future__ import annotations
 
@@ -83,9 +87,11 @@ from ml_mdm_tpu_torch.perf import perf
 # launches of the CUDA kernels since the counts were last set to 0: "K2"
 # counts every launch, "K2·N" those with more than one operand, "K2·proj"
 # those that also emit the shortcut, "K2·struct" the packed ones, "K2·pipe"
-# the pipelined (packed) ones and "K3" those of K3's backward (the data
-# gradient)
-launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0, "K2·struct": 0, "K2·pipe": 0, "K3": 0}
+# the pipelined (packed) ones, "K3" those of K3's backward (the data
+# gradient) and "K3·id" those of them in ``conv3x3_vjp``'s backward (K3
+# without the chain)
+launch_counts = {"K2": 0, "K2·N": 0, "K2·proj": 0, "K2·struct": 0, "K2·pipe": 0, "K3": 0,
+                 "K3·id": 0}
 MAX_OPERANDS = 4
 
 # the wgmma kernel: chunks of 64 channels (one 128-byte row of the 128-byte
@@ -530,6 +536,68 @@ def affine_silu_conv3x3_vjp(x, a, b, w, bias, residual=None, *,
     return _AffineSiluConv3x3.apply(x, a, b, w, bias, residual, emit_stats, packed_struct)
 
 
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, packed_struct):
+        y = conv3x3_fast(x, w, bias, residual, packed_struct=packed_struct)
+        ctx.packed_struct = packed_struct
+        ctx.has_bias, ctx.has_res = bias is not None, residual is not None
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        with record_function("K3 backward (identity prologue)"):
+            x, w = ctx.saved_tensors
+            cout = w.shape[-1]
+            # K3's backward without its chain: dx is the 3x3 conv of dy with
+            # the flipped, io-transposed weights through K2's identity
+            # prologue (the plain version for a CPU tensor)
+            with record_function("K3 dx (K2)"):
+                dx = conv3x3_fast(dy, w.flip(0, 1).transpose(2, 3), None,
+                                  packed_struct=ctx.packed_struct)
+                if dy.is_cuda:
+                    launch_counts["K3"] += 1
+                    launch_counts["K3·id"] += 1
+            with record_function("K3 dw (library)"):
+                dy_x = dy.to(x.dtype)
+                if ctx.packed_struct:
+                    dw = struct_wgrad(x, dy_x).to(w.dtype)
+                else:
+                    dw = torch.nn.grad.conv2d_weight(
+                        x.permute(0, 3, 1, 2), (cout, x.shape[-1], 3, 3),
+                        dy_x.permute(0, 3, 1, 2), padding=1,
+                    ).permute(2, 3, 1, 0).to(w.dtype)
+            dbias = dy.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
+            return dx, dw, dbias, dy if ctx.has_res else None, None
+
+
+def conv3x3_vjp(x, w, bias, residual=None, *, packed_struct: bool = False):
+    """Differentiable ``conv3x3_fast`` (K2's identity prologue): y = x ⊛ w +
+    bias (+ residual), for a convolution whose input is no affine-SiLU of a
+    stored tensor (the dropout ResNet's conv2, whose mask sits between the
+    SiLU and the products). Its backward is K3's without the chain: dx
+    through K2's identity prologue on the flipped, io-transposed weights, dw
+    from the library (``struct_wgrad`` when packed), dbias the sums of dy,
+    and dy itself for the residual; its launches count as K3's (and apart
+    as "K3·id"). On a CPU
+    tensor both directions run the plain version; on CUDA they launch K2 or
+    raise (bf16 only). With ``packed_struct`` w is the (3, 3, 4C, 4Cout)
+    packed kernel (``pack_conv3x3_kernel``)."""
+    if packed_struct and w.shape[0] != 3:
+        raise ValueError("conv3x3_vjp: the packed mode takes the (3, 3, ...) packed kernel, "
+                         "whose flip gives the data gradient's")
+    return _Conv3x3.apply(x, w, bias, residual, packed_struct)
+
+
+def _is_shard(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t contiguous, at a 16-byte aligned address (the kernels load 8 bf16
     at a time)."""
@@ -551,6 +619,10 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
     x0 = xs[0]
     if not x0.is_cuda:
         raise RuntimeError(f"affine_silu_conv3x3: no kernel for device {x0.device}")
+    if any(_is_shard(t) for t in tuple(xs) + tuple(ws)):
+        # the kernel reads raw device pointers: a DTensor's is its local
+        # shard's (FSDP gathers the whole parameter before a stage runs)
+        raise TypeError("affine_silu_conv3x3: a DTensor shard; the kernel takes whole tensors")
     n = len(xs)
     if (a is None) != (b is None):
         raise ValueError("affine_silu_conv3x3: a and b are given together or not at all")

@@ -38,6 +38,16 @@ Semantics kept from the JAX package:
   embeddings, the loss). At 0 every stage is recomputed, as the JAX
   dots-only policy recomputes every convolution.
 
+Under FSDP (``TrainState.layout``, ``parallel.mesh.shard_module``) the
+sharded parameters are ``DTensor``s whose gradients FSDP reduce-scatters
+(averaged over every process); the step takes their local shards, averages
+the whole (replicated) gradients and the loss with ``all_reduce``, takes
+the global norm (``FsdpLayout.grad_norm``: every process clips by the same
+scalar and skips alike), and steps Adam and the EMA on the shards, which
+the optimizer and the EMA hold; ``adam_count`` and the schedule are as
+before. After an update it drops the cached sampling weights
+(``models.layers.invalidate_cached_weights``).
+
 The parameters are the module's own (f32 for training; the module's
 compute dtype, bf16 in the training presets, is what the convs and dense
 layers run in). The batch's floating tensors are cast to the compute
@@ -64,6 +74,7 @@ import torch
 from torch.profiler import record_function
 
 from ml_mdm_tpu_torch.lr_scaler import LRScaler
+from ml_mdm_tpu_torch.models.layers import invalidate_cached_weights
 from ml_mdm_tpu_torch.models.model_ema import EmaConfig, ema_update
 
 
@@ -85,17 +96,33 @@ class TrainerConfig:
 
 @dataclass
 class TrainState:
+    """The module's parameters by name, their EMA, the optimizer and the
+    step. Under FSDP (``layout``, ``parallel.mesh.FsdpLayout``) a sharded
+    parameter is a ``DTensor`` and its EMA, its Adam moments and the
+    optimizer's own parameter are this process's shard (``local_params``)."""
+
     step: int
     params: Dict[str, torch.nn.Parameter]
     ema_params: Dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
+    layout: Any = None
 
     @classmethod
     def create(cls, module: torch.nn.Module, config: Optional[TrainerConfig] = None,
-               freeze_mask: Optional[Dict[str, str]] = None) -> "TrainState":
+               freeze_mask: Optional[Dict[str, str]] = None, layout=None) -> "TrainState":
         params = dict(module.named_parameters())
-        ema = {k: p.detach().clone() for k, p in params.items()}
-        return cls(0, params, ema, make_optimizer(params, config, freeze_mask))
+        local = _local_params(params, layout)
+        ema = {k: p.detach().clone() for k, p in local.items()}
+        return cls(0, params, ema, make_optimizer(local, config, freeze_mask), layout)
+
+    def local_params(self) -> Dict[str, torch.Tensor]:
+        """Each parameter's local part, which the optimizer updates: its
+        shard under FSDP, else the parameter itself."""
+        return _local_params(self.params, self.layout)
+
+
+def _local_params(params: Dict[str, torch.Tensor], layout) -> Dict[str, torch.Tensor]:
+    return params if layout is None else {k: layout.local(p) for k, p in params.items()}
 
 
 class BF16MomentAdam(torch.optim.Optimizer):
@@ -256,7 +283,10 @@ def make_train_step(pipeline, config: TrainerConfig,
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Dict[str, Any]] = None):
+        names = list(state.params)
         params: List[torch.Tensor] = list(state.params.values())
+        layout = state.layout
+        local = list(state.local_params().values())
         for p in params:
             p.grad = None
         loss = 0.0
@@ -272,14 +302,24 @@ def make_train_step(pipeline, config: TrainerConfig,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
+        # under FSDP the sharded gradients arrive reduce-scattered (averaged
+        # over every process): the step works on their local shards, and
+        # hands the optimizer each shard as the gradient of its parameter's
+        grads = [p.grad for p in params] if layout is None else [layout.local(p.grad)
+                                                                 for p in params]
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
         if all_reduce is not None:
             loss = loss.float().reshape(1)
-            all_reduce([loss] + grads)
+            all_reduce([loss] + [g for n, g in zip(names, grads)
+                                 if layout is None or n not in layout.dims])
             loss = loss[0]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if layout is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        else:
+            # the global norm (the shards' squares summed over fsdp), so that
+            # every process clips by one scalar and skips alike
+            norm = layout.grad_norm(names, grads)
         loss_v, norm_v = torch.stack([loss.float(), norm.float()]).tolist()
         ok = math.isfinite(loss_v) and math.isfinite(norm_v)
         metrics = {"loss": loss_v, "grad_norm": norm_v, "skipped": int(not ok)}
@@ -287,14 +327,21 @@ def make_train_step(pipeline, config: TrainerConfig,
             clip = config.gradient_clip_norm
             if clip and clip > 0:
                 torch._foreach_mul_(grads, clip / max(norm_v, clip))
+            if layout is not None:
+                for t, g in zip(local, grads):
+                    t.grad = g
             with record_function("trainer: Adam"):
                 for group in state.optimizer.param_groups:
                     group["lr"] = schedule(adam_count(state.optimizer))
                 state.optimizer.step()
             with record_function("trainer: EMA"):
-                ema_update(state.ema_params.values(), params, state.step, ema_cfg)
+                ema_update(state.ema_params.values(), local, state.step, ema_cfg)
             state.step += 1
-        for p in params:
+            if layout is not None:
+                # the gathered parameters reuse their storage and keep their
+                # version counters: drop the sampling weights built from them
+                invalidate_cached_weights()
+        for p in params + local:
             p.grad = None
         return state, metrics
 

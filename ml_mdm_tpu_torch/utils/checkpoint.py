@@ -16,7 +16,11 @@ Counterpart of ``ml_mdm_tpu/utils/checkpoint.py``:
   the EMA, the optimizer's state (both Adam moments and its count) and the
   other items (the ``RobustLossTracker`` stats), and beside it the same
   ``train_meta.json`` as the JAX package. It restores all of them bit for
-  bit.
+  bit. The file holds whole tensors in one format: an FSDP run gathers its
+  shards to write it and takes its shards when it reads one
+  (``module_state_dict`` and ``ema_state_dict`` gather the ``.pth`` files'
+  tensors likewise), so a data-parallel and an FSDP run resume from each
+  other's saves.
 - ``apply_inner_warm_start`` loads the ``.pth`` files that
   ``initialize_inner_with_pretrained`` names into the inner U-Nets,
   fetching an ``s3://`` path first as the JAX package does; an Orbax
@@ -182,20 +186,70 @@ def _jsonable(d: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def optimizer_names(state) -> list:
+    """The parameter name of each of the optimizer's parameters, in the
+    order of its state dict's indices."""
+    name_of = {id(t): k for k, t in state.local_params().items()}
+    return [name_of[id(p)] for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def _map_moments(sd: Dict[str, Any], names, convert) -> Dict[str, Any]:
+    """An optimizer state dict with each moment (each state tensor that is
+    not a scalar) of parameter ``names[i]`` passed through ``convert(name,
+    tensor)``: a new dict, the tensors of ``sd`` untouched."""
+    return {"param_groups": sd["param_groups"],
+            "state": {i: {key: convert(names[i], v) if torch.is_tensor(v) and v.dim() > 0 else v
+                          for key, v in st.items()} for i, st in sd["state"].items()}}
+
+
+def module_state_dict(module: torch.nn.Module, layout=None) -> Dict[str, torch.Tensor]:
+    """``module.state_dict()`` with every tensor whole: under FSDP
+    (``layout``) each sharded parameter gathered (a collective: every
+    process calls it)."""
+    sd = module.state_dict()
+    return sd if layout is None else {k: layout.full(v) for k, v in sd.items()}
+
+
+def ema_state_dict(state) -> Dict[str, torch.Tensor]:
+    """The EMA copy by name, whole (under FSDP gathered: a collective)."""
+    layout = state.layout
+    if layout is None:
+        return dict(state.ema_params)
+    return {k: layout.full_local(k, v) for k, v in state.ema_params.items()}
+
+
 def save_train_state(path: str, state, other_items: Optional[Dict[str, Any]] = None,
                      write_meta: bool = True) -> None:
     """Write ``state`` (``trainer.TrainState``) to the directory ``path``:
-    ``state.pt`` and, with ``other_items``, ``train_meta.json``. In a
-    data-parallel run every process holds the same state, and only the one
-    with ``write_meta`` (rank 0) writes."""
+    ``state.pt`` and, with ``other_items``, ``train_meta.json``. Only the
+    process with ``write_meta`` (rank 0) writes. In a data-parallel run
+    every process holds the same state; under FSDP (``state.layout``) every
+    process must call: the shards of the parameters, the EMA and the Adam
+    moments are gathered, so the file holds whole tensors in the
+    data-parallel format and either layout resumes from it."""
+    layout = state.layout
+    if not write_meta and layout is None:
+        return
+
+    def host(t):
+        return t.detach().cpu() if write_meta else None
+
+    if layout is None:
+        params = {k: host(p) for k, p in state.params.items()}
+        optimizer = state.optimizer.state_dict()
+    else:
+        params = {k: host(layout.full(p)) for k, p in state.params.items()}
+        optimizer = _map_moments(state.optimizer.state_dict(), optimizer_names(state),
+                                 lambda k, v: host(layout.full_local(k, v)))
+    ema = {k: host(v) for k, v in ema_state_dict(state).items()}
     if not write_meta:
         return
     os.makedirs(path, exist_ok=True)
     payload = {
         "step": int(state.step),
-        "params": {k: p.detach().cpu() for k, p in state.params.items()},
-        "ema_params": {k: v.detach().cpu() for k, v in state.ema_params.items()},
-        "optimizer": state.optimizer.state_dict(),
+        "params": params,
+        "ema_params": ema,
+        "optimizer": optimizer,
         "other_items": _jsonable(other_items or {}),
     }
     tmp = os.path.join(path, f"state.pt.{os.getpid()}.tmp")
@@ -210,8 +264,9 @@ def save_train_state(path: str, state, other_items: Optional[Dict[str, Any]] = N
 def load_train_state(path: str, state):
     """Restore ``state`` (built over the same module and optimizer) from
     the directory ``path`` in place: parameters (``copy_``), EMA, the
-    optimizer's state and the step, bit for bit. Returns (state, the other
-    items of ``train_meta.json``)."""
+    optimizer's state and the step, bit for bit. Under FSDP
+    (``state.layout``) each process takes its shard of every whole tensor.
+    Returns (state, the other items of ``train_meta.json``)."""
     if not os.path.exists(os.path.join(path, "state.pt")):
         raise FileNotFoundError(f"{path!r} holds no state.pt (an Orbax train state of the JAX "
                                 "package is not read by the port)")
@@ -220,10 +275,18 @@ def load_train_state(path: str, state):
     if missing:
         raise ValueError(f"{path}: the train state's parameters differ from the model's: "
                          f"{sorted(missing)[:8]}")
-    for k, p in state.params.items():
-        p.copy_(payload["params"][k])
-        state.ema_params[k].copy_(payload["ema_params"][k])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    layout = state.layout
+
+    def shard(k, v):
+        return v if layout is None else layout.shard_of(k, v)
+
+    for k, t in state.local_params().items():
+        t.copy_(shard(k, payload["params"][k]))
+        state.ema_params[k].copy_(shard(k, payload["ema_params"][k]))
+    optimizer = payload["optimizer"]
+    if layout is not None:
+        optimizer = _map_moments(optimizer, optimizer_names(state), shard)
+    state.optimizer.load_state_dict(optimizer)
     state.step = int(payload["step"])
     other = dict(payload.get("other_items", {}))
     meta = os.path.join(path, "train_meta.json")

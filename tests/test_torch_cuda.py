@@ -1032,3 +1032,90 @@ def test_train_state_round_trip_on_the_card(dev, tmp_path, mu_dtype, adamw):
             assert mine[name].dtype == theirs[name].dtype, (k, name)
             assert torch.equal(mine[name].cpu(), theirs[name].cpu()), (k, name)
         assert mine["exp_avg"].dtype == getattr(torch, mu_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,c,packed", [(32, 128, False), (16, 256, False), (8, 256, False),
+                                           (16, 32, True)])
+def test_identity_prologue_backward_matches_plain(dev, side, c, packed):
+    """``conv3x3_vjp`` (the dropout ResNet's conv2: K2's identity prologue
+    forward, K3's backward without the chain) at the cifar10_32x32 conv2
+    shapes (batch 16; and a packed one), against autograd of its plain
+    twin (``affine_silu_conv3x3_plain`` with no affine), bf16: as K3."""
+    g = torch.Generator(device=dev).manual_seed(side + c)
+    bf = torch.bfloat16
+    s = 2 if packed else 1
+    x = (torch.randn((16, side // s, side // s, c * s * s), generator=g, device=dev)).to(bf)
+    w = torch.randn((3, 3, c, c), generator=g, device=dev) / (9 * c) ** 0.5
+    bias = torch.randn((c,), generator=g, device=dev) * 0.1
+    res = torch.randn((16, side // s, side // s, c * s * s), generator=g, device=dev).to(bf)
+    cot = torch.randn(res.shape, generator=g, device=dev).to(bf)
+    kern = s2d.pack_conv3x3_kernel if packed else (lambda v: v)
+    vec = s2d.pack_channel_vector if packed else (lambda v: v)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (x, w, bias, res)]
+        y = fn(ins[0], kern(ins[1]), vec(ins[2]), ins[3])
+        (y.float() * cot.float()).sum().backward()
+        return [y] + [t.grad for t in ins]
+
+    before = dict(fused_resnet.launch_counts)
+    got = grads(lambda *a: fused_resnet.conv3x3_vjp(*a, packed_struct=packed))
+    torch.cuda.synchronize()
+    assert fused_resnet.launch_counts["K2"] == before["K2"] + 2  # forward and data gradient
+    assert fused_resnet.launch_counts["K3"] == before["K3"] + 1
+    ref = grads(lambda xx, ww, bb, rr: fused_resnet.affine_silu_conv3x3_plain(
+        xx, None, None, ww, bb, rr, apply_silu=False, packed_struct=packed))
+    for name, o, r in zip(["y", "dx", "dw", "dbias", "dres"], got, ref):
+        assert o.shape == r.shape, name
+        assert _rel(o, r) <= 2e-2, name
+
+
+@pytest.mark.cuda
+def test_fsdp_step_of_one_process_matches_the_data_parallel_step(dev):
+    """One train step of the scaled flagship (bf16 compute, the kernels)
+    sharded by FSDP over a one-process NCCL mesh (``fsdp:1``; every
+    parameter of at least 2**10 elements a DTensor), against the
+    data-parallel step of the same weights, batch and noise: loss within
+    1e-2 relative, gradient norm within 5e-2 (K2's f32-atomic statistics
+    differ from call to call), the parameters after the update as close;
+    K2 and K3 launched under the sharded step."""
+    import torch.distributed as dist
+
+    from ml_mdm_tpu_torch import parallel, trainer
+
+    cfg = trainer.TrainerConfig(lr=1e-4, warmup_steps=2)
+    g = torch.Generator(device=dev).manual_seed(4)
+    results = []
+    try:
+        for sharded in (False, True):
+            pipe, lm_dim, side = flagship_64px(dev, seed=2, scaled=True, train=True)
+            layout = None
+            if sharded:
+                layout = parallel.shard_module(
+                    pipe.vision_module, parallel.make_mesh((1, 1), dev), min_size=2**10)
+                assert len(layout.dims) >= 60
+            state = trainer.TrainState.create(pipe.vision_module, cfg, layout=layout)
+            step = trainer.make_train_step(pipe, cfg)
+            g.manual_seed(4)
+            batch = {"images": torch.rand((4, side, side, 3), generator=g, device=dev) * 2 - 1,
+                     "lm_outputs": torch.randn((4, 8, lm_dim), generator=g, device=dev),
+                     "lm_mask": torch.ones((4, 8), device=dev)}
+            noise = {"time": torch.tensor([5, 300, 600, 900], device=dev),
+                     "eps": torch.randn((4, side, side, 3), generator=g, device=dev)}
+            before = dict(fused_resnet.launch_counts)
+            state, m = step(state, batch, noise=noise)
+            torch.cuda.synchronize()
+            assert m["skipped"] == 0
+            for mode in ("K2", "K3"):
+                assert fused_resnet.launch_counts[mode] > before[mode], mode
+            params = torch.cat([(layout.full(p) if layout else p.detach()).flatten()
+                                for k, p in state.params.items()])
+            results.append((m, params))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (md, pd), (mf, pf) = results
+    assert abs(mf["loss"] - md["loss"]) <= 1e-2 * abs(md["loss"])
+    assert abs(mf["grad_norm"] - md["grad_norm"]) <= 5e-2 * md["grad_norm"]
+    assert _rel(pf, pd) <= 1e-2

@@ -517,17 +517,21 @@ def test_freeze_inner_unet_through_the_cli(trained, tmp_path):
 
 
 def test_mesh_shape_takes_the_data_axis_only(tmp_path):
-    from ml_mdm_tpu_torch.parallel import data_axis_size
+    """A spec of the data axis alone keeps the data-parallel step; an axis
+    the port's mesh does not have (``model``) raises, here and in the CLI
+    (the ``fsdp`` axis is tests/test_torch_fsdp.py's)."""
+    from ml_mdm_tpu_torch.parallel import mesh_shape
+    from ml_mdm_tpu_torch.parallel.mesh import uses_fsdp
 
-    assert data_axis_size(None, 1) == 1 and data_axis_size("data:1", 1) == 1
-    assert data_axis_size(None, 3) == 3 and data_axis_size("data", 2) == 2
-    assert data_axis_size("data:2", 2) == 2
+    assert mesh_shape(None, 1) == (1, 1) and mesh_shape("data:1", 1) == (1, 1)
+    assert mesh_shape(None, 3) == (3, 1) and mesh_shape("data", 2) == (2, 1)
+    assert mesh_shape("data:2", 2) == (2, 1) and not uses_fsdp("data:2")
     with pytest.raises(ValueError):
-        data_axis_size("data:2", 1)
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        data_axis_size("data:1,fsdp:2", 2)
-    with pytest.raises(NotImplementedError):
-        train_parallel.main(cli_args("--output-dir", str(tmp_path), "--mesh-shape", "fsdp:1"))
+        mesh_shape("data:2", 1)
+    with pytest.raises(ValueError, match="model"):
+        mesh_shape("data:1,model:2", 2)
+    with pytest.raises(ValueError, match="model"):
+        train_parallel.main(cli_args("--output-dir", str(tmp_path), "--mesh-shape", "model:1"))
 
 
 def test_python_m_entry_point(tmp_path):

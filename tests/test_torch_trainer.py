@@ -330,11 +330,16 @@ def test_scaled_train_preset_takes_steps_in_bf16(name):
 
 
 def test_training_resnet_with_dropout_raises():
+    """A training ResNet with dropout raises without its masks (it never
+    draws from the global RNG); given them, it runs; eval mode needs none
+    (tests/test_torch_dropout.py holds the masks and the numerics)."""
     from ml_mdm_tpu_torch.config import ResNetConfig
     from ml_mdm_tpu_torch.models.layers import ResNet
 
     block = ResNet(ResNetConfig(num_channels=8, output_channels=8, num_groups_norm=4,
                                 dropout=0.1), temporal_dim=16).train()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="masks"):
         block(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 16)))
+    block.dropout_masks = lambda resnet, shape, device: torch.ones(shape, dtype=torch.bool)
+    assert block(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 16))).shape == (1, 4, 4, 8)
     assert block.eval()(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 16))).shape == (1, 4, 4, 8)
