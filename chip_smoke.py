@@ -13,8 +13,9 @@ weights from a seed:
      bound and the library call (the shortcut's shapes also without the
      stats; K1's sums also held bitwise equal across two calls, with their
      GB/s and share of the bound); batch 4, 4 DDIM steps, kernel path against
-     plain path; one batch-64 DDIM-50 request (the bench preset); one
-     batch-8 request with classifier-free guidance 5; one profiled forward.
+     plain path; two batch-64 DDIM-50 requests from one seed (the bench
+     preset), bitwise equal; one batch-8 request with classifier-free
+     guidance 5; one profiled forward.
      Then the flash route (``use_flash(True)``: every self-attention of
      the U-Net through K4): K4 at every self-attention launch shape of that
      forward, on the chunked views the model hands it, held against its
@@ -22,12 +23,13 @@ weights from a seed:
      (``scaled_dot_product_attention``) and the bound, with its TFLOP/s,
      its launches a request and launches x (time - bound); batch 4, flash path
      against matmul path (one forward, DDIM-4); two batch-64 DDIM-50
-     requests; one profiled forward.
+     requests from one seed, bitwise equal; one profiled forward.
   2. cc12m_256x256 (``NestedDiffusion.sample``, a 256px shell around the
      64px core): every kernel launch shape of the request's forward
      (8 rows) checked and timed; batch 2 kernel path against plain path
      (one forward, DDIM-4); two requests of the web demo's defaults
-     (batch 4, guidance 7.5, DDIM-50, eta 0); one profiled forward; then,
+     (batch 4, guidance 7.5, DDIM-50, eta 0) from one seed, bitwise equal;
+     one profiled forward; then,
      with the flash route on, K4 at that forward's shapes and one more such
      request.
   3. cc12m_1024x1024 (nested2: 1024px and 256px shells around the core):
@@ -43,12 +45,14 @@ weights from a seed:
      and the bound, and its two passes (K3·A, K3·B) held against their
      plain versions and timed; one batch-4 step's loss and gradients, kernel path
      against plain path; the ``train_256`` preset of ``bench.py`` (batch
-     16, lr 5e-5, warmup 10, clip 2.0, no remat): one untimed and five
-     timed steps; one profiled step; then cc12m_64x64 (``Diffusion.
-     get_loss``) at batch 32, the batch of phase 9's CLI: every K1, K2 and
-     K3 launch shape of one step held against its plain version and timed
-     (K3 with its two passes), then one untimed and three timed steps
-     (their steps/s stand beside phase 9's CLI).
+     16, lr 5e-5, warmup 10, clip 2.0, no remat): one step twice from the
+     same weights, batch and noise (loss, gradient norm, parameters and EMA
+     bitwise equal), one untimed and five timed steps; one profiled step;
+     then cc12m_64x64 (``Diffusion.get_loss``) at batch 32, the batch of
+     phase 9's CLI: every K1, K2 and K3 launch shape of one step held
+     against its plain version and timed (K3 with its two passes), one step
+     twice from one seed (bitwise, as above), then one untimed and three
+     timed steps (their steps/s stand beside phase 9's CLI).
   5. The train_1024 preset (``presets.train_1024``: cc12m_1024x1024 with
      its thin shells packed, batch 2, selective remat): every K1, K2 and K3
      launch shape of one step held against its plain version and timed
@@ -91,12 +95,11 @@ weights from a seed:
      again; one more with seed 1, which must differ. K1, K2 and
      K2·struct must launch inside these four requests and K3 must not;
      every image decodes, has the grid's shape and no constant image. The
-     streamed image must equal the plain one bitwise where the two plain
-     calls are bitwise equal, else be as close to them as they are to each
-     other (``within_spread``), and the same query at DDIM-49, a planted
-     fault, must fail that rule; with the vision model on its plain route a
-     DDIM-10 stream must equal its plain request bit for bit
-     (``check_stream``). Then the text
+     two plain calls must be bitwise equal and the streamed image bitwise
+     equal to them; it passes ``within_spread`` too, and the same query at
+     DDIM-49, a planted fault, must fail that rule; with the vision model
+     on its plain route a DDIM-10 stream must equal its plain request bit
+     for bit (``check_stream``). Then the text
      tower's time on the request's captions (CUDA events) and the card's
      f32 tower against the same weights on the CPU.
   9. The user's training and evaluation path through the port's own CLIs,
@@ -169,9 +172,15 @@ weights from a seed:
      samples, DDIM-50; samples/s).
  14. The one-process data-parallel sampler (``path_dp_sampler``):
      ``parallel.sample_data_parallel`` on the 64px model, batch 8, guidance
-     5, DDIM-25, over every card or over cuda:0 twice: within two one-device
-     calls' spread on the kernels (``within_spread``); on the plain route
-     bitwise equal to one device sampling each replica's rows.
+     5, DDIM-25, over every card or over cuda:0 twice: on the kernels and
+     on the plain route bitwise equal to one device sampling each replica's
+     rows (the same call shapes).
+
+The seed contract (``ml_mdm_tpu_torch/helpers.py`` ``reproducible``): on
+one card the same inputs, noise and seed give the same bits. Each same-seed
+check above (``reproducible``) is logged when made and printed again as a
+"reproducible:" line before the kernels line, with a digest of the result;
+a difference fails the run.
 
 Every K2 launch runs the implicit-GEMM kernel on wgmma, at 9 taps
 unpacked and at the 4 combined taps packed (its ``conv_plan`` and the ptxas
@@ -214,6 +223,7 @@ device.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -278,6 +288,72 @@ def rel_err(got, ref) -> float:
 
 def abs_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max())
+
+
+# the same-seed checks (the seed contract, ``helpers.reproducible``), each
+# logged when made and printed again as a "reproducible:" line before the
+# kernels line
+REPRODUCIBLE = []
+
+
+def _as_tensors(x):
+    import numpy as np
+    import torch
+
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _as_tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _as_tensors(v)]
+    if isinstance(x, np.ndarray):
+        return [torch.from_numpy(np.ascontiguousarray(x))]
+    if isinstance(x, float):
+        return [torch.tensor([x], dtype=torch.float64)]
+    return [x.detach()]
+
+
+def _digest(ts) -> str:
+    """12 hex digits that change with the bits of the tensors: a sha256 of
+    each small tensor's bytes, and of an on-device checksum of each large
+    one (its bytes as int32 words, summed in int64, and weighted by their
+    position modulo 2**16 + 1)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in ts:
+        t = t.contiguous()
+        if t.numel() * t.element_size() <= 2**24:
+            h.update(t.cpu().view(torch.uint8).numpy().tobytes())
+            continue
+        words = t.view(-1).view(torch.uint8)
+        words = words[: words.numel() // 4 * 4].view(torch.int32).to(torch.int64)
+        pos = torch.arange(words.numel(), device=words.device) % 65537 + 1
+        h.update(torch.stack([words.sum(), (words * pos).sum()]).cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def reproducible(what: str, first, second) -> None:
+    """Hold two results of one path on the same inputs, noise and seed
+    (tensors, arrays, floats, or lists and dicts of them) bitwise equal,
+    and note the check for its "reproducible:" line. Fails on a
+    difference, with its share and size."""
+    import torch
+
+    a, b = _as_tensors(first), _as_tensors(second)
+    same = len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        for x, y in zip(a, b))
+    n = sum(t.numel() for t in a)
+    line = (f"{what}: {'bitwise equal' if same else 'DIFFERENT'} "
+            f"({len(a)} tensors, {n} values, digest {_digest(a)})")
+    if not same:
+        bad = [(float((x.float() - y.to(x.device).float()).abs().max()),
+                float((x != y.to(x.device)).float().mean()))
+               for x, y in zip(a, b) if x.shape == y.shape and not torch.equal(x, y.to(x.device))]
+        line += f"; {len(bad)} differ, largest |difference| and share of the first {bad[:3]}"
+    REPRODUCIBLE.append(line)
+    log(f"same-seed check: {line}")
+    if not same:
+        raise AssertionError(line)
 
 
 _FLUSH = []
@@ -829,12 +905,14 @@ def read_counts(what: str, required=SAMPLING_KERNELS):
 
 
 def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen,
-                 flash: bool = False, required=None, **kw):
+                 flash: bool = False, required=None, reseed=None, **kw):
     """n timed sampling requests between a count reset and a count read;
     returns (counts, outputs). ``required``: the kernels of the path
     (default: the flagship's). With ``flash`` they run on the flash route,
     and K4 must have launched once per self-attention module, step and
-    request."""
+    request. With ``reseed`` ``gen`` is seeded with it before each request,
+    so that every request draws the same noise: their outputs must then be
+    bitwise equal (``reproducible``)."""
     import torch
 
     torch.cuda.synchronize()
@@ -843,6 +921,8 @@ def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen,
     outs = []
     with flash_route() if flash else contextlib.nullcontext():
         for i in range(n):
+            if reseed is not None:
+                gen.manual_seed(reseed)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs.append(pipe.sample(batch, cond, side, gen, **kw))
@@ -859,6 +939,10 @@ def run_requests(pipe, dev, what: str, n: int, batch: int, side: int, cond, gen,
                                  f"{expected} (self-attentions x steps x requests)")
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"{what}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    if reseed is not None:
+        for i in range(1, n):
+            reproducible(f"{what}, request {i} against request 0 (the same seed)", outs[0],
+                         outs[i])
     return counts, outs
 
 
@@ -1021,10 +1105,11 @@ def path_64(dev):
     with phase("64px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "64px")
     bench = dict(num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
-    with phase("64px: one batch-64 DDIM-50 request, matmul route"):
+    with phase("64px: two batch-64 DDIM-50 requests from one seed, matmul route"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 3)
         cond = text_conditioning(dev, 64, lm_dim, gen)
-        counts_64, outs = run_requests(pipe, dev, "64px", 1, 64, side, cond, gen, **bench)
+        counts_64, outs = run_requests(pipe, dev, "64px batch-64 request, matmul route", 2, 64,
+                                       side, cond, gen, reseed=SEED + 5, **bench)
         check_images(outs[0], (64, side, side, 3), "64px request 0")
     with phase("64px: CFG request"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -1044,11 +1129,11 @@ def path_64(dev):
         totals = check_k4(k4_keys, dev, "64px", bench["num_inference_steps"])
     with phase("64px: flash path vs matmul path"):
         flash_vs_matmul(pipe, dev, lm_dim, side, "64px")
-    with phase("64px: two batch-64 DDIM-50 requests, flash route"):
+    with phase("64px: two batch-64 DDIM-50 requests from one seed, flash route"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 3)
         cond = text_conditioning(dev, 64, lm_dim, gen)
-        counts, outs = run_requests(pipe, dev, "64px flash", 2, 64, side, cond, gen,
-                                    flash=True, **bench)
+        counts, outs = run_requests(pipe, dev, "64px batch-64 request, flash route", 2, 64,
+                                    side, cond, gen, flash=True, reseed=SEED + 5, **bench)
         for i, out in enumerate(outs):
             check_images(out, (64, side, side, 3), f"64px flash request {i}")
     with phase("64px: profile, flash route"):
@@ -1074,11 +1159,11 @@ def path_256(dev):
         totals = check_kernels(k2_keys, k1_keys, dev, "256px")
     with phase("256px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "256px", batch=2)
-    with phase("256px: two requests, batch 4, guidance 7.5, DDIM-50"):
+    with phase("256px: two requests from one seed, batch 4, guidance 7.5, DDIM-50"):
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
         cond = text_conditioning(dev, 2 * batch, lm_dim, gen)
-        counts, outs = run_requests(pipe, dev, "256px", 2, batch, side, cond, gen,
-                                    required=required, num_inference_steps=50,
+        counts, outs = run_requests(pipe, dev, "256px request", 2, batch, side, cond, gen,
+                                    required=required, reseed=SEED + 7, num_inference_steps=50,
                                     resample_steps=True, ddim_eta=0.0, guidance_scale=guidance)
         for i, out in enumerate(outs):
             check_images(out, (batch, side, side, 3), f"256px request {i}")
@@ -1432,6 +1517,44 @@ def run_train_steps(step, state, pipe, dev, what: str, n: int, batch: int, side:
     return times
 
 
+def repeat_step(pipe, cfg, dev, what: str, batch: int, side: int, lm_dim: int):
+    """One training step twice from the same weights, batch and noise (a
+    fresh train state each time, the step's generator seeded alike): loss,
+    gradient norm, the updated parameters and the EMA bitwise equal
+    (``reproducible``). The module's parameters are set back after."""
+    import torch
+
+    from ml_mdm_tpu_torch import trainer
+
+    unet = pipe.vision_module
+    start = {k: p.detach().clone() for k, p in unet.named_parameters()}
+    results = []
+    for i in range(2):
+        with torch.no_grad():
+            for k, p in unet.named_parameters():
+                p.copy_(start[k])
+        state = trainer.TrainState.create(unet, cfg)
+        step = trainer.make_train_step(pipe, cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        data = train_batch(dev, batch, side, lm_dim, gen)
+        state, m = step(state, data, gen)
+        if m["skipped"]:
+            raise AssertionError(f"{what}: the step was skipped: {m}")
+        keep = (lambda t: t.detach().clone()) if i == 0 else (lambda t: t.detach())
+        results.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                        "params": {k: keep(p) for k, p in state.params.items()},
+                        "ema": {k: keep(e) for k, e in state.ema_params.items()}})
+        del state, step
+    log(f"{what}: loss {results[0]['loss']!r} and {results[1]['loss']!r}, gradient norm "
+        f"{results[0]['grad_norm']!r} and {results[1]['grad_norm']!r}")
+    reproducible(f"{what}: one step twice from one seed (loss, gradient norm, parameters, EMA)",
+                 results[0], results[1])
+    del results
+    with torch.no_grad():
+        for k, p in unet.named_parameters():
+            p.copy_(start[k])
+
+
 def profile_train_step(step, state, pipe, dev, batch: int, side: int, lm_dim: int, gen,
                        label: str = "256px train"):
     """One training step under the profiler: the device's busy and idle
@@ -1532,8 +1655,10 @@ def path_train(dev):
         tot_k3 = check_k3(keys, dev)
     with phase("256px train: kernel path vs plain path"):
         train_kernel_vs_plain(pipe, dev, lm_dim, side)
-    with phase("256px train: the train_256 preset, 1 untimed and 5 timed steps"):
+    with phase("256px train: the train_256 preset, one step twice from one seed"):
         cfg = trainer.TrainerConfig(lr=5e-5, warmup_steps=10, gradient_clip_norm=2.0)
+        repeat_step(pipe, cfg, dev, "train_256 step, batch 16", batch, side, lm_dim)
+    with phase("256px train: the train_256 preset, 1 untimed and 5 timed steps"):
         state = trainer.TrainState.create(unet)
         step = trainer.make_train_step(pipe, cfg)
         start = {k: p.detach().clone() for k, p in state.params.items()}
@@ -1588,8 +1713,10 @@ def path_train(dev):
         tot_64 = check_kernels(k2_keys, k1_keys, dev, "64px train")
         tot_64 = {"K1": tot_64["K1"], "K2": tot_64["K2"],
                   **check_k3(k3_box[0], dev, "64px train")}
-    with phase("64px train: Diffusion.get_loss, batch 32, 1 untimed and 3 timed steps"):
+    with phase("64px train: one batch-32 step twice from one seed"):
         cfg = trainer.TrainerConfig(lr=5e-5, warmup_steps=10, gradient_clip_norm=2.0)
+        repeat_step(pipe, cfg, dev, "64px step, batch 32 (the CLI's shape)", 32, side, lm_dim)
+    with phase("64px train: Diffusion.get_loss, batch 32, 1 untimed and 3 timed steps"):
         state = trainer.TrainState.create(pipe.vision_module)
         step = trainer.make_train_step(pipe, cfg)
         torch.cuda.synchronize()
@@ -2189,11 +2316,12 @@ def _levels(a, b):
 def within_spread(plain, again, other, what: str) -> bool:
     """Whether ``other`` is as close to two plain images of its query as they
     are to each other: its largest level difference from each within twice
-    theirs plus one level, its mean difference within twice theirs plus 0.05
-    (bitwise equal where the two plain images are). Two sampling calls on
-    the card are not bitwise equal: K2 sums its statistics by f32 atomics in
-    a varying order, and 50 guided steps carry the flipped roundings to the
-    pixels."""
+    theirs plus one level, its mean difference within twice theirs plus 0.05;
+    bitwise equal where the two plain images are, as they are under the seed
+    contract (``helpers.reproducible``: K2 takes its statistics in a fixed
+    order, cuDNN runs deterministic algorithms). The spread is kept for a
+    caller that compares calls of different shapes, whose libraries may
+    choose other algorithms."""
     pp, op, oa = _levels(plain, again), _levels(other, plain), _levels(other, again)
     log(f"web demo, {what}: largest, count, mean of the level differences of {plain.size} "
         f"values: plain vs plain again {pp}, against plain {op}, against plain again {oa}")
@@ -2203,32 +2331,30 @@ def within_spread(plain, again, other, what: str) -> bool:
 
 
 def check_stream(url: str, q: dict, pipe, plain, again, streamed):
-    """The streamed final image against the plain ones. On the kernel route
-    it must lie within their spread (``within_spread``), and a planted
-    fault, the same query at DDIM-49, must not: the rule can tell one step
-    fewer apart. On the vision model's plain route (``use_kernels(False)``,
-    cuDNN deterministic: no atomic sums) a DDIM-10 stream must equal its
-    plain request bit for bit, so a frame off by one or a missing final
-    clip shows there whatever the spread."""
-    import numpy as np
-    import torch
-
+    """The streamed final image against the plain ones, on the kernel
+    route: the two plain calls bitwise equal, and the streamed image bitwise
+    equal to them (``reproducible``); ``within_spread`` (then bitwise)
+    holds it too, and a planted fault, the same query at DDIM-49, must fail
+    that rule. On the vision model's plain route (``use_kernels(False)``) a
+    DDIM-10 stream must equal its plain request bit for bit as well, so a
+    frame off by one or a missing final clip shows on either route."""
+    reproducible("web demo 256px request, kernel route: two plain calls from one seed", plain,
+                 again)
+    reproducible("web demo 256px request, kernel route: streamed against plain", plain,
+                 streamed)
     if not within_spread(plain, again, streamed, "the streamed image (kernel route)"):
         raise AssertionError("web demo: the streamed image is not the plain one")
     fault, _, _, _ = demo_request(url, dict(q, num_inference_steps=49), False,
                                   "planted fault: DDIM-49")
     if within_spread(plain, again, fault, "a planted fault, the DDIM-49 image"):
         raise AssertionError("web demo: the stream's check accepts the DDIM-49 image")
-    deterministic = torch.backends.cudnn.deterministic
     pipe.vision_module.use_kernels(False)
-    torch.backends.cudnn.deterministic = True
     try:
         short = dict(q, num_inference_steps=10)
         img_p, wall_p, _, _ = demo_request(url, short, False, "plain route, plain request")
         img_s, wall_s, _, _ = demo_request(url, short, True, "plain route, streamed request")
     finally:
         pipe.vision_module.use_kernels(True)
-        torch.backends.cudnn.deterministic = deterministic
     lv = _levels(img_p, img_s)
     log(f"web demo, plain route, DDIM-10: plain {wall_p:.4f} s, streamed {wall_s:.4f} s wall; "
         f"streamed against plain {lv} (largest, count, mean): bitwise {lv[0] == 0}")
@@ -3534,12 +3660,12 @@ def _u8(x):
 def path_dp_sampler(dev):
     """Phase 14: ``parallel.sample_data_parallel`` on the 64px model at batch
     8, guidance 5 (16 text rows), DDIM-25, over every card, or over cuda:0
-    twice with one card. Kernels: within the spread of two one-device calls
-    of the whole batch (``within_spread``), K1-K2·proj launched. Plain route
-    (``use_kernels(False)``): bitwise equal to one device sampling each
-    replica's rows from the noise drawn in full (the same call shapes; a
-    call over the whole batch differs by the library's batch-dependent
-    algorithms, logged). Returns (launches, result)."""
+    twice with one card, K1-K2·proj launched. On the kernels and on the
+    plain route (``use_kernels(False)``): bitwise equal to one device
+    sampling each replica's rows from the noise drawn in full (the same call
+    shapes, ``reproducible``); a call over the whole batch differs by the
+    library's batch-dependent algorithms (logged). Returns (launches,
+    result)."""
     import gc
 
     import torch
@@ -3559,8 +3685,21 @@ def path_dp_sampler(dev):
     def seeded():
         return torch.Generator(device=dev).manual_seed(SEED + 15)
 
+    def replica_rows():
+        """One device's calls on each replica's rows, from the noise drawn
+        in full: the replicas' call shapes."""
+        noise = pipe.get_noise(batch, side, seeded())
+        per = batch // len(devices)
+        parts = []
+        for k in range(len(devices)):
+            lo, hi = k * per, (k + 1) * per
+            rows = {key: torch.cat([v[lo:hi], v[batch + lo:batch + hi]])
+                    for key, v in cond.items()}
+            parts.append(pipe.sample(per, rows, side, None, noise=noise[lo:hi], **kw))
+        return torch.cat(parts)
+
     with phase(f"one-process sampler: batch {batch} over {[str(d) for d in devices]}, "
-               "kernels, against two one-device calls"):
+               "kernels, against one device replica by replica"):
         # the runner's first call copies the model and builds the copies'
         # sampling weights; the second is timed
         run = parallel.make_data_parallel_sampler(pipe, batch, side, devices, **kw)
@@ -3577,9 +3716,10 @@ def path_dp_sampler(dev):
         one = pipe.sample(batch, cond, side, seeded(), **kw)
         torch.cuda.synchronize()
         one_s = time.perf_counter() - t0
-        again = pipe.sample(batch, cond, side, seeded(), **kw)
-        if not within_spread(_u8(one), _u8(again), _u8(dp), "one-process sampler"):
-            raise AssertionError("one-process sampler: outside two one-device calls' spread")
+        reproducible("one-process sampler, kernel route: against one device, replica by "
+                     "replica", replica_rows(), dp)
+        log(f"one-process sampler, kernel route: against one call over the whole batch: "
+            f"largest, count, mean of the level differences {_levels(_u8(dp), _u8(one))}")
         log(f"one-process sampler: {batch / dp_s:.4f} samples/s over {len(devices)} replicas, "
             f"{batch / one_s:.4f} on one device (host clock, one call each, after one untimed "
             "call of the runner)")
@@ -3587,26 +3727,14 @@ def path_dp_sampler(dev):
         del run
     with phase("one-process sampler, plain route: against one device, replica by replica"):
         pipe.vision_module.use_kernels(False)
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
         try:
             dp = parallel.sample_data_parallel(pipe, batch, cond, side, seeded(), devices, **kw)
-            noise = pipe.get_noise(batch, side, seeded())
-            per = batch // len(devices)
-            parts = []
-            for k in range(len(devices)):
-                lo, hi = k * per, (k + 1) * per
-                rows = {key: torch.cat([v[lo:hi], v[batch + lo:batch + hi]])
-                        for key, v in cond.items()}
-                parts.append(pipe.sample(per, rows, side, None, noise=noise[lo:hi], **kw))
-            split = torch.cat(parts)
+            split = replica_rows()
             whole = pipe.sample(batch, cond, side, seeded(), **kw)
         finally:
             pipe.vision_module.use_kernels(True)
-            torch.backends.cudnn.deterministic = deterministic
-        if not torch.equal(dp.to(split.device), split):
-            raise AssertionError("one-process sampler, plain route: the replicas differ from "
-                                 "one device's calls on their rows")
+        reproducible("one-process sampler, plain route: against one device, replica by replica",
+                     split, dp)
         levels = _levels(_u8(dp), _u8(whole))
         log(f"one-process sampler, plain route: bitwise equal to one device, replica by "
             f"replica; against one call over the whole batch: largest, count, mean of the "
@@ -3837,6 +3965,8 @@ def main() -> int:
         f"(= library) {t1['plain_ms']:.4f} ms ({t1['ms'] / t1['plain_ms']:.3f}x), bound "
         f"{t1['bound_ms']:.4f} ms ({t1['bound_ms'] / t1['ms']:.3f} of it)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s wall in all")
+    for line in REPRODUCIBLE:
+        log(f"reproducible: {line}")
 
     # the CLI's training steps launch K1, K2, K3 and its passes at the 64px
     # batch-32 step's shapes, held against their plain versions in phase 4:

@@ -132,6 +132,9 @@ struct ConvParams {
   __nv_bfloat16* proj;
   float* s1;
   float* s2;
+  float* part;                      // (2, B, tiles_per_image, Cout) f32, each pixel tile's
+                                    // sums; null with one tile an image
+  int* tickets;                     // (B, n_ntiles) int32, 0 at entry, 0 again at exit
   int B, H, W, Cout, cpad;
   int TH, TW, tiles_w, tiles_per_image, n_ntiles, stages;
   int toff[16];                     // packed: staged offset of (combined tap, k-step);
@@ -275,7 +278,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const uint32_t raw = act0 + 2 * tile_bytes;   // the raw tile
   const uint32_t bars = raw + tile_bytes;       // full[stages], then empty[stages]
   const uint32_t coef = bars + 16 * p.stages;   // a and b of a chunk, by parity: [2][2][64] f32
-  float* stat = reinterpret_cast<float*>(smem_raw + (coef + 1024 - base));  // [2][BN]
+  // the stats' slots, [warp][s1, s2][BN] f32: in the activated tile of a
+  // tile's last chunk where they fit (free once both warpgroups' products
+  // have read it), else in a region of their own (wg_smem_bytes)
+  constexpr uint32_t SLOTS_BYTES = (WG_THREADS / 32) * 2 * BN * 4;
+  const bool slots_in_tile = SLOTS_BYTES <= tile_bytes;
+  const uint32_t slots_own = coef + 1024;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (p.stages + s); };
   const int tid = threadIdx.x;
@@ -287,12 +295,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int n_mine_tiles = max(0, (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
                                       (int)gridDim.x);
   struct Geo {
-    int img, r0, col0, n0;
+    int img, t, r0, col0, n0;  // t: the pixel tile's index in its image
   };
   auto geo = [&](int i) {  // the block's i-th tile
     const int tl = blockIdx.x + i * gridDim.x;
     const int mtile = tl / p.n_ntiles, t = mtile % p.tiles_per_image;
-    return Geo{mtile / p.tiles_per_image, (t / p.tiles_w) * p.TH, (t % p.tiles_w) * p.TW,
+    return Geo{mtile / p.tiles_per_image, t, (t / p.tiles_w) * p.TH, (t % p.tiles_w) * p.TW,
                (tl % p.n_ntiles) * BN};
   };
   const int n_q = p.n_q;
@@ -306,8 +314,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (p.s1 != nullptr)
-    for (int i = tid; i < 2 * BN; i += WG_THREADS) stat[i] = 0.f;
   __syncthreads();
 
   // Thread 0 keeps the weight ring full: it issues slice j into slot
@@ -670,6 +676,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // 8 i + 2 (lane % 4) + r % 2.
       const bool y_pass = pass == 0;
       const bool stats = y_pass && p.s1 != nullptr;
+      const int T = p.tiles_per_image;
+      float* slots = reinterpret_cast<float*>(
+          smem_raw + ((slots_in_tile ? act0 + (((i * n_u + n_q - 1) & 1) * tile_bytes)
+                                     : slots_own) - base));
+      if (stats) named_sync(1, WG_THREADS);  // both warpgroups done with the tile's last chunk
       __nv_bfloat16* out = y_pass ? p.y : p.proj;
       const float* ob = y_pass ? p.bias : p.pbias;
       size_t rowoff[MT][2];
@@ -716,25 +727,61 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             t2a += __shfl_xor_sync(0xffffffffu, t2a, off);
             t2b += __shfl_xor_sync(0xffffffffu, t2b, off);
           }
-          if (lane < 4 && colok) {
-            const int nl = 8 * e + 2 * lane;
-            atomicAdd(stat + nl, t1a);
-            atomicAdd(stat + nl + 1, t1b);
-            atomicAdd(stat + BN + nl, t2a);
-            atomicAdd(stat + BN + nl + 1, t2b);
+          if (lane < 4 && colok) {  // the warp's slot
+            float* slot = slots + (tid / 32) * 2 * BN + 8 * e + 2 * lane;
+            *reinterpret_cast<float2*>(slot) = make_float2(t1a, t1b);
+            *reinterpret_cast<float2*>(slot + BN) = make_float2(t2a, t2b);
           }
         }
       }
       if (stats) {
-        // the tile's sums out, and the buffer zeroed by the thread that read
-        // it, for the block's next tile
-        named_sync(1, WG_THREADS);
-        if (tid < BN) {
-          if (g.n0 + tid < p.Cout) {
-            atomicAdd(p.s1 + (size_t)g.img * p.Cout + g.n0 + tid, stat[tid]);
-            atomicAdd(p.s2 + (size_t)g.img * p.Cout + g.n0 + tid, stat[BN + tid]);
+        // The tile's sums: the slots added in warp order. With one pixel
+        // tile an image they are the image's. Else each tile writes its own
+        // to the scratch and takes a ticket for its (image, N tile); the
+        // block that draws the last adds the image's tiles in tile order
+        // and sets the ticket back to 0. No float atomics: every sum is
+        // taken in one order, whatever the blocks' order of arrival.
+        named_sync(1, WG_THREADS);  // every warp's slot written
+        const bool col = tid < BN && g.n0 + tid < p.Cout;
+        const size_t o = (size_t)g.img * p.Cout + g.n0 + tid;
+        float v1 = 0.f, v2 = 0.f;
+        if (col) {
+          v1 = slots[tid];
+          v2 = slots[BN + tid];
+          for (int w = 1; w < WG_THREADS / 32; ++w) {
+            v1 += slots[2 * w * BN + tid];
+            v2 += slots[(2 * w + 1) * BN + tid];
           }
-          stat[tid] = stat[BN + tid] = 0.f;
+        }
+        if (T == 1) {
+          if (col) p.s1[o] = v1, p.s2[o] = v2;
+        } else {
+          const size_t plane = (size_t)p.B * T * p.Cout;
+          const size_t row0 = (size_t)g.img * T * p.Cout + g.n0 + tid;
+          if (col) {
+            p.part[row0 + (size_t)g.t * p.Cout] = v1;
+            p.part[plane + row0 + (size_t)g.t * p.Cout] = v2;
+          }
+          __threadfence();            // the partials visible before the ticket (release)
+          named_sync(1, WG_THREADS);  // and every thread's before thread 0 takes it
+          int* ticket = p.tickets + g.img * p.n_ntiles + g.n0 / BN;
+          bool last = false;
+          if (tid == 0) {
+            last = atomicAdd(ticket, 1) == T - 1;
+            if (last) __threadfence();  // the other tiles' partials (acquire)
+          }
+          if (__syncthreads_or(last)) {
+            if (col) {
+              float a1 = __ldcg(p.part + row0), a2 = __ldcg(p.part + plane + row0);
+              for (int t = 1; t < T; ++t) {
+                a1 += __ldcg(p.part + row0 + (size_t)t * p.Cout);
+                a2 += __ldcg(p.part + plane + row0 + (size_t)t * p.Cout);
+              }
+              p.s1[o] = a1;
+              p.s2[o] = a2;
+            }
+            if (tid == 0) *ticket = 0;  // ready for the next launch on the stream
+          }
         }
       }
     }
@@ -742,11 +789,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // Dynamic shared memory of a launch: the ring, the two activated
-// tiles and the raw tile, the barriers, two chunks' coefficients, the stats
+// tiles and the raw tile, the barriers, two chunks' coefficients, the
+// stats' per-warp slots where an activated tile is too small to hold them,
 // and the slack that aligns the ring.
 size_t wg_smem_bytes(int bn, int th, int tw, int stages) {
-  return 1024 + (size_t)stages * bn * 128 + 3 * (size_t)(th + 2) * (tw + 2) * 128 +
-         16 * (size_t)stages + 1024 + 8 * (size_t)bn;
+  const size_t tile = (size_t)(th + 2) * (tw + 2) * 128;
+  const size_t slots = (WG_THREADS / 32) * 2 * 4 * (size_t)bn;
+  return 1024 + (size_t)stages * bn * 128 + 3 * tile + 16 * (size_t)stages + 1024 +
+         (slots <= tile ? 0 : slots);
 }
 
 typedef void (*WgKernel)(const ConvParams);
@@ -759,8 +809,9 @@ typedef void (*WgKernel)(const ConvParams);
 // cudaGetLastError(), or cudaErrorInvalidValue for a plan it does not take.
 int launch_conv(WgKernel kernel, const void* const* xs, const int* cs, int n_ops, const void* a,
                 const void* b, const void* wt, const void* bias, const void* residual,
-                const void* pw, const void* pbias, void* y, void* proj, void* s1, void* s2, int B,
-                int H, int W, int Cout, int apply_silu, int th, int tw, int bn, int mt,
+                const void* pw, const void* pbias, void* y, void* proj, void* s1, void* s2,
+                void* part, int* tickets, int B, int H, int W, int Cout, int apply_silu, int th,
+                int tw, int bn, int mt,
                 int stages, int grid, const int* toff, int max_toff, int n_ntiles,
                 cudaStream_t stream) {
   if (th <= 0 || tw <= 0 || th * tw > 128 * mt || stages < 2 || stages > WG_MAX_STAGES)
@@ -797,6 +848,8 @@ int launch_conv(WgKernel kernel, const void* const* xs, const int* cs, int n_ops
   p.proj = (__nv_bfloat16*)proj;
   p.s1 = (float*)s1;
   p.s2 = (float*)s2;
+  p.part = (float*)part;
+  p.tickets = tickets;
   p.B = B;
   p.H = H;
   p.W = W;
@@ -807,6 +860,8 @@ int launch_conv(WgKernel kernel, const void* const* xs, const int* cs, int n_ops
   p.tiles_w = (W + tw - 1) / tw;
   p.tiles_per_image = ((H + th - 1) / th) * p.tiles_w;
   p.n_ntiles = n_ntiles > 0 ? n_ntiles : (Cout + bn - 1) / bn;
+  if (s1 != nullptr && p.tiles_per_image > 1 && (part == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
   p.stages = stages;
   for (int i = 0; i < 16; ++i) {
     p.toff[i] = toff != nullptr ? toff[i] : 0;

@@ -15,10 +15,11 @@
 // rounding to bf16 at each store. The activation is rounded to bf16 once per
 // element. The concatenation never exists in memory: the reduction walks the
 // channel chunks of operand 0, then operand 1, ..., into the same
-// accumulators. With stats != nullptr it also adds the f32 sum and sum of
-// squares of the STORED (rounded) y, per (batch, output channel), into two
-// zeroed (B, Cout) buffers. Without a and b (null) the prologue is the
-// identity: conv3x3_fast and K3's data gradient.
+// accumulators. With stats != nullptr it also writes the f32 sum and sum of
+// squares of the STORED (rounded) y, per (batch, output channel), to two
+// (B, Cout) buffers, each sum taken in one fixed order (below), so the same
+// inputs give the same bits on every run. Without a and b (null) the
+// prologue is the identity: conv3x3_fast and K3's data gradient.
 //
 // One kernel, `conv3x3_wgmma_kernel`, templated on the tap count: every
 // unpacked launch runs its 9-tap instances, every packed launch (K2·struct,
@@ -84,10 +85,22 @@
 //     through the centre tap, into the same accumulators; a second
 //     accumulator set would not fit beside the first at 128 a thread.
 //   - the epilogue adds bias and residual in f32 and rounds once; the stats
-//     are taken from the stored bf16 values in f32: per-warp shuffles, one
-//     shared-memory atomic a warp and column, then one global f32 atomic a
-//     block and column. Atomic order varies between runs, so the stats agree
-//     with a sequential sum to f32 rounding of the total, not bitwise.
+//     are taken from the stored bf16 values in f32, with no float atomic:
+//     each thread sums its rows (m64 tiles, then halves), shuffles add the
+//     warp's 8 row groups by a fixed tree, and each warp writes its column
+//     sums to a slot of its own in shared memory (in the activated tile of
+//     the tile's last chunk, which its products have read, where the slots
+//     fit: no ring stage is lost to them). The block adds the 8 slots in
+//     warp order. With one pixel tile an image that is the image's sum;
+//     else the block writes it to a (2, B, tiles an image, Cout) f32
+//     scratch, fences, and takes an int32 ticket for its (image, N tile);
+//     the block that draws the last adds the image's tiles in tile order,
+//     writes s1 and s2 and sets the ticket back to 0 (K1's scheme,
+//     ops/gn_stats.py; the tickets are K1's per-(device, stream) buffer,
+//     which needs no fill). So the stats are the same bits on every run,
+//     whatever order the persistent blocks take their tiles in, and a call
+//     is one launch: s1 and s2 are written, never zeroed first. The host's
+//     `stats_order` (ops/fused_resnet.py) gives the scratch and the order.
 //
 //   - the prologue and the grid: persistent, one block an SM walks the
 //     output tiles; the next tile's first chunk is staged under this tile's
@@ -158,9 +171,10 @@ WgKernel pick_wgmma(int bn, int mt) {
 
 int launch_wgmma(const void* const* xs, const int* cs, int n_ops, const void* a, const void* b,
                  const void* wt, const void* bias, const void* residual, const void* pw,
-                 const void* pbias, void* y, void* proj, void* s1, void* s2, int B, int H,
-                 int W, int Cout, int apply_silu, int packed, int th, int tw, int bn, int mt,
-                 int stages, int grid, const int* toff, cudaStream_t stream) {
+                 const void* pbias, void* y, void* proj, void* s1, void* s2, void* part,
+                 int* tickets, int B, int H, int W, int Cout, int apply_silu, int packed, int th,
+                 int tw, int bn, int mt, int stages, int grid, const int* toff,
+                 cudaStream_t stream) {
   if (packed && toff == nullptr) return (int)cudaErrorInvalidValue;
   WgKernel kernel = packed ? (pw != nullptr ? pick_wgmma<true, true>(bn, mt)
                                             : pick_wgmma<false, true>(bn, mt))
@@ -168,7 +182,7 @@ int launch_wgmma(const void* const* xs, const int* cs, int n_ops, const void* a,
                                            : pick_wgmma<false, false>(bn, mt));
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return launch_conv(kernel, xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2,
-                     B, H, W, Cout, apply_silu, th, tw, bn, mt, stages, grid,
+                     part, tickets, B, H, W, Cout, apply_silu, th, tw, bn, mt, stages, grid,
                      packed ? toff : nullptr, 2 * (tw + 2) + 2, 0, stream);
 }
 
@@ -180,8 +194,11 @@ extern "C" {
 // f32, or both null (the identity prologue; apply_silu is then ignored);
 // bias (Cout) f32 or null; residual (B,H,W,Cout) bf16 or null; pbias (Cout) f32 with
 // pw, else null; y and proj (B,H,W,Cout) bf16 (proj null without pw); s1,
-// s2 (B,Cout) f32, zeroed by the caller, or both null. 1 <= n_ops <= 4,
-// every cs[k] and Cout a positive multiple of 8.
+// s2 (B,Cout) f32, written (not added to), or both null; with them and more
+// than one pixel tile an image, part the (2, B, tiles an image, Cout) f32
+// scratch and tickets (B, N tiles) int32, all 0 (each launch leaves them
+// so), else both may be null. 1 <= n_ops <= 4, every cs[k] and Cout a
+// positive multiple of 8.
 //
 // wt is (n_q, taps, cpad, 64) bf16 and pw (n_q, cpad, 64), with n_q the
 // chunks of 64 channels over the operands (each operand's channels
@@ -200,8 +217,8 @@ int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
                                const void* a, const void* b, const void* wt,
                                const void* bias, const void* residual,
                                const void* pw, const void* pbias, void* y,
-                               void* proj, void* s1, void* s2, int B, int H,
-                               int W, int Cout, int apply_silu, int packed_struct,
+                               void* proj, void* s1, void* s2, void* part, void* tickets,
+                               int B, int H, int W, int Cout, int apply_silu, int packed_struct,
                                int pipelined, int th, int tw, int bn, int mt, int stages,
                                int grid, const int* toff, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cout % 8 != 0 || n_ops < 1 ||
@@ -212,9 +229,9 @@ int ml_mdm_affine_silu_conv3x3(const void* const* xs, const int* cs, int n_ops,
   for (int k = 0; k < n_ops; ++k)
     if (cs[k] <= 0 || cs[k] % 8 != 0 || xs[k] == nullptr) return (int)cudaErrorInvalidValue;
   (void)pipelined;
-  return launch_wgmma(xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2, B, H,
-                      W, Cout, apply_silu, packed_struct, th, tw, bn, mt, stages, grid, toff,
-                      (cudaStream_t)stream);
+  return launch_wgmma(xs, cs, n_ops, a, b, wt, bias, residual, pw, pbias, y, proj, s1, s2, part,
+                      (int*)tickets, B, H, W, Cout, apply_silu, packed_struct, th, tw, bn, mt,
+                      stages, grid, toff, (cudaStream_t)stream);
 }
 
 // The kernel's dynamic shared memory for a plan, in bytes (the

@@ -134,7 +134,8 @@ int ml_mdm_kernel_anatomy(int flags, int selects, const void* x, const void* a, 
   const int cs[1] = {C};
   // 0 taps: one N tile a pixel tile, whose chunks are every channel of y
   return launch_conv(inst->fn, xs, cs, 1, a, b, n_taps > 0 ? wt : x, nullptr, nullptr, nullptr,
-                     nullptr, y, nullptr, nullptr, nullptr, B, H, W, C, apply_silu, th, tw,
+                     nullptr, y, nullptr, nullptr, nullptr, nullptr, nullptr, B, H, W, C,
+                     apply_silu, th, tw,
                      PROBE_BN, PROBE_MT, stages, grid, toff, halo * (2 * (tw + 2) + 2),
                      n_taps > 0 ? 0 : 1, (cudaStream_t)stream);
 }

@@ -24,6 +24,7 @@ from ml_mdm_tpu_torch.config import (
     register_pipeline,
     register_pipeline_config,
 )
+from ml_mdm_tpu_torch.helpers import reproducible
 from ml_mdm_tpu_torch.models.layers import DropoutMasks, dropout_resnets, set_dropout_masks
 from ml_mdm_tpu_torch.samplers import NestedSampler, Sampler
 from ml_mdm_tpu_torch.utils.resize import resize_nhwc
@@ -145,6 +146,7 @@ class Diffusion:
         from ``generator``; so are the dropout masks of a training module
         with dropout (``dropout``: see ``_set_dropout``). Returns (losses
         (B,) f32, time, x_t, model output, target, VDM weights or None)."""
+        reproducible()
         images = sample["images"]
         eps, g, g_last, weights, time = self.sampler.get_eps_time(images, generator, time, eps)
         if not self.config.use_vdm_loss_weights:
@@ -180,7 +182,9 @@ class Diffusion:
                          noise, kwargs)
 
     def _run(self, entry, num_examples, sample, image_side, generator, noise, kwargs):
-        """``entry`` (a sampler loop) from ``noise`` or a draw of it."""
+        """``entry`` (a sampler loop) from ``noise`` or a draw of it, under
+        the seed contract (``helpers.reproducible``)."""
+        reproducible()
         if noise is None:
             noise = self.get_noise(num_examples, image_side, generator)
         return entry(self.model, noise, sample["lm_outputs"], sample["lm_mask"],
@@ -303,6 +307,7 @@ class NestedDiffusion(Diffusion):
         drawn from ``generator``). Returns (losses (B,) f32, time, x_t,
         prediction and target at the highest resolution, VDM weights or
         None)."""
+        reproducible()
         images = sample["images"]
         cfg = self.config
         scales = self.scales

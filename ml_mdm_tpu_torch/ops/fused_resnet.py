@@ -14,7 +14,9 @@ of N operands (K2·N): the op then convolves the channel concatenation
 also returns the ResNet's 1x1 shortcut ``concat_k(x_k) @ P + pb`` of the
 RAW operands (K2·proj). With ``emit_stats`` it returns the f32 sum and sum
 of squares of the stored y per (batch, output channel), for the next
-GroupNorm. Outputs come in the JAX order: y, then (s1, s2), then proj.
+GroupNorm, each taken in one fixed order (``stats_order``: no float
+atomics), so the same inputs give the same bits on every call, as in the
+JAX package. Outputs come in the JAX order: y, then (s1, s2), then proj.
 
 ``packed_struct`` (K2·struct): x is space-to-depth packed
 (``ops/space_to_depth.py``) and w is the packed (3, 3, 4C, 4Cout) kernel
@@ -81,7 +83,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ml_mdm_tpu_torch.ops import cuda_build, k3_passes
+from ml_mdm_tpu_torch.ops import cuda_build, gn_stats, k3_passes
 from ml_mdm_tpu_torch.perf import perf
 
 # launches of the CUDA kernels since the counts were last set to 0: "K2"
@@ -102,6 +104,7 @@ CANDIDATES = ((128, 2), (256, 1), (128, 1), (64, 2), (64, 1))
 MAX_STAGES = 8
 SMEM_LIMIT = 232448
 H100_SMS = 132
+STAT_WARPS = 8  # warps of a block, each with a slot of column sums (``stats_order``)
 # K2·pipe's rule (``pipelines``) in the kernel's terms: chunks of 64
 # channels, output tiles of the plan. At every packed launch shape of the
 # three models (N tiles of 128 and tiles of 8 x 32 pixels) it selects the
@@ -197,12 +200,21 @@ class ConvPlan(NamedTuple):
 
 
 def smem_bytes(bn: int, th: int, tw: int, stages: int) -> int:
-    """Dynamic shared memory of a launch (``csrc/fused_resnet.cu``
+    """Dynamic shared memory of a launch (``csrc/conv3x3_wgmma.cuh``
     ``wg_smem_bytes``): the ring, two activated tiles and the raw tile (128
     bytes a staged pixel), the ring's barriers, two chunks' coefficients a
-    and b, the stats and 1024 bytes of alignment slack."""
+    and b, the stats' per-warp slots where they do not fit in an activated
+    tile (``stats_order``) and 1024 bytes of alignment slack."""
+    own_slots = 0 if _slots_in_tile(bn, th, tw) else STAT_WARPS * 2 * 4 * bn
     return (1024 + stages * bn * 128 + 3 * (th + 2) * (tw + 2) * 128 + 16 * stages + 1024
-            + 8 * bn)
+            + own_slots)
+
+
+def _slots_in_tile(bn: int, th: int, tw: int) -> bool:
+    """Whether the stats' per-warp slots, [warp][s1, s2][bn] f32, fit in one
+    activated tile (128 bytes a staged pixel) (the kernel's
+    ``slots_in_tile``)."""
+    return STAT_WARPS * 2 * 4 * bn <= (th + 2) * (tw + 2) * 128
 
 
 def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
@@ -248,6 +260,42 @@ def conv_plan(bsz: int, h: int, w: int, cs, cout: int, sms: int = H100_SMS,
         if best is None or work > best.grid:
             best = plan
     return best
+
+
+class StatsOrder(NamedTuple):
+    """How a launch with ``emit_stats`` takes s1 and s2 (``csrc/
+    fused_resnet.cu``), with no float atomic, so that they are the same bits
+    on every run. In a block, thread (warpgroup wg, warp wp, lane l) adds
+    its rows of a column, (wg mt + i) 64 + 16 wp + l / 4 + 8 h for m64 tile
+    i = 0..mt-1, then h = 0, 1, to 0.0; shuffles add the warp's 8 row groups
+    (lane xor 4, 8, 16 in that order); warp w = 4 wg + wp writes the sum to
+    its slot, and the block adds the ``STAT_WARPS`` slots in warp order.
+    That is the pixel tile's sum. With one tile an image it is the image's;
+    else each tile writes it to row t of the f32 ``scratch`` (s1's plane,
+    then s2's) and takes one of the int32 ``tickets`` (one an (image, N
+    tile)); the block that draws the last adds rows 0, 1, ... in order.
+    ``tiles`` gives, for each row t, the tile's first output pixel (r0, c0)
+    in the image. ``slots_in_tile``: the slots live in the activated tile of
+    the tile's last chunk (else in shared memory of their own,
+    ``smem_bytes``)."""
+    tiles: tuple
+    scratch: tuple
+    tickets: int
+    slots_in_tile: bool
+
+
+def stats_order(plan: ConvPlan, bsz: int, h: int, w: int, cout: int) -> StatsOrder:
+    """The stats' order of adding and their scratch at ``plan`` (a
+    ``conv_plan``) for a (bsz, h, w, cout) output: the pixel tiles of an
+    image in the kernel's tile order (row-major over the tile grid), the
+    scratch's shape ((2, bsz, tiles, cout); () with one tile, when the
+    sums are written directly) and the number of tickets (0 with one
+    tile)."""
+    tiles = tuple((r, c) for r in range(0, h, plan.th) for c in range(0, w, plan.tw))
+    slots = _slots_in_tile(plan.bn, plan.th, plan.tw)
+    if len(tiles) == 1:
+        return StatsOrder(tiles, (), 0, slots)
+    return StatsOrder(tiles, (2, bsz, len(tiles), cout), bsz * -(-cout // plan.bn), slots)
 
 
 def struct_tap_offsets(tw: int):
@@ -611,6 +659,7 @@ def _sm_count(index: int) -> int:
 
 
 _plan = functools.lru_cache(maxsize=4096)(conv_plan)
+_stats_order = functools.lru_cache(maxsize=4096)(stats_order)
 
 
 def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, proj_bias,
@@ -682,10 +731,16 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
             raise ValueError("affine_silu_conv3x3: residual must match y")
         residual = _aligned(residual)
     y = torch.empty((bsz, h, wd, cout), device=dev, dtype=x0.dtype)
-    s1 = s2 = pb = proj = None
+    s1 = s2 = part = tickets = pb = proj = None
     if emit_stats:
-        s1 = torch.zeros((2, bsz, cout), device=dev, dtype=torch.float32)
+        # written by the launch, each sum in the order of ``stats_order``:
+        # nothing to fill
+        s1 = torch.empty((2, bsz, cout), device=dev, dtype=torch.float32)
         s1, s2 = s1[0], s1[1]
+        order = _stats_order(p, bsz, h, wd, cout)
+        if order.scratch:
+            part = torch.empty(order.scratch, device=dev, dtype=torch.float32)
+            tickets = gn_stats.ticket_buffer(dev.index, order.tickets)
     if pks is not None:
         pb = (torch.zeros((cout,), device=dev) if proj_bias is None
               else proj_bias.to(dev, torch.float32).contiguous())
@@ -700,7 +755,7 @@ def _launch(x, a, b, w, bias, residual, *, apply_silu, emit_stats, proj_kernel, 
     with torch.cuda.device(dev):  # the C side launches on the current device
         err = lib.ml_mdm_affine_silu_conv3x3(
             x_ptrs, c_arr, n, ptr(a), ptr(b), ptr(wt), ptr(bias), ptr(residual),
-            ptr(pw), ptr(pb), ptr(y), ptr(proj), ptr(s1), ptr(s2),
+            ptr(pw), ptr(pb), ptr(y), ptr(proj), ptr(s1), ptr(s2), ptr(part), ptr(tickets),
             bsz, h, wd, cout, int(apply_silu), int(packed_struct), int(pipe), *plan, toff,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
@@ -735,7 +790,7 @@ def load_library() -> ctypes.CDLL:
     fn = lib.ml_mdm_affine_silu_conv3x3
     fn.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13 + [ctypes.POINTER(ctypes.c_int)]
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int

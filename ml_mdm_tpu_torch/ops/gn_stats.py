@@ -134,7 +134,7 @@ def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         part = tickets = sums  # not read
     else:
         part = torch.empty((2, bsz, p.splits, c), device=x.device, dtype=torch.float32)
-        tickets = _tickets(index, bsz * n_cblk)
+        tickets = ticket_buffer(index, bsz * n_cblk)
     # the launch goes to the current device: switch only when x is elsewhere
     with torch.cuda.device(index) if index != torch.cuda.current_device() else _NO_SWITCH:
         _kernel()[(bsz, n_cblk, p.splits)](
@@ -150,11 +150,12 @@ _NO_SWITCH = contextlib.nullcontext()
 _TICKETS = {}
 
 
-def _tickets(index: int, n: int) -> torch.Tensor:
+def ticket_buffer(index: int, n: int) -> torch.Tensor:
     """At least n int32 tickets, all 0, for the current stream of device
     ``index``: each call's last programs set theirs back to 0, so a buffer
     serves every later call on its stream (calls on one stream never
-    overlap) without a fill."""
+    overlap) without a fill. K2's statistics (``ops/fused_resnet.py``) take
+    their tickets from the same buffer."""
     key = (index, torch._C._cuda_getCurrentRawStream(index))
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:

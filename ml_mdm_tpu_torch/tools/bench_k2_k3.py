@@ -33,7 +33,13 @@ path, so ``PYTHONPATH=<another checkout> python
 ml_mdm_tpu_torch/tools/bench_k2_k3.py`` times that checkout's kernels (an
 A/B in one call). Each K2 row ends with a digest of the kernel's y (and
 shortcut), the same bits on the same inputs, so two checkouts' rows show
-whether their outputs are bitwise equal; ``--k2`` times K2's rows alone.
+whether their outputs are bitwise equal, and, where it emits them, a
+digest of the stats, which a checkout whose kernel takes them in a fixed
+order gives alike from run to run; ``--k2`` times K2's rows alone,
+``--k3`` K3's rows alone. Where
+the checkout has the seed contract (``helpers.reproducible``), the bench
+keeps it, so its K3 rows and the library's backward run cuDNN's
+deterministic algorithms (a checkout without it runs PyTorch's default).
 """
 from __future__ import annotations
 
@@ -192,15 +198,20 @@ def _ms(fn, reps=5, warmup=2):
 
 
 def digest(out) -> str:
-    """12 hex digits of the hash of K2's y and, with the shortcut, proj
-    (the stats, f32 atomics in no fixed order, are left out)."""
+    """12 hex digits of the hash of K2's y and, with the shortcut, proj;
+    with the stats, a second digest, of s1 and s2."""
     import torch
 
     outs = out if isinstance(out, tuple) else (out,)
     h = hashlib.sha256()
     for t in (outs[0], outs[-1]) if len(outs) in (2, 4) else outs[:1]:
         h.update(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
-    return h.hexdigest()[:12]
+    if len(outs) < 3:
+        return h.hexdigest()[:12]
+    hs = hashlib.sha256()
+    for t in outs[1:3]:
+        hs.update(t.contiguous().cpu().numpy().tobytes())
+    return f"{h.hexdigest()[:12]}, stats digest {hs.hexdigest()[:12]}"
 
 
 def main() -> int:
@@ -218,6 +229,11 @@ def main() -> int:
     print(f"ml_mdm_tpu_torch from {fused_resnet.__file__}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from ml_mdm_tpu_torch import helpers
+
+    if hasattr(helpers, "reproducible"):
+        helpers.reproducible()
+    print(f"cudnn.deterministic {torch.backends.cudnn.deterministic}", flush=True)
     dev = torch.device("cuda")
     bf = torch.bfloat16
     keep = getattr(fused_resnet, "K2Weights", None)
@@ -287,6 +303,21 @@ def main() -> int:
             return None
         return (b, 2 * h, 2 * w, tuple(c // 4 for c in cs), cout // 4) + tuple(key[5:])
 
+    # K2·N (several operands) and K2·proj (the shortcut) over the nested
+    # forwards' launches, unpacked and packed
+    modes = {m: dict.fromkeys(("n", "kernel", "library", "bound"), 0.0)
+             for m in ("K2·N", "K2·proj")}
+
+    def add_modes(key, t, lib, bound):
+        for mode, on in (("K2·N", len(key[3]) > 1), ("K2·proj", bool(key[7]))):
+            if on:
+                for k, v in (("n", 1), ("kernel", t), ("library", lib), ("bound", bound)):
+                    modes[mode][k] += v
+
+    if "--k3" in sys.argv[1:]:
+        for label, keys in (("train_256's", K3_256), ("train_1024's", K3_1024)):
+            k3_rows(label, keys)
+        return 0
     for label, keys in (("the 64px forward's", K2_64),
                         ("the nested forwards' unpacked", K2_NESTED)):
         tot = dict.fromkeys(("kernel", "library", "bound", "flops"), 0.0)
@@ -296,6 +327,8 @@ def main() -> int:
             bound, flops = k2_bound(*key[:8])
             for k, v in (("kernel", t), ("library", lib), ("bound", bound), ("flops", flops)):
                 tot[k] += v
+            if keys is K2_NESTED:
+                add_modes(key, t, lib, bound)
             print(f"K2 {key}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, {bound / t:.3f} of the "
                   f"bound), library {lib:.4f} ms, bound {bound:.4f} ms, digest {digest(kernel())}",
                   flush=True)
@@ -314,6 +347,8 @@ def main() -> int:
             bound, _ = k2_bound(b, 2 * h, 2 * w, tuple(c / 4 for c in cs), cout // 4, *key[5:8])
             pipe = fused_resnet.pipelines(cs, b, h, w, cout, None, True)
             row = dict(n=1, kernel=t, library=lib, bound=bound)
+            if where != "train_1024 step":
+                add_modes(key, t, lib, bound)
             text = ""
             if where == "256px forward" and unpacked(key):
                 ut = ms(k2_case(*unpacked(key))[0])
@@ -336,6 +371,10 @@ def main() -> int:
               f"({t['kernel'] / t['library']:.3f}x), bound {t['bound']:.4f} ms"
               + (f"; the unpacked K2 at the same convolutions {t['unpacked']:.4f} ms against "
                  f"{t['paired']:.4f} ms packed" if t["paired"] else ""), flush=True)
+    for mode, t in modes.items():
+        print(f"{mode} over the nested forwards' {int(t['n'])} shapes (unpacked and packed): "
+              f"{t['kernel']:.4f} ms, library {t['library']:.4f} ms "
+              f"({t['kernel'] / t['library']:.3f}x), bound {t['bound']:.4f} ms", flush=True)
 
     if "--k2" in sys.argv[1:]:
         return 0

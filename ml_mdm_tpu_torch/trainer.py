@@ -73,6 +73,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ml_mdm_tpu_torch.helpers import reproducible
 from ml_mdm_tpu_torch.lr_scaler import LRScaler
 from ml_mdm_tpu_torch.models.layers import invalidate_cached_weights
 from ml_mdm_tpu_torch.models.model_ema import EmaConfig, ema_update
@@ -265,7 +266,10 @@ def make_train_step(pipeline, config: TrainerConfig,
     the module's stages to recompute (``set_remat``). ``all_reduce``, in a
     data-parallel run, averages in place a list of tensors over the
     processes (``parallel.mesh.all_reduce_mean``): the step hands it the
-    loss and the gradients before the norm."""
+    loss and the gradients before the norm. The step keeps the seed
+    contract (``helpers.reproducible``): the same state, batch and noise
+    give the same bits."""
+    reproducible()
     dtype = pipeline.vision_module.dtype
     set_remat(pipeline.vision_module,
               config.remat_save_conv_max_side if config.remat else None)

@@ -205,10 +205,13 @@ def _check_plan(b, h, w, cs, cout, proj, packed=False):
 def test_conv_plan_fits_every_model_launch(name):
     """Every unpacked launch of the models fits the block's 232,448 bytes of
     shared memory with at least two ring slots; where the launch has the
-    work, it fills the 132 SMs with persistent blocks."""
+    work, it fills the 132 SMs with persistent blocks. The stats' per-warp
+    slots fit in an activated tile, so they take no shared memory (no ring
+    slot) of their own."""
     for key in MODEL_LAUNCHES[name]:
         p = _check_plan(*key)
         b, h, w, cs, cout, _ = key
+        assert fr.stats_order(p, b, h, w, cout).slots_in_tile, key
         if b * h * w * -(-cout // 64) >= 132 * 128:
             assert p.grid >= 132, key
 
@@ -225,10 +228,12 @@ def test_conv_plan_fits_every_packed_launch(name):
     unpacked tiles and ring) and fills the 132 SMs; K2·pipe's rule in the
     kernel's terms (chunks of 64 channels, 1024 output tiles) selects the
     launches the earlier packed kernel pipelined (2 chunks of 32 channels,
-    4096 blocks of 128 pixels x 64 channels)."""
+    4096 blocks of 128 pixels x 64 channels). The stats' slots fit in an
+    activated tile, as unpacked."""
     for key in PACKED_LAUNCHES[name]:
         b, h, w, cs, cout, proj = key
         p = _check_plan(*key, packed=True)
+        assert fr.stats_order(p, b, h, w, cout).slots_in_tile, key
         unpacked = fr.conv_plan(b, h, w, cs, cout, 132, bool(proj))
         assert p.grid == 132 and p.l2_bytes < unpacked.l2_bytes
         tw = min(w, 32)
