@@ -3925,8 +3925,8 @@ def main() -> int:
         for k, v in part.items():
             launches[k] += v
     log(f"launches during the nested matmul-route requests (256px and 1024px; K1-K2·proj), the "
-        f"64px batch-64 request (K2 64px), the nested matmul-route requests and the "
-        f"train_1024 preset's timed steps (K2·struct, K2·pipe: {counts_256['K2·struct']} + "
+        f"two 64px batch-64 requests from one seed (K2 64px), the nested matmul-route requests "
+        f"and the train_1024 preset's timed steps (K2·struct, K2·pipe: {counts_256['K2·struct']} + "
         f"{counts_1024['K2·struct']} + {counts_t1024['K2·struct']} and {counts_256['K2·pipe']} + "
         f"{counts_1024['K2·pipe']} + {counts_t1024['K2·pipe']}), the train_256 preset's timed "
         f"steps (K3, K3·A, K3·B), the flash-route "
