@@ -13,7 +13,8 @@ Counterpart of ``ml_mdm_tpu/language_models/factory.py``:
   (``t5.load_t5_from_torch``).
 
 As in the JAX package, the mask is ``tokens != pad`` and the outputs are
-multiplied by it. The encoder runs in the profiler range "text tower".
+multiplied by it. The encoder runs in the span "text tower" (``tracing.py``:
+a profiler range while a profiler records).
 """
 from __future__ import annotations
 
@@ -22,10 +23,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ml_mdm_tpu_torch.language_models.t5 import T5Config, T5Encoder, init_t5_, load_t5_from_torch
 from ml_mdm_tpu_torch.language_models.tokenizer import Tokenizer
+from ml_mdm_tpu_torch.tracing import span
 
 
 class LanguageModel:
@@ -51,7 +52,7 @@ class LanguageModel:
             lm_outputs = torch.as_tensor(np.asarray(sample["text_embedding"]),
                                          dtype=torch.float32, device=self.device)
         else:
-            with record_function("text tower"):
+            with span("text tower"):
                 lm_outputs = self.encoder(tokens, lm_mask).float()
         return lm_outputs * lm_mask[..., None], lm_mask
 

@@ -47,6 +47,7 @@ from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.ops.attention import dot_product_attention
 from ml_mdm_tpu_torch.perf import perf
+from ml_mdm_tpu_torch.tracing import span
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
@@ -517,20 +518,21 @@ class SelfAttention(nn.Module):
         return out.reshape(b, lq, c)
 
     def forward(self, x, cond=None, cond_mask=None):
-        b, h, w, c = x.shape
-        dt = self.compute_dtype
-        qkv = dense(self.norm(x), self.qkv, dt).reshape(b, h * w, 3 * c)
-        q, k, v = qkv.chunk(3, dim=-1)
-        out = self._attention(q, k, v)
-        if self.cond_dim:
-            kv = dense(self.norm_cond(cond), self.kv_cond, dt)
-            k_c, v_c = kv.chunk(2, dim=-1)
-            out = out + self._attention(q, k_c, v_c, mask=cond_mask)
-        x = x + dense(out, self.proj_out, dt).reshape(b, h, w, c)
-        if self.use_attention_ffn:
-            f = self.ffn
-            x = x + dense(f[2](dense(f[0](x), f[1], dt)), f[3], dt)
-        return x
+        with span("unet: attention"):
+            b, h, w, c = x.shape
+            dt = self.compute_dtype
+            qkv = dense(self.norm(x), self.qkv, dt).reshape(b, h * w, 3 * c)
+            q, k, v = qkv.chunk(3, dim=-1)
+            out = self._attention(q, k, v)
+            if self.cond_dim:
+                kv = dense(self.norm_cond(cond), self.kv_cond, dt)
+                k_c, v_c = kv.chunk(2, dim=-1)
+                out = out + self._attention(q, k_c, v_c, mask=cond_mask)
+            x = x + dense(out, self.proj_out, dt).reshape(b, h, w, c)
+            if self.use_attention_ffn:
+                f = self.ffn
+                x = x + dense(f[2](dense(f[0](x), f[1], dt)), f[3], dt)
+            return x
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -706,7 +708,12 @@ class ResNetBlockStage(nn.Module):
     ``remat_above`` (None: off; set by ``trainer.make_train_step`` with
     ``remat``): in training, a stage whose convolutions run at a physical
     side (the packed tensor's for a packed stage) above it runs under
-    ``torch.utils.checkpoint`` and recomputes its forward in the backward."""
+    ``torch.utils.checkpoint`` and recomputes its forward in the backward.
+
+    ``path`` ("down", "mid" or "up") names the stage's span, "unet: down
+    <side>", "unet: mid" or "unet: up <side>", and remat's recompute opens
+    "remat: recompute <side>" (``tracing.py``); <side> is the unpacked
+    image side of the stage's input."""
 
     compute_dtype: Optional[torch.dtype] = None
     remat_above: Optional[int] = None
@@ -717,10 +724,11 @@ class ResNetBlockStage(nn.Module):
                  conditioning_feature_dim: int = -1, temporal_mode: bool = False,
                  temporal_pos_emb: bool = False, temporal_spatial_ds: bool = False,
                  num_temporal_attention_layers: Optional[int] = None,
-                 pack_min_side: int = 0):
+                 pack_min_side: int = 0, path: str = "down"):
         super().__init__()
         if downsample_output and upsample_output:
             raise ValueError("a stage either down- or upsamples")
+        self.path = path
         self.num_residual_blocks = num_residual_blocks
         self.num_attention_layers = num_attention_layers
         self.downsample_output = downsample_output
@@ -780,12 +788,19 @@ class ResNetBlockStage(nn.Module):
         packed = self._use_packing(x, packed_in)
         if packed_in and not packed:
             raise ValueError("packed_in needs a stage that packs at this side")
-        side = min(x.shape[1], x.shape[2]) // (2 if packed and not packed_in else 1)
-        if self.training and self.remat_above is not None and side > self.remat_above:
-            return checkpoint(self._forward, x, temb, skip_activations, conditioning,
-                              cond_mask, packed, packed_in, packed_out, use_reentrant=False)
-        return self._forward(x, temb, skip_activations, conditioning, cond_mask, packed,
-                             packed_in, packed_out)
+        image_side = min(x.shape[1], x.shape[2]) * (2 if packed_in else 1)
+        side = image_side // (2 if packed else 1)  # the convolutions'
+        args = (x, temb, skip_activations, conditioning, cond_mask, packed, packed_in, packed_out)
+        with span(lambda: "unet: mid" if self.path == "mid" else f"unet: {self.path} {image_side}"):
+            if self.training and self.remat_above is not None and side > self.remat_above:
+                return checkpoint(self._recompute, image_side, *args, use_reentrant=False)
+            return self._forward(*args)
+
+    def _recompute(self, image_side: int, *args):
+        """``_forward`` under remat: its recompute in the backward runs in
+        the span "remat: recompute <image_side>"."""
+        with span(lambda: f"remat: recompute {image_side}", backward=True):
+            return self._forward(*args)
 
     def _forward(self, x, temb, skip_activations, conditioning, cond_mask, packed: bool,
                  packed_in: bool, packed_out: bool):

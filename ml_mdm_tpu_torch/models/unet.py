@@ -53,6 +53,7 @@ from ml_mdm_tpu_torch.models.layers import (
 )
 from ml_mdm_tpu_torch.ops import fused_resnet
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
+from ml_mdm_tpu_torch.tracing import span
 
 
 def parse_micro_conditions(spec: Optional[str]) -> Optional[Dict[str, float]]:
@@ -199,8 +200,8 @@ class UNet(nn.Module):
         if not cfg.skip_mid_blocks:
             self.mid_blocks = nn.ModuleList([
                 ResNetBlockStage(tdim, 1, 1, False, False, [rc],
-                                 conditioning_feature_dim=cond_dim),
-                ResNetBlockStage(tdim, 1, 0, False, False, [copy.copy(rc)]),
+                                 conditioning_feature_dim=cond_dim, path="mid"),
+                ResNetBlockStage(tdim, 1, 0, False, False, [copy.copy(rc)], path="mid"),
             ])
 
         up = []
@@ -218,7 +219,7 @@ class UNet(nn.Module):
                 resnet_configs=stage_cfgs,
                 conditioning_feature_dim=(
                     cond_dim if i in cfg.attention_levels else -1),
-                pack_min_side=cfg.pack_min_side, **self._temporal_args(i),
+                pack_min_side=cfg.pack_min_side, path="up", **self._temporal_args(i),
             ))
         self.up_blocks = nn.ModuleList(up)
 
@@ -451,10 +452,12 @@ class UNet(nn.Module):
     def forward(self, x_t, times, conditioning=None, cond_mask=None, micros=None):
         """x_t (B, H, W, C_in), times (B,) int -> prediction (B, H, W, C_out)
         in the compute dtype (a nested U-Net takes and returns one image
-        per resolution, highest first)."""
-        cond_emb = None
-        if self.effective_cond_dim > 0:
-            cond_emb, conditioning, cond_mask = self.forward_conditioning(
-                conditioning, cond_mask)
-        return self.forward_denoising(x_t, times, cond_emb, conditioning,
-                                      cond_mask, micros)
+        per resolution, highest first). It runs in the span "unet: forward"
+        (``tracing.py``); a nested U-Net's inner levels open none."""
+        with span("unet: forward"):
+            cond_emb = None
+            if self.effective_cond_dim > 0:
+                cond_emb, conditioning, cond_mask = self.forward_conditioning(
+                    conditioning, cond_mask)
+            return self.forward_denoising(x_t, times, cond_emb, conditioning,
+                                          cond_mask, micros)

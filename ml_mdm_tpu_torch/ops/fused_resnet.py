@@ -62,11 +62,16 @@ sums) in one pass over x and that convolution; the weight gradient is the
 library's conv weight-gradient of pass B's bf16 activation or, packed,
 ``struct_wgrad``'s four products, as the JAX package leaves both to XLA. It
 stashes only x, a, b, w and, with ``emit_stats``, y: the SiLU input is
-recomputed from x. The backward, its passes and its two convolutions are
-named profiler ranges ("K3 backward", "K3 pass A (fold)", "K3 dx (K2)",
-"K3 pass B (chain)", "K3 dw (library)"), so a trace can split the
-backward's device time; a range costs a few microseconds of host time with
-the profiler off.
+recomputed from x. The backward, its passes and its two convolutions run
+in spans ("K3 backward", "K3 pass A (fold)", "K3 dx (K2)", "K3 pass B
+(chain)", "K3 dw (library)"; ``tracing.py``: profiler ranges while a
+profiler records), so a trace can split the backward's device time.
+
+Each forward K2 launch runs in the span of its modes (``k2_range``: "K2",
+"K2·N·proj", "K2·struct·pipe", ...), so a trace can give K2's device time
+without kernel names. No K2 span opens inside a backward pass: K3's data
+gradient runs under "K3 dx (K2)", and remat's recomputed forward under its
+own span.
 
 ``conv3x3_vjp`` is the differentiable identity-prologue convolution (a
 dropout ResNet's conv2, whose input is no affine-SiLU of a stored tensor):
@@ -81,10 +86,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ml_mdm_tpu_torch.ops import cuda_build, gn_stats, k3_passes
 from ml_mdm_tpu_torch.perf import perf
+from ml_mdm_tpu_torch.tracing import span
 
 # launches of the CUDA kernels since the counts were last set to 0: "K2"
 # counts every launch, "K2·N" those with more than one operand, "K2·proj"
@@ -494,9 +499,20 @@ def affine_silu_conv3x3(x, a, b, w, bias, residual=None, *,
     module's docstring)."""
     kw = dict(apply_silu=apply_silu, emit_stats=emit_stats, proj_kernel=proj_kernel,
               proj_bias=proj_bias, pipelined=pipelined, packed_struct=packed_struct)
-    if _as_tuple(x)[0].device.type == "cpu":
-        return affine_silu_conv3x3_plain(x, a, b, w, bias, residual, **kw)
-    return _launch(x, a, b, w, bias, residual, **kw)
+    xs = _as_tuple(x)
+    with span(lambda: k2_range(xs, w, proj_kernel is not None, pipelined, packed_struct)):
+        if xs[0].device.type == "cpu":
+            return affine_silu_conv3x3_plain(x, a, b, w, bias, residual, **kw)
+        return _launch(x, a, b, w, bias, residual, **kw)
+
+
+def k2_range(xs, w, proj: bool, pipelined, packed_struct: bool) -> str:
+    """The range of a forward K2 launch over the operands ``xs``: "K2" and
+    its modes in a fixed order, joined by "·" ("K2·N·proj", "K2·struct·pipe")."""
+    cs, (bsz, h, wd) = [xk.shape[-1] for xk in xs], xs[0].shape[:3]
+    pipe = pipelines(cs, bsz, h, wd, _kernels(w)[0].shape[-1], pipelined, packed_struct)
+    return "·".join(["K2"] + [m for m, on in (("N", len(xs) > 1), ("proj", proj),
+                                              ("struct", packed_struct), ("pipe", pipe)) if on])
 
 
 def conv3x3_fast(x, w, bias, residual=None, packed_struct: bool = False):
@@ -528,7 +544,7 @@ class _AffineSiluConv3x3(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, ds1=None, ds2=None):
-        with record_function("K3 backward"):
+        with span("K3 backward", backward=True):
             x, a, b, w, y = ctx.saved_tensors
             cout = w.shape[-1]
             if dy is None:
@@ -536,27 +552,27 @@ class _AffineSiluConv3x3(torch.autograd.Function):
             if ds1 is not None or ds2 is not None:
                 # dy' = dy + ds1 + 2 y ds2 in f32, rounded to dy's dtype, and
                 # its per-channel sums for dbias in the same pass
-                with record_function("K3 pass A (fold)"):
+                with span("K3 pass A (fold)", backward=True):
                     dy, dbias = k3_passes.fold(dy, y, ds1, ds2)
             else:
                 dbias = dy.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
             # data gradient: the 3x3 conv of dy with the flipped, io-transposed
             # weights, through K2's identity prologue (the plain version for a
             # CPU tensor)
-            with record_function("K3 dx (K2)"):
+            with span("K3 dx (K2)", backward=True):
                 ds = conv3x3_fast(dy, w.flip(0, 1).transpose(2, 3), None,
                                   packed_struct=ctx.packed_struct)
                 if dy.is_cuda:
                     launch_counts["K3"] += 1
             # the chain in f32: v = x a + b, dv = ds SiLU'(v), dx = dv a, the
             # activation s = SiLU(v) for the weight gradient, the (B, C) sums
-            with record_function("K3 pass B (chain)"):
+            with span("K3 pass B (chain)", backward=True):
                 dx, s_x, da, db = k3_passes.chain(x, ds, a, b)
             # weight gradient: the library's conv weight-gradient of the
             # stored activation against dy, in x's dtype (f32 accumulation
             # inside), or packed the 4 products of the combined taps, kept
             # in f32 (as the JAX package's two branches)
-            with record_function("K3 dw (library)"):
+            with span("K3 dw (library)", backward=True):
                 dy_x = dy.to(x.dtype)
                 if ctx.packed_struct:
                     dw = struct_wgrad(s_x, dy_x).to(w.dtype)
@@ -595,19 +611,19 @@ class _Conv3x3(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        with record_function("K3 backward (identity prologue)"):
+        with span("K3 backward (identity prologue)", backward=True):
             x, w = ctx.saved_tensors
             cout = w.shape[-1]
             # K3's backward without its chain: dx is the 3x3 conv of dy with
             # the flipped, io-transposed weights through K2's identity
             # prologue (the plain version for a CPU tensor)
-            with record_function("K3 dx (K2)"):
+            with span("K3 dx (K2)", backward=True):
                 dx = conv3x3_fast(dy, w.flip(0, 1).transpose(2, 3), None,
                                   packed_struct=ctx.packed_struct)
                 if dy.is_cuda:
                     launch_counts["K3"] += 1
                     launch_counts["K3·id"] += 1
-            with record_function("K3 dw (library)"):
+            with span("K3 dw (library)", backward=True):
                 dy_x = dy.to(x.dtype)
                 if ctx.packed_struct:
                     dw = struct_wgrad(x, dy_x).to(w.dtype)

@@ -60,8 +60,11 @@ update needs no masked copies of the parameters, moments and EMA. Adam is
 ``torch.optim.Adam`` (fused on CUDA), whose update is optax's: its bias
 corrections use its own step count, which advances only when ``step()``
 is called, and the learning rate is set to ``schedule(count)`` before
-each call. Adam and the EMA run in the profiler ranges "trainer: Adam"
-and "trainer: EMA".
+each call.
+
+The step runs in the span "trainer: step", the readback in "trainer:
+readback", Adam and the EMA in "trainer: Adam" and "trainer: EMA"
+(``tracing.py``: profiler ranges while a profiler records).
 """
 from __future__ import annotations
 
@@ -71,12 +74,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ml_mdm_tpu_torch.helpers import reproducible
 from ml_mdm_tpu_torch.lr_scaler import LRScaler
 from ml_mdm_tpu_torch.models.layers import invalidate_cached_weights
 from ml_mdm_tpu_torch.models.model_ema import EmaConfig, ema_update
+from ml_mdm_tpu_torch.tracing import span
 
 
 @dataclass
@@ -287,6 +290,10 @@ def make_train_step(pipeline, config: TrainerConfig,
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Dict[str, Any]] = None):
+        with span("trainer: step"):
+            return _train_step(state, batch, generator, noise)
+
+    def _train_step(state, batch, generator, noise):
         names = list(state.params)
         params: List[torch.Tensor] = list(state.params.values())
         layout = state.layout
@@ -324,7 +331,9 @@ def make_train_step(pipeline, config: TrainerConfig,
             # the global norm (the shards' squares summed over fsdp), so that
             # every process clips by one scalar and skips alike
             norm = layout.grad_norm(names, grads)
-        loss_v, norm_v = torch.stack([loss.float(), norm.float()]).tolist()
+        both = torch.stack([loss.float(), norm.float()])
+        with span("trainer: readback"):  # the host waits here for the step's device work
+            loss_v, norm_v = both.tolist()
         ok = math.isfinite(loss_v) and math.isfinite(norm_v)
         metrics = {"loss": loss_v, "grad_norm": norm_v, "skipped": int(not ok)}
         if ok:
@@ -334,11 +343,11 @@ def make_train_step(pipeline, config: TrainerConfig,
             if layout is not None:
                 for t, g in zip(local, grads):
                     t.grad = g
-            with record_function("trainer: Adam"):
+            with span("trainer: Adam"):
                 for group in state.optimizer.param_groups:
                     group["lr"] = schedule(adam_count(state.optimizer))
                 state.optimizer.step()
-            with record_function("trainer: EMA"):
+            with span("trainer: EMA"):
                 ema_update(state.ema_params.values(), local, state.step, ema_cfg)
             state.step += 1
             if layout is not None:
