@@ -12,7 +12,10 @@ weights from a seed:
      batch-64 forward held against its plain version and timed beside its
      bound and the library call (the shortcut's shapes also without the
      stats; K1's sums also held bitwise equal across two calls, with their
-     GB/s and share of the bound); batch 4, 4 DDIM steps, kernel path against
+     GB/s and share of the bound; K5's, the norms' coefficient math, each
+     held against its plain chain, bitwise equal across two calls, and timed
+     beside the chain on the device and on the host, whose time K5 is
+     for); batch 4, 4 DDIM steps, kernel path against
      plain path; two batch-64 DDIM-50 requests from one seed (the bench
      preset), bitwise equal; one batch-8 request with classifier-free
      guidance 5; one profiled forward.
@@ -33,7 +36,8 @@ weights from a seed:
      with the flash route on, K4 at that forward's shapes and one more such
      request.
   3. cc12m_1024x1024 (nested2: 1024px and 256px shells around the core):
-     every kernel launch shape of a batch-4 forward checked and timed; one
+     every kernel launch shape of a batch-4 forward checked and timed (K5's
+     at the benchmark cell's 16 rows); one
      untimed forward, then one request at ``bench.py`` ``sample_1024``'s
      batch and eta (batch 4, eta 1) with 50 DDIM steps of its 250; one
      ``output_inner`` call; one profiled forward.
@@ -205,9 +209,10 @@ over the 64px forward's shapes with the launches of the 64px batch-64
 request, K2·struct and K2·pipe during the 256px and 1024px matmul-route
 requests and the train_1024 preset's timed steps,
 K3 and its passes during the train_256 preset's timed steps, K4 during the
-flash-route requests, P1 and P2 during the probes' tables; K1-K2·pipe also
+flash-route requests, K5 during the 64px, 256px and 1024px matmul-route
+requests, P1 and P2 during the probes' tables; K1-K2·pipe and K5 also
 the web demo's requests, which ``server_launches`` gives apart; K1, K2 64px,
-K2·N, K2·proj and K3-K3·B also phase 9's CLI runs, ``cli_launches``, and
+K2·N, K2·proj, K5 and K3-K3·B also phase 9's CLI runs, ``cli_launches``, and
 phase 11's kernel route, ``gate_launches``; phases 12-14 add their
 launches, ``fsdp_launches``, ``cifar_launches`` and ``dp_sampler_launches``,
 and K3 the identity-prologue backwards apart, ``identity_launches``), its error
@@ -254,6 +259,8 @@ SAMPLE_MEAN_TOL = 1e-2  # 4-step sample, mean |kernel - plain| over pixels in [-
 SAMPLE_MAX_TOL = 0.25   # 4-step sample, max |kernel - plain|
 K4_TOL = 2e-2    # P and the output rounded to bf16; the JAX test of its kernel allows the same
 K3_SUM_TOL = 1e-4  # K3's pass sums (da, db, dbias): the same f32 values summed in another order
+K5_TOL = 1e-5      # K5's f32 (a, b): the same arithmetic, a group's sums in another order
+K5_LN_TOL = 1e-2   # K5's bf16 outputs: one bf16 rounding flipped by those last f32 bits
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_TENSOR = 989e12  # FLOP/s
@@ -821,6 +828,166 @@ def check_k4(keys, dev, label: str, steps: int):
     return tot
 
 
+# -- K5: the norms' coefficient math ------------------------------------------
+
+
+class GnKey(NamedTuple):
+    """One ``gn_coeffs`` launch shape: the operands' channels as K5 reads
+    them, groups, repeat, FiLM rows (0: none), positions a sum covers, and
+    the dtypes of the scale and bias, of the FiLM rows and of a and b."""
+    b: int
+    cs: tuple
+    groups: int
+    repeat: int
+    film_rows: int
+    n_spatial: int
+    pdtype: str
+    fdtype: str
+    odtype: str
+
+
+def record_k5_shapes(run):
+    """Run ``run()`` under ``no_grad`` with K5's wrappers wrapped, and return
+    its launch shapes with their launches in the run: GnKeys, and
+    ``layer_norm``'s (rows, C, weight dtype)."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import norm_coeffs
+
+    keys = {}
+    gn, ln = norm_coeffs.gn_coeffs, norm_coeffs.layer_norm
+
+    def gn_rec(s1, s2, n_spatial, scale, bias, groups, eps=1e-5, film=None, repeat=1,
+               dtype=torch.float32):
+        s1s = (s1,) if isinstance(s1, torch.Tensor) else tuple(s1)
+        key = GnKey(s1s[0].shape[0], tuple(t.shape[1] for t in s1s), groups, repeat,
+                    0 if film is None else film.shape[0], n_spatial, str(scale.dtype),
+                    str(scale.dtype if film is None else film.dtype), str(dtype))
+        keys[key] = keys.get(key, 0) + 1
+        return gn(s1, s2, n_spatial, scale, bias, groups, eps, film, repeat, dtype)
+
+    def ln_rec(x, weight, bias, eps=1e-5):
+        key = (x.numel() // x.shape[-1], x.shape[-1], str(weight.dtype))
+        keys[key] = keys.get(key, 0) + 1
+        return ln(x, weight, bias, eps)
+
+    norm_coeffs.gn_coeffs, norm_coeffs.layer_norm = gn_rec, ln_rec
+    try:
+        with torch.no_grad():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        norm_coeffs.gn_coeffs, norm_coeffs.layer_norm = gn, ln
+    return keys
+
+
+def k5_bound(key):
+    """(least ms, "bytes") of one K5 launch on the H100: its inputs read once
+    and its outputs written once over HBM (a few operations an element),
+    each in the dtype the launch was recorded with."""
+    size = {"torch.float32": 4, "torch.bfloat16": 2}
+    if isinstance(key, GnKey):
+        c = sum(key.cs)
+        nbytes = (2 * 4 * key.b * c + 2 * size[key.pdtype] * c // key.repeat
+                  + 2 * size[key.fdtype] * key.film_rows * c // key.repeat
+                  + 2 * size[key.odtype] * key.b * c)
+    else:
+        rows, c, wdt = key
+        nbytes = 2 * 2 * rows * c + 2 * size[wdt] * c
+    return 1e3 * nbytes / PEAK_HBM, "bytes"
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Microseconds of the host's time a call of fn (the enqueue: no
+    synchronise inside the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def check_k5(keys, dev, label: str):
+    """Each K5 launch shape (``keys``: shape -> launches in one forward): the
+    kernel against its plain version ((a, b) within K5_TOL of max|plain|;
+    ``layer_norm`` within K5_LN_TOL), two calls bitwise equal, then the
+    kernel's and the plain chain's device time (CUDA events) and host time
+    (the enqueue, what K5 is for) beside the bound. Returns the totals, with
+    the host microseconds a forward of each route (``host_us``,
+    ``plain_host_us``)."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import norm_coeffs
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    tot = _new_totals()
+    tot["host_us"] = tot["plain_host_us"] = 0.0
+    for key, per_forward in keys.items():
+        if isinstance(key, GnKey):
+            pdt, odt = getattr(torch, key.pdtype[6:]), getattr(torch, key.odtype[6:])
+            sums = [torch.rand((2, key.b, c), generator=g, device=dev) for c in key.cs]
+            s1s = [s[0] * key.n_spatial * 0.8 for s in sums]
+            s2s = [(s[1] + 1.0) * key.n_spatial for s in sums]
+            cu = sum(key.cs) // key.repeat
+            scale = (torch.randn((cu,), generator=g, device=dev) * 0.2 + 1).to(pdt)
+            bias = (torch.randn((cu,), generator=g, device=dev) * 0.3).to(pdt)
+            film = (torch.randn((key.film_rows, 2 * cu), generator=g, device=dev)
+                    .to(getattr(torch, key.fdtype[6:])) if key.film_rows else None)
+            s1, s2 = (s1s, s2s) if len(key.cs) > 1 else (s1s[0], s2s[0])
+            args = (s1, s2, key.n_spatial, scale, bias, key.groups)
+            kw = dict(film=film, repeat=key.repeat, dtype=odt)
+
+            def kernel():
+                return norm_coeffs.gn_coeffs(*args, **kw)
+
+            def plain():
+                return norm_coeffs.gn_coeffs_plain(*args, **kw)
+
+            name = (f"gn_coeffs B={key.b} C={'+'.join(map(str, key.cs))} groups {key.groups}"
+                    f" over {key.n_spatial} positions, repeat {key.repeat} film "
+                    f"{key.film_rows} {key.pdtype[6:]} -> {key.odtype[6:]}")
+        else:
+            rows, c, wdt = key
+            x = torch.randn((rows, c), generator=g, device=dev).to(torch.bfloat16)
+            w = (torch.randn((c,), generator=g, device=dev) * 0.2 + 1).to(getattr(torch, wdt[6:]))
+            bv = (torch.randn((c,), generator=g, device=dev) * 0.3).to(w.dtype)
+
+            def kernel():
+                return (norm_coeffs.layer_norm(x, w, bv),)
+
+            def plain():
+                return (norm_coeffs.layer_norm_plain(x, w, bv),)
+
+            name = f"layer_norm rows {rows} C={c} {wdt[6:]}"
+        out, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, a) for o, a in zip(out, again)):
+            raise AssertionError(f"K5 {name}: two calls differ (one fixed order a sum)")
+        ref = plain()
+        tol = K5_TOL if isinstance(key, GnKey) and out[0].dtype == torch.float32 else K5_LN_TOL
+        err = max(rel_err(o, r) for o, r in zip(out, ref))
+        if not err <= tol:
+            raise AssertionError(f"K5 {name}: rel err {err} > {tol}")
+        ms, pms = cuda_ms(kernel), cuda_ms(plain, warmup=1, reps=3)
+        hus, phus = host_us(kernel), host_us(plain)
+        bound, by = k5_bound(key)
+        log(f"{label} K5 {name}: rel_err {err:.3e}, two calls bitwise equal, kernel {ms:.4f} ms "
+            f"plain {pms:.4f} ms bound {bound:.4f} ms ({by}); host {hus:.1f} us a call against "
+            f"{phus:.1f} us plain; {per_forward} a forward")
+        _add(tot, max(abs_err(o, r) for o, r in zip(out, ref)), ms, pms, None, bound, by)
+        tot["host_us"] += per_forward * hus
+        tot["plain_host_us"] += per_forward * phus
+    log(f"{label} K5 over {tot['shapes']} shapes: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; the host's time a forward "
+        f"{tot['host_us'] / 1e3:.3f} ms against {tot['plain_host_us'] / 1e3:.3f} ms plain")
+    return tot
+
+
 def self_attention_count(unet) -> int:
     """The 2-D self-attention modules of a U-Net: each launches K4 once a
     forward on the flash route (at the shipped models' sides every one has
@@ -859,7 +1026,7 @@ def check_images(out, shape, what: str):
 # the kernels a path must launch: the 64px model never packs, so its
 # paths launch only the unpacked K2 (no K2·struct, no K2·pipe); the nested
 # paths add the packed modes their recorded launch shapes have (``modes``)
-SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj")
+SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj", "K5")
 FLASH_KERNELS = SAMPLING_KERNELS + ("K4",)
 TRAINING_KERNELS = ("K1", "K2", "K3", "K3·A", "K3·B")
 PACKED_MODES = ("K2·struct", "K2·pipe")
@@ -872,10 +1039,11 @@ def modes(k2_keys):
 
 
 def reset_counts():
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy
+    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, kernel_anatomy, norm_coeffs
     # fused_resnet's reset also sets K3's passes (ops/k3_passes.py) to 0
 
     gn_stats.launch_count = 0
+    norm_coeffs.launch_count = 0
     attention.launch_count = 0
     fused_resnet.reset_launch_counts()
     kernel_anatomy.reset_launch_counts()
@@ -886,11 +1054,12 @@ def read_counts(what: str, required=SAMPLING_KERNELS):
     (``required``) never launched, or a packed mode not in ``required``
     launched (a path that packs nothing runs every K2 launch on the unpacked
     kernel)."""
-    from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, k3_passes, kernel_anatomy
+    from ml_mdm_tpu_torch.ops import (attention, fused_resnet, gn_stats, k3_passes,
+                                      kernel_anatomy, norm_coeffs)
 
     counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts,
               **k3_passes.launch_counts, "K4": attention.launch_count,
-              **kernel_anatomy.launch_counts}
+              "K5": norm_coeffs.launch_count, **kernel_anatomy.launch_counts}
     log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
     if missing:
@@ -1102,6 +1271,8 @@ def path_64(dev):
         if modes(k2_keys):
             raise AssertionError(f"64px: packed launch shapes {modes(k2_keys)}")
         tot_64 = check_kernels(k2_keys, k1_keys, dev, "64px")
+        k5_keys = record_k5_shapes(forward_inputs(pipe, dev, 64, side, lm_dim))
+        tot_64["K5"] = check_k5(k5_keys, dev, "64px")
     with phase("64px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "64px")
     bench = dict(num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
@@ -1201,6 +1372,9 @@ def path_1024(dev):
         required = SAMPLING_KERNELS + modes(k2_keys)
         log(f"1024px: the request's forward launches {required}")
         totals = check_kernels(k2_keys, k1_keys, dev, "1024px")
+        # K5 at the 1024px cell's 16 rows (batch 8 with guidance)
+        k5_keys = record_k5_shapes(forward_inputs(pipe, dev, 16, side, lm_dim))
+        totals["K5"] = check_k5(k5_keys, dev, "1024px")
     with phase("1024px: one untimed forward, then the sample_1024 request"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2783,7 +2957,7 @@ def path_cli(dev, tower: str, preset_steps_s: float):
             shutil.rmtree(f"{out}/{run}", ignore_errors=True)  # ~11 GB a save
     cli = {"K1": counts_train["K1"] + counts_gen["K1"],
            "K2 64px": counts_train["K2"] + counts_gen["K2"],
-           **{k: counts_gen[k] for k in ("K2·N", "K2·proj")},
+           **{k: counts_gen[k] for k in ("K2·N", "K2·proj", "K5")},
            **{k: counts_train[k] for k in ("K3", "K3·A", "K3·B")}}
     return cli, result
 
@@ -3642,7 +3816,7 @@ def path_cifar(dev):
         torch.cuda.empty_cache()
     cifar = {"K1": counts_train["K1"] + counts_gen["K1"],
              "K2": counts_train["K2"] + counts_gen["K2"],
-             **{k: counts_gen[k] for k in ("K2·N", "K2·proj")},
+             **{k: counts_gen[k] for k in ("K2·N", "K2·proj", "K5")},
              **{k: counts_train[k] for k in ("K3", "K3·A", "K3·B", "K3·id")}}
     return cifar, shapes, result
 
@@ -3744,7 +3918,7 @@ def path_dp_sampler(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return {"K1": counts["K1"], "K2 64px": counts["K2"],
-            **{k: counts[k] for k in ("K2·N", "K2·proj")}}, result
+            **{k: counts[k] for k in ("K2·N", "K2·proj", "K5")}}, result
 
 
 # ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
@@ -3892,7 +4066,9 @@ def main() -> int:
 
     # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
     # slices), K2·struct and K2·pipe over those and the train_1024 step's
+    k5_64, k5_1024 = tot_64.pop("K5"), tot_1024.pop("K5")
     totals = merge_totals(tot_256, tot_1024)
+    totals["K5"] = merge_totals({"K5": k5_64}, {"K5": k5_1024})["K5"]
     for mode in ("K2·struct", "K2·pipe"):
         totals[mode] = merge_totals(tot_256, tot_1024, tot_t1024)[mode]
     totals.update(tot_k3)
@@ -3905,9 +4081,11 @@ def main() -> int:
     launches.update({k: counts_train[k] for k in ("K3", "K3·A", "K3·B")})
     launches["K2 64px"] = counts_64["K2"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
+    launches["K5"] = counts_64["K5"] + counts_256["K5"] + counts_1024["K5"]
     launches.update({k: counts_probes[k] for k in ("P1", "P2")})
     # the web demo's requests run the nested forward's kernels too
-    server = {k: counts_demo[k] for k in ("K1", "K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe")}
+    server = {k: counts_demo[k]
+              for k in ("K1", "K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe", "K5")}
     for k, v in server.items():
         launches[k] += v
     # the CLIs' runs: the 64px model's training steps and generate_batch
@@ -3915,7 +4093,7 @@ def main() -> int:
         launches[k] += v
     # the quality gate's kernel route: its 500 steps and its four probes
     gate = {"K1": gate_train["K1"] + gate_probe["K1"], "K2": gate_train["K2"] + gate_probe["K2"],
-            **{k: gate_probe[k] for k in ("K2·N", "K2·proj")},
+            **{k: gate_probe[k] for k in ("K2·N", "K2·proj", "K5")},
             **{k: gate_train[k] for k in ("K3", "K3·A", "K3·B")}}
     for k, v in gate.items():
         launches[k] += v
@@ -3930,9 +4108,11 @@ def main() -> int:
         f"{counts_1024['K2·struct']} + {counts_t1024['K2·struct']} and {counts_256['K2·pipe']} + "
         f"{counts_1024['K2·pipe']} + {counts_t1024['K2·pipe']}), the train_256 preset's timed "
         f"steps (K3, K3·A, K3·B), the flash-route "
-        f"requests (64px and 256px; K4) and the probes' tables (P1, P2), and, for K1-K2·pipe, "
-        f"the web demo's four requests ({server}), and, for K1, K2 64px, K2·N, K2·proj and "
-        f"K3-K3·B, the CLIs' runs ({cli}), and, for K1, K2, K2·N, K2·proj and K3-K3·B, the "
+        f"requests (64px and 256px; K4), the 64px, 256px and 1024px matmul-route requests (K5: "
+        f"{counts_64['K5']} + {counts_256['K5']} + {counts_1024['K5']}) and the probes' tables "
+        f"(P1, P2), and, for K1-K2·pipe and K5, "
+        f"the web demo's four requests ({server}), and, for K1, K2 64px, K2·N, K2·proj, K5 and "
+        f"K3-K3·B, the CLIs' runs ({cli}), and, for K1, K2, K2·N, K2·proj, K5 and K3-K3·B, the "
         f"quality gate's kernel route ({gate}): {launches}")
     log(f"CLIs: {cli_result}")
     log(f"FSDP (phase 12): launches {fsdp}; {fsdp_result}")
@@ -4034,6 +4214,12 @@ def main() -> int:
               "ml_mdm_tpu/ops/fused_resnet.py:782", library=False),
         entry("flash_attention", "K4", "cuda", "ml_mdm_tpu_torch/csrc/flash_attention.cu",
               "ml_mdm_tpu/ops/attention.py:130"),
+        # no TPU kernel: the norms' coefficient math, which XLA fuses in the
+        # JAX package; host_us is its enqueue time over a forward of each
+        # shape's launches (64px batch 64 and 1024px at 16 rows)
+        entry("norm_coeffs (gn_coeffs, layer_norm)", "K5", "triton",
+              "ml_mdm_tpu_torch/ops/norm_coeffs.py", None, library=False,
+              host_us="host_us", plain_host_us="plain_host_us"),
         # one PyTorch call computes two of P1's variants (its 1-tap product
         # and its copy): library_ms sums those, library_kernel_ms is the
         # kernel's time on the same two; none computes a P2 variant. The

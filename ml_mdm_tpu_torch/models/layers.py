@@ -13,9 +13,11 @@ while the parameters do not change (``cached_weights``).
 Modules that own a hand kernel carry a ``kernels`` attribute (default
 True). With it, the ResNet block and every 4-D bf16 GroupNorm call the
 kernel wrappers, which launch the kernel on a CUDA tensor and run the
-plain version on a CPU tensor. ``UNet.use_kernels(False)`` makes them call
-the plain versions on any device, so the two paths can be compared on the
-card.
+plain version on a CPU tensor; the bf16 norms' coefficient math (the
+ResNet's, GroupNorm's, LayerNorm's) goes through K5 where no input needs
+a gradient (``k5_or_plain``: sampling), one launch a norm.
+``UNet.use_kernels(False)`` makes them call the plain versions on any
+device, so the two paths can be compared on the card.
 
 Modules with conv or dense weights carry a ``compute_dtype`` (None: the
 weights' own dtype; ``UNet.set_compute_dtype`` sets it). As a Flax module
@@ -43,8 +45,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ml_mdm_tpu_torch.config import ResNetConfig
-from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats
+from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats, norm_coeffs
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
+from ml_mdm_tpu_torch.ops.norm_coeffs import gn_affine_from_moments
 from ml_mdm_tpu_torch.ops.attention import dot_product_attention
 from ml_mdm_tpu_torch.perf import perf
 from ml_mdm_tpu_torch.tracing import span
@@ -115,53 +118,52 @@ def tokens_to_frames(y: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
     return y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4).reshape(b * t, h, w, c)
 
 
-def _gn_affine_from_moments(mean, var, scale, bias, g, eps: float):
-    """(B, g) moments -> (a, b), each (B, C) f32, with
-    GroupNorm(x) * scale + bias == x * a + b."""
-    bsz = mean.shape[0]
-    c = scale.shape[0]
-    inv = torch.rsqrt(var + eps)
-    inv_c = inv[:, :, None].expand(bsz, g, c // g).reshape(bsz, c)
-    mean_c = mean[:, :, None].expand(bsz, g, c // g).reshape(bsz, c)
-    a = inv_c * scale.float()
-    return a, bias.float() - mean_c * a
-
-
-def group_norm_coeffs_from_sums(s1, s2, n_spatial: int, scale, bias, g: int,
-                                eps: float = 1e-5):
-    """GroupNorm coefficients from per-channel spatial sums s1, s2 (B, C)
-    f32 over ``n_spatial`` positions: the one-pass E[x^2] - mean^2 form."""
-    bsz, c = s1.shape
-    n = n_spatial * (c // g)
-    mean = s1.reshape(bsz, g, c // g).sum(-1) / n
-    msq = s2.reshape(bsz, g, c // g).sum(-1) / n
-    var = torch.clamp(msq - mean.square(), min=0.0)
-    return _gn_affine_from_moments(mean, var, scale, bias, g, eps)
+def k5_or_plain(kernel, plain, kernels: bool, xs, *params):
+    """The function a norm's coefficient math calls: ``kernel``, K5's one
+    launch (``ops/norm_coeffs.py``), where the module's ``kernels`` is on,
+    the activations ``xs`` are bf16 (f32 keeps its plain form) and no input
+    needs a gradient (K5 has no backward: training keeps the plain,
+    differentiable chain, as the flash route keeps its rule); else
+    ``plain``."""
+    if (kernels and all(x.dtype == torch.bfloat16 for x in xs)
+            and not norm_coeffs.needs_grad(*xs, *params)):
+        return kernel
+    return plain
 
 
 def group_norm_coeffs(x, scale, bias, g: int, eps: float = 1e-5,
-                      kernels: bool = True):
-    """(a, b), each (B, C) f32, with x * a + b == GroupNorm(x)*scale + bias.
+                      kernels: bool = True, repeat: int = 1,
+                      dtype: torch.dtype = torch.float32):
+    """(a, b), each (B, C) in ``dtype``, with x * a + b ==
+    GroupNorm(x) * scale + bias; ``scale`` and ``bias`` are repeated
+    ``repeat`` times per channel (a packed stage's, c-major).
 
-    bf16: one-pass E[x^2] - mean^2 from the spatial sums (kernel K1 on a
-    4-D CUDA tensor when ``kernels``). f32: the centred two-pass form, where
-    the cancellation of the one-pass form would lose real precision."""
+    bf16: one-pass E[x^2] - mean^2 from the spatial sums (kernels K1 and K5
+    on a CUDA tensor when ``kernels``, see ``group_norm_coeffs_concat``).
+    f32: the centred two-pass form, where the cancellation of the one-pass
+    form would lose real precision."""
     if x.dtype == torch.bfloat16:
-        return group_norm_coeffs_concat((x,), scale, bias, g, eps, kernels)
+        return group_norm_coeffs_concat((x,), scale, bias, g, eps, kernels, repeat, dtype)
+    if repeat > 1:
+        scale, bias = (v.repeat_interleave(repeat, dim=-1) for v in (scale, bias))
     bsz, c = x.shape[0], x.shape[-1]
     xg = x.float().reshape(bsz, -1, g, c // g)
     mean = xg.mean(dim=(1, 3))
     var = (xg - mean[:, None, :, None]).square().mean(dim=(1, 3))
-    return _gn_affine_from_moments(mean, var, scale, bias, g, eps)
+    a, b = gn_affine_from_moments(mean, var, scale, bias, g, eps)
+    return a.to(dtype), b.to(dtype)
 
 
 def group_norm_coeffs_concat(xs, scale, bias, g: int, eps: float = 1e-5,
-                             kernels: bool = True):
+                             kernels: bool = True, repeat: int = 1,
+                             dtype: torch.dtype = torch.float32):
     """GroupNorm coefficients of the channel concatenation of ``xs``
     without building it (``group_norm_coeffs_concat`` of the JAX package):
     per-operand spatial sums (kernel K1 on 4-D bf16 CUDA tensors when
-    ``kernels``), concatenated along channels, then the one-pass
-    E[x^2] - mean^2 form in every dtype, as the JAX function computes it."""
+    ``kernels``), then the one-pass E[x^2] - mean^2 form in every dtype, as
+    the JAX function computes it: through K5, which reads each operand's
+    sums in place, where ``k5_or_plain`` picks it, else the plain chain on
+    the concatenated sums."""
     s1s, s2s = [], []
     for x in xs:
         if x.dtype == torch.bfloat16 and x.dim() == 4 and kernels:
@@ -171,8 +173,9 @@ def group_norm_coeffs_concat(xs, scale, bias, g: int, eps: float = 1e-5,
         s1s.append(s1)
         s2s.append(s2)
     n_spatial = xs[0][0, ..., 0].numel()
-    return group_norm_coeffs_from_sums(torch.cat(s1s, dim=-1), torch.cat(s2s, dim=-1),
-                                       n_spatial, scale, bias, g, eps)
+    coeffs = k5_or_plain(norm_coeffs.gn_coeffs, norm_coeffs.gn_coeffs_plain, kernels, xs,
+                         scale, bias)
+    return coeffs(s1s, s2s, n_spatial, scale, bias, g, eps, repeat=repeat, dtype=dtype)
 
 
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +184,9 @@ def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class GroupNormF32(nn.Module):
-    """GroupNorm with f32 statistics, applied as one x * a + b in x's dtype."""
+    """GroupNorm with f32 statistics, applied as one x * a + b in x's dtype.
+    On the kernel route a bf16 x takes K1, K5 (a and b written in x's
+    dtype) and the product and sum: four launches."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__()
@@ -190,35 +195,27 @@ class GroupNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.kernels = True
 
-    def affine_coeffs(self, x):
-        return group_norm_coeffs(x, self.weight, self.bias, self.num_groups,
-                                 kernels=self.kernels)
-
     def forward(self, x):
-        a, b = self.affine_coeffs(x)
+        a, b = group_norm_coeffs(x, self.weight, self.bias, self.num_groups,
+                                 kernels=self.kernels, dtype=x.dtype)
         return x * _bcast(a, x) + _bcast(b, x)
 
 
 class LayerNormF32(nn.Module):
-    """LayerNorm over the last axis with f32 statistics."""
+    """LayerNorm over the last axis with f32 statistics
+    (``norm_coeffs.layer_norm_plain``); a bf16 x takes K5's one launch where
+    ``k5_or_plain`` picks it."""
 
     def __init__(self, num_channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.kernels = True
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        if x.dtype == torch.bfloat16:
-            var = torch.clamp(xf.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
-        else:
-            var = (xf - mean).square().mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(var + 1e-5)
-        scale = self.weight.float()
-        a = (inv * scale).to(x.dtype)
-        b = (self.bias.float() - mean * inv * scale).to(x.dtype)
-        return x * a + b
+        norm = k5_or_plain(norm_coeffs.layer_norm, norm_coeffs.layer_norm_plain, self.kernels,
+                           (x,), self.weight, self.bias)
+        return norm(x, self.weight, self.bias)
 
 
 def _identity(v):
@@ -318,18 +315,18 @@ class ResNet(nn.Module):
               else fused_resnet.affine_silu_conv3x3_plain)
         return fn(*args, **kw)
 
-    def _norm2_film(self, h, hs1, hs2, temb, scale2, bias2, vec=_identity):
+    def _norm2_film(self, h, hs1, hs2, temb, packed: bool):
         """norm2's coefficients from conv1's output sums, with FiLM folded
-        in: norm2(h) * (1 + ta) + tb == h * a2 + b2 (``vec`` packs the
-        per-channel FiLM vectors; ``scale2``, ``bias2`` are norm2's, packed
-        alike)."""
-        t = dense(F.silu(temb), self.time_layer, self.compute_dtype).float()
-        if h.shape[0] > t.shape[0]:  # temporal: (b t) rows share their video's temb
-            t = t.repeat_interleave(h.shape[0] // t.shape[0], dim=0)
-        ta, tb = (vec(v) for v in t.chunk(2, dim=-1))
-        a2, b2 = group_norm_coeffs_from_sums(
-            hs1, hs2, h.shape[1] * h.shape[2], scale2, bias2, self.config.num_groups_norm)
-        return a2 * (1.0 + ta), b2 * (1.0 + ta) + tb
+        in: norm2(h) * (1 + ta) + tb == h * a2 + b2, the per-channel
+        vectors repeated 4 times when ``packed``. One K5 launch after the
+        time layer where ``k5_or_plain`` picks it; a temporal block's (b t)
+        rows share their video's time-layer row."""
+        t = dense(F.silu(temb), self.time_layer, self.compute_dtype)
+        n = self.norm2
+        coeffs = k5_or_plain(norm_coeffs.gn_coeffs, norm_coeffs.gn_coeffs_plain, self.kernels,
+                             (h,), t, n.weight, n.bias)
+        return coeffs(hs1, hs2, h.shape[1] * h.shape[2], n.weight, n.bias,
+                      self.config.num_groups_norm, film=t, repeat=4 if packed else 1)
 
     def _shortcut_kernel(self, packed: bool) -> torch.Tensor:
         """conv3 as a (Cin, Cout) matrix, block-diagonal (4Cin, 4Cout) packed."""
@@ -347,8 +344,7 @@ class ResNet(nn.Module):
                                    self.config.num_groups_norm, kernels=self.kernels)
         h, hs1, hs2 = conv(x, a1, b1, kernel(self.conv1.weight.permute(2, 3, 1, 0)),
                            vec(self.conv1.bias), emit_stats=True, packed_struct=packed)
-        a2, b2 = self._norm2_film(h, hs1, hs2, temb, vec(self.norm2.weight),
-                                  vec(self.norm2.bias), vec)
+        a2, b2 = self._norm2_film(h, hs1, hs2, temb, packed)
         if hasattr(self, "conv3"):
             dt = self.compute_dtype or self.conv3.weight.dtype
             res = F.linear(x.to(dt), self._shortcut_kernel(packed).t().to(dt),
@@ -374,22 +370,21 @@ class ResNet(nn.Module):
         return conv(h, a2, b2, w2, bias2, res, packed_struct=packed)
 
     def _sampling_weights(self, cuts, packed: bool):
-        """The sampling forward's weights: norm1's and norm2's scale and bias,
-        conv1's kernel per operand slice ``cuts`` (of the unpacked input
-        channels) and its bias, the shortcut's matrices per slice and bias,
-        conv2's kernel and bias, built once per parameter version. The
-        kernels and the shortcut's matrices are ``K2Weights``, which keep
-        K2's device layout of them (packed or not) once a launch has made
-        it. Packed: the vectors repeated, the kernels in K2·struct's
-        combined form (each operand's slice packed on its own: pack(concat)
-        == concat(pack) in the c-major order), the shortcut block-diagonal."""
+        """The sampling forward's weights: conv1's kernel per operand slice
+        ``cuts`` (of the unpacked input channels) and its bias, the
+        shortcut's matrices per slice and bias, conv2's kernel and bias,
+        built once per parameter version. The kernels and the shortcut's
+        matrices are ``K2Weights``, which keep K2's device layout of them
+        (packed or not) once a launch has made it. Packed: the biases
+        repeated, the kernels in K2·struct's combined form (each operand's
+        slice packed on its own: pack(concat) == concat(pack) in the c-major
+        order), the shortcut block-diagonal. The norms read their own
+        vectors (``repeat``)."""
         def build():
             vec = s2d.pack_channel_vector if packed else _identity
             kernel = packed_struct_kernel if packed else _identity
             w1 = self.conv1.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
             out = {
-                "norm1": (vec(self.norm1.weight), vec(self.norm1.bias)),
-                "norm2": (vec(self.norm2.weight), vec(self.norm2.bias)),
                 "w1": tuple(kernel(w1[:, :, lo:hi]) for lo, hi in cuts),
                 "b1": vec(self.conv1.bias),
                 "w2": kernel(self.conv2.weight.permute(2, 3, 1, 0)),
@@ -405,7 +400,7 @@ class ResNet(nn.Module):
                     out[name] = fused_resnet.K2Weights(out[name])
             return out
 
-        modules = [m for m in self.children() if m is not self.time_layer]
+        modules = [self.conv1, self.conv2] + ([self.conv3] if hasattr(self, "conv3") else [])
         return cached_weights(self, (tuple(cuts), packed), modules, build)
 
     def forward(self, x, temb, packed: bool = False):
@@ -419,11 +414,13 @@ class ResNet(nn.Module):
         bounds = list(itertools.accumulate([xi.shape[-1] // m for xi in xs], initial=0))
         cuts = list(zip(bounds, bounds[1:]))
         wts = self._sampling_weights(cuts, packed)
-        scale1, bias1 = wts["norm1"]
+        n1 = self.norm1
         if len(xs) > 1:
-            a1, b1 = group_norm_coeffs_concat(xs, scale1, bias1, g, kernels=self.kernels)
+            a1, b1 = group_norm_coeffs_concat(xs, n1.weight, n1.bias, g, kernels=self.kernels,
+                                              repeat=m)
         else:
-            a1, b1 = group_norm_coeffs(xs[0], scale1, bias1, g, kernels=self.kernels)
+            a1, b1 = group_norm_coeffs(xs[0], n1.weight, n1.bias, g, kernels=self.kernels,
+                                       repeat=m)
         kw = {"emit_stats": True, "packed_struct": packed}
         if "proj_kernel" in wts:
             kw["proj_kernel"], kw["proj_bias"] = wts["proj_kernel"], wts["proj_bias"]
@@ -435,8 +432,7 @@ class ResNet(nn.Module):
             res = out[3]
         else:
             res = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
-        a2, b2 = self._norm2_film(h, hs1, hs2, temb, *wts["norm2"],
-                                  s2d.pack_channel_vector if packed else _identity)
+        a2, b2 = self._norm2_film(h, hs1, hs2, temb, packed)
         return self._conv(h, a2, b2, wts["w2"], wts["b2"], res, packed_struct=packed)
 
 

@@ -404,22 +404,20 @@ class UNet(nn.Module):
         prediction is unpacked."""
         if not packed:
             return conv2d_nhwc(F.silu(self.norm_out(x)), self.conv_out, self.dtype)
-        n, vec = self.norm_out, s2d.pack_channel_vector
+        n = self.norm_out
         k, bias = self.conv_out.weight.permute(2, 3, 1, 0), self.conv_out.bias
         fast = self.kernels and not self.training
 
         def build():
-            if not fast:
-                return vec(n.weight), vec(n.bias), None, None
             # the kernel stores whole groups of 8 output channels: the 12 of the
             # packed image get zero weights up to 16, and the extra are dropped
-            wq, bq = packed_struct_kernel(k), vec(bias)
+            wq, bq = packed_struct_kernel(k), s2d.pack_channel_vector(bias)
             pad = -wq.shape[-1] % 8
-            return vec(n.weight), vec(n.bias), F.pad(wq, (0, pad)), F.pad(bq, (0, pad))
+            return F.pad(wq, (0, pad)), F.pad(bq, (0, pad))
 
-        scale, shift, wq, bq = cached_weights(self, ("conv_out", fast), [n, self.conv_out], build)
-        a, b = group_norm_coeffs(x, scale, shift, n.num_groups, kernels=n.kernels)
+        a, b = group_norm_coeffs(x, n.weight, n.bias, n.num_groups, kernels=n.kernels, repeat=4)
         if fast:
+            wq, bq = cached_weights(self, "conv_out", [self.conv_out], build)
             y = fused_resnet.affine_silu_conv3x3(x, a, b, wq, bq, packed_struct=True)
             y = y[..., :4 * k.shape[-1]]
         else:

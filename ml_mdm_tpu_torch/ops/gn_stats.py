@@ -102,8 +102,12 @@ class _SpatialSums(torch.autograd.Function):
 
 def spatial_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W, C) -> (s1, s2): (B, C) f32, differentiable. A CPU tensor
-    takes the plain version; a CUDA tensor launches the Triton kernel."""
-    return _SpatialSums.apply(x)
+    takes the plain version; a CUDA tensor launches the Triton kernel. An x
+    that needs no gradient skips the autograd wrapper (the same launch,
+    less host work)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SpatialSums.apply(x)
+    return spatial_sums_plain(x) if x.device.type == "cpu" else _launch(x)
 
 
 @functools.cache
