@@ -15,7 +15,11 @@ weights from a seed:
      GB/s and share of the bound; K5's, the norms' coefficient math, each
      held against its plain chain, bitwise equal across two calls, and timed
      beside the chain on the device and on the host, whose time K5 is
-     for); batch 4, 4 DDIM steps, kernel path against
+     for; K6's, the 2-D attention's self and text branches in one launch,
+     each held against its plain version and the matmul route, bitwise
+     equal across two calls, and timed beside the route, the library call
+     and the bound on the device and beside the route on the host); batch
+     4, 4 DDIM steps, kernel path against
      plain path; two batch-64 DDIM-50 requests from one seed (the bench
      preset), bitwise equal; one batch-8 request with classifier-free
      guidance 5; one profiled forward.
@@ -37,7 +41,7 @@ weights from a seed:
      request.
   3. cc12m_1024x1024 (nested2: 1024px and 256px shells around the core):
      every kernel launch shape of a batch-4 forward checked and timed (K5's
-     at the benchmark cell's 16 rows); one
+     and K6's at the benchmark cell's 16 rows); one
      untimed forward, then one request at ``bench.py`` ``sample_1024``'s
      batch and eta (batch 4, eta 1) with 50 DDIM steps of its 250; one
      ``output_inner`` call; one profiled forward.
@@ -209,8 +213,8 @@ over the 64px forward's shapes with the launches of the 64px batch-64
 request, K2·struct and K2·pipe during the 256px and 1024px matmul-route
 requests and the train_1024 preset's timed steps,
 K3 and its passes during the train_256 preset's timed steps, K4 during the
-flash-route requests, K5 during the 64px, 256px and 1024px matmul-route
-requests, P1 and P2 during the probes' tables; K1-K2·pipe and K5 also
+flash-route requests, K5 and K6 during the 64px, 256px and 1024px
+matmul-route requests, P1 and P2 during the probes' tables; K1-K2·pipe and K5 also
 the web demo's requests, which ``server_launches`` gives apart; K1, K2 64px,
 K2·N, K2·proj, K5 and K3-K3·B also phase 9's CLI runs, ``cli_launches``, and
 phase 11's kernel route, ``gate_launches``; phases 12-14 add their
@@ -261,6 +265,10 @@ K4_TOL = 2e-2    # P and the output rounded to bf16; the JAX test of its kernel 
 K3_SUM_TOL = 1e-4  # K3's pass sums (da, db, dbias): the same f32 values summed in another order
 K5_TOL = 1e-5      # K5's f32 (a, b): the same arithmetic, a group's sums in another order
 K5_LN_TOL = 1e-2   # K5's bf16 outputs: one bf16 rounding flipped by those last f32 bits
+# K6 against its plain version and the matmul route: two bf16 ULPs of the
+# largest output (the route rounds each branch and their sum, K6 once; a
+# logit's bf16 rounding flipped by f32 sums in another order now and then)
+K6_TOL = 2.0 ** -6
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_TENSOR = 989e12  # FLOP/s
@@ -713,7 +721,7 @@ def merge_totals(*parts):
     for p in parts:
         for m, t in p.items():
             for k, v in t.items():
-                out[m][k] = max(out[m][k], v) if k == "err" else out[m][k] + v
+                out[m][k] = max(out[m][k], v) if k.endswith("err") else out[m][k] + v
     return out
 
 
@@ -988,6 +996,147 @@ def check_k5(keys, dev, label: str):
     return tot
 
 
+# -- K6: the 2-D attention's two branches in one launch ----------------------
+
+
+class K6Key(NamedTuple):
+    """One K6 launch shape: batch rows, self length (0: no self branch),
+    text length (0: none), heads, head width, a text mask, an addend (K4's
+    output on the flash route)."""
+    b: int
+    length: int
+    lt: int
+    heads: int
+    d: int
+    masked: bool
+    add: bool
+
+
+def record_k6_shapes(run):
+    """Run ``run()`` under ``no_grad`` with K6's wrapper wrapped, and return
+    its launch shapes with their launches in the run, after checking that
+    q was a strided view (a chunk of the qkv tensor), not a copy."""
+    import torch
+
+    from ml_mdm_tpu_torch.ops import attention
+
+    keys = {}
+    k6 = attention.two_branch_attention
+
+    def rec(q, k, v, k_c=None, v_c=None, mask=None, add=None):
+        if q.is_contiguous():
+            raise AssertionError("K6 was handed a contiguous copy, not the qkv chunk")
+        key = K6Key(q.shape[0], 0 if k is None else q.shape[1],
+                    0 if k_c is None else k_c.shape[1], q.shape[2], q.shape[3],
+                    mask is not None, add is not None)
+        keys[key] = keys.get(key, 0) + 1
+        return k6(q, k, v, k_c, v_c, mask, add=add)
+
+    attention.two_branch_attention = rec
+    try:
+        with torch.no_grad():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        attention.two_branch_attention = k6
+    return keys
+
+
+def k6_bound(key: K6Key):
+    """(least ms, what bounds it) of one K6 launch on the H100: the route's
+    two products a branch, 4 B H L (L + Lt) D FLOPs, over the dense bf16
+    tensor-core peak, or q, k, v, k_c, v_c and the output once in bf16 over
+    HBM, the larger."""
+    rows = key.b * key.heads
+    t_ops = 4 * rows * key.length * (key.length + key.lt) * key.d / PEAK_BF16_TENSOR
+    t_bytes = 2 * rows * key.d * (4 * key.length + 2 * key.lt) / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def check_k6(keys, dev, label: str):
+    """Each K6 launch shape (``keys``: shape -> launches in one forward), on
+    the chunks of one qkv and one kv tensor as the model hands them over:
+    the kernel against its plain version and against ``matmul_attention``
+    plus the sum (K6_TOL of max|reference|), two calls bitwise equal, then
+    the kernel's device time (CUDA events) beside the route's (the two
+    ``matmul_attention`` calls and the sum it replaces), the library's
+    (``scaled_dot_product_attention`` on the same views, both branches and
+    the sum; timed only) and the bound, and the host's time a call of the
+    kernel and of the route. Returns the totals, with the host microseconds
+    a forward of each (``host_us``, ``route_host_us``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ml_mdm_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    tot = _new_totals()
+    tot["host_us"] = tot["route_host_us"] = tot["route_err"] = 0.0
+    for key, per_forward in keys.items():
+        if not key.length or key.add:
+            raise AssertionError(f"K6 {key}: the matmul route's forward gives K6 both branches")
+        bsz, heads, d = key.b, key.heads, key.d
+        qkv = torch.randn((bsz, key.length, 3 * heads * d), generator=g, device=dev)
+        q, k, v = (t.to(torch.bfloat16).reshape(bsz, key.length, heads, d)
+                   for t in qkv.chunk(3, dim=-1))
+        k_c = v_c = mask = None
+        if key.lt:
+            kv = torch.randn((bsz, key.lt, 2 * heads * d), generator=g, device=dev)
+            k_c, v_c = (t.to(torch.bfloat16).reshape(bsz, key.lt, heads, d)
+                        for t in kv.chunk(2, dim=-1))
+            if key.masked:
+                mask = torch.rand((bsz, key.lt), generator=g, device=dev) > 0.3
+                mask[:, 0] = True
+        args = (q, k, v, k_c, v_c, mask)
+
+        def kernel():
+            return attention.two_branch_attention(*args)
+
+        def route():
+            out = attention.matmul_attention(q, k, v)
+            return out if k_c is None else out + attention.matmul_attention(q, k_c, v_c, mask)
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kct, vct = (None, None) if k_c is None else (k_c.transpose(1, 2), v_c.transpose(1, 2))
+        mt = None if mask is None else mask[:, None, None, :]
+
+        def library():
+            out = F.scaled_dot_product_attention(qt, kt, vt, scale=d ** -0.5)
+            if kct is not None:
+                out = out + F.scaled_dot_product_attention(qt, kct, vct, attn_mask=mt,
+                                                           scale=d ** -0.5)
+            return out.transpose(1, 2)
+
+        out, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        name = (f"B={bsz} L={key.length} Lt={key.lt} H={heads} D={d}"
+                f"{' masked' if key.masked else ''}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K6 {name}: two calls differ")
+        ref = attention.two_branch_attention_plain(*args)
+        err, route_err = rel_err(out, ref), rel_err(out, route())
+        if not (err <= K6_TOL and route_err <= K6_TOL and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"K6 {name}: rel err {err} (plain), {route_err} (route) > "
+                                 f"{K6_TOL}")
+        ms, rms, lms = cuda_ms(kernel), cuda_ms(route), cuda_ms(library)
+        hus, rhus = host_us(kernel), host_us(route)
+        bound, by = k6_bound(key)
+        log(f"{label} K6 {name}: rel_err {err:.3e} (the route: {route_err:.3e}), two calls "
+            f"bitwise equal, kernel {ms:.4f} ms ({bound / ms:.3f} of the bound) route "
+            f"{rms:.4f} ms library {lms:.4f} ms ({ms / lms:.3f}x) bound {bound:.4f} ms ({by}); "
+            f"host {hus:.1f} us a call against {rhus:.1f} us on the route; {per_forward} a "
+            f"forward")
+        _add(tot, abs_err(out, ref), ms, rms, lms, bound, by)
+        tot["host_us"] += per_forward * hus
+        tot["route_host_us"] += per_forward * rhus
+        tot["route_err"] = max(tot["route_err"], route_err)
+    log(f"{label} K6 over {tot['shapes']} shapes: kernel {tot['ms']:.4f} ms, route "
+        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms; the host's time a forward {tot['host_us'] / 1e3:.3f} ms "
+        f"against {tot['route_host_us'] / 1e3:.3f} ms on the route")
+    return tot
+
+
 def self_attention_count(unet) -> int:
     """The 2-D self-attention modules of a U-Net: each launches K4 once a
     forward on the flash route (at the shipped models' sides every one has
@@ -1026,7 +1175,7 @@ def check_images(out, shape, what: str):
 # the kernels a path must launch: the 64px model never packs, so its
 # paths launch only the unpacked K2 (no K2·struct, no K2·pipe); the nested
 # paths add the packed modes their recorded launch shapes have (``modes``)
-SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj", "K5")
+SAMPLING_KERNELS = ("K1", "K2", "K2·N", "K2·proj", "K5", "K6")
 FLASH_KERNELS = SAMPLING_KERNELS + ("K4",)
 TRAINING_KERNELS = ("K1", "K2", "K3", "K3·A", "K3·B")
 PACKED_MODES = ("K2·struct", "K2·pipe")
@@ -1044,7 +1193,7 @@ def reset_counts():
 
     gn_stats.launch_count = 0
     norm_coeffs.launch_count = 0
-    attention.launch_count = 0
+    attention.launch_count = attention.k6_launch_count = 0
     fused_resnet.reset_launch_counts()
     kernel_anatomy.reset_launch_counts()
 
@@ -1059,7 +1208,8 @@ def read_counts(what: str, required=SAMPLING_KERNELS):
 
     counts = {"K1": gn_stats.launch_count, **fused_resnet.launch_counts,
               **k3_passes.launch_counts, "K4": attention.launch_count,
-              "K5": norm_coeffs.launch_count, **kernel_anatomy.launch_counts}
+              "K5": norm_coeffs.launch_count, "K6": attention.k6_launch_count,
+              **kernel_anatomy.launch_counts}
     log(f"launches during {what}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
     if missing:
@@ -1070,6 +1220,9 @@ def read_counts(what: str, required=SAMPLING_KERNELS):
                              f"{[(k, counts[k]) for k in PACKED_MODES]}")
     if "K4" not in required and counts["K4"]:
         raise AssertionError(f"{what}: K4 launched {counts['K4']} times off the flash route")
+    if "K3" in required and counts["K6"]:
+        raise AssertionError(f"{what}: K6, which has no backward, launched {counts['K6']} "
+                             "times in training")
     return counts
 
 
@@ -1273,6 +1426,8 @@ def path_64(dev):
         tot_64 = check_kernels(k2_keys, k1_keys, dev, "64px")
         k5_keys = record_k5_shapes(forward_inputs(pipe, dev, 64, side, lm_dim))
         tot_64["K5"] = check_k5(k5_keys, dev, "64px")
+        k6_keys = record_k6_shapes(forward_inputs(pipe, dev, 64, side, lm_dim))
+        tot_64["K6"] = check_k6(k6_keys, dev, "64px")
     with phase("64px: kernel path vs plain path"):
         kernel_vs_plain(pipe, dev, lm_dim, side, "64px")
     bench = dict(num_inference_steps=50, resample_steps=True, ddim_eta=0.0)
@@ -1375,6 +1530,8 @@ def path_1024(dev):
         # K5 at the 1024px cell's 16 rows (batch 8 with guidance)
         k5_keys = record_k5_shapes(forward_inputs(pipe, dev, 16, side, lm_dim))
         totals["K5"] = check_k5(k5_keys, dev, "1024px")
+        k6_keys = record_k6_shapes(forward_inputs(pipe, dev, 16, side, lm_dim))
+        totals["K6"] = check_k6(k6_keys, dev, "1024px")
     with phase("1024px: one untimed forward, then the sample_1024 request"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2957,7 +3114,7 @@ def path_cli(dev, tower: str, preset_steps_s: float):
             shutil.rmtree(f"{out}/{run}", ignore_errors=True)  # ~11 GB a save
     cli = {"K1": counts_train["K1"] + counts_gen["K1"],
            "K2 64px": counts_train["K2"] + counts_gen["K2"],
-           **{k: counts_gen[k] for k in ("K2·N", "K2·proj", "K5")},
+           **{k: counts_gen[k] for k in ("K2·N", "K2·proj", "K5", "K6")},
            **{k: counts_train[k] for k in ("K3", "K3·A", "K3·B")}}
     return cli, result
 
@@ -3816,7 +3973,7 @@ def path_cifar(dev):
         torch.cuda.empty_cache()
     cifar = {"K1": counts_train["K1"] + counts_gen["K1"],
              "K2": counts_train["K2"] + counts_gen["K2"],
-             **{k: counts_gen[k] for k in ("K2·N", "K2·proj", "K5")},
+             **{k: counts_gen[k] for k in ("K2·N", "K2·proj", "K5", "K6")},
              **{k: counts_train[k] for k in ("K3", "K3·A", "K3·B", "K3·id")}}
     return cifar, shapes, result
 
@@ -3918,7 +4075,7 @@ def path_dp_sampler(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return {"K1": counts["K1"], "K2 64px": counts["K2"],
-            **{k: counts[k] for k in ("K2·N", "K2·proj", "K5")}}, result
+            **{k: counts[k] for k in ("K2·N", "K2·proj", "K5", "K6")}}, result
 
 
 # ptxas's line for each K2 instance, (N tile, m64 tiles, shortcut, packed)
@@ -4067,8 +4224,10 @@ def main() -> int:
     # K1-K2·proj over the nested sampling forwards' shapes (as in earlier
     # slices), K2·struct and K2·pipe over those and the train_1024 step's
     k5_64, k5_1024 = tot_64.pop("K5"), tot_1024.pop("K5")
+    k6_64, k6_1024 = tot_64.pop("K6"), tot_1024.pop("K6")
     totals = merge_totals(tot_256, tot_1024)
     totals["K5"] = merge_totals({"K5": k5_64}, {"K5": k5_1024})["K5"]
+    totals["K6"] = merge_totals({"K6": k6_64}, {"K6": k6_1024})["K6"]
     for mode in ("K2·struct", "K2·pipe"):
         totals[mode] = merge_totals(tot_256, tot_1024, tot_t1024)[mode]
     totals.update(tot_k3)
@@ -4082,10 +4241,11 @@ def main() -> int:
     launches["K2 64px"] = counts_64["K2"]
     launches["K4"] = counts_k4_64["K4"] + counts_k4_256["K4"]
     launches["K5"] = counts_64["K5"] + counts_256["K5"] + counts_1024["K5"]
+    launches["K6"] = counts_64["K6"] + counts_256["K6"] + counts_1024["K6"]
     launches.update({k: counts_probes[k] for k in ("P1", "P2")})
     # the web demo's requests run the nested forward's kernels too
     server = {k: counts_demo[k]
-              for k in ("K1", "K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe", "K5")}
+              for k in ("K1", "K2", "K2·N", "K2·proj", "K2·struct", "K2·pipe", "K5", "K6")}
     for k, v in server.items():
         launches[k] += v
     # the CLIs' runs: the 64px model's training steps and generate_batch
@@ -4093,7 +4253,7 @@ def main() -> int:
         launches[k] += v
     # the quality gate's kernel route: its 500 steps and its four probes
     gate = {"K1": gate_train["K1"] + gate_probe["K1"], "K2": gate_train["K2"] + gate_probe["K2"],
-            **{k: gate_probe[k] for k in ("K2·N", "K2·proj", "K5")},
+            **{k: gate_probe[k] for k in ("K2·N", "K2·proj", "K5", "K6")},
             **{k: gate_train[k] for k in ("K3", "K3·A", "K3·B")}}
     for k, v in gate.items():
         launches[k] += v
@@ -4109,7 +4269,8 @@ def main() -> int:
         f"{counts_1024['K2·pipe']} + {counts_t1024['K2·pipe']}), the train_256 preset's timed "
         f"steps (K3, K3·A, K3·B), the flash-route "
         f"requests (64px and 256px; K4), the 64px, 256px and 1024px matmul-route requests (K5: "
-        f"{counts_64['K5']} + {counts_256['K5']} + {counts_1024['K5']}) and the probes' tables "
+        f"{counts_64['K5']} + {counts_256['K5']} + {counts_1024['K5']}; K6: {counts_64['K6']} + "
+        f"{counts_256['K6']} + {counts_1024['K6']}) and the probes' tables "
         f"(P1, P2), and, for K1-K2·pipe and K5, "
         f"the web demo's four requests ({server}), and, for K1, K2 64px, K2·N, K2·proj, K5 and "
         f"K3-K3·B, the CLIs' runs ({cli}), and, for K1, K2, K2·N, K2·proj, K5 and K3-K3·B, the "
@@ -4220,6 +4381,15 @@ def main() -> int:
         entry("norm_coeffs (gn_coeffs, layer_norm)", "K5", "triton",
               "ml_mdm_tpu_torch/ops/norm_coeffs.py", None, library=False,
               host_us="host_us", plain_host_us="plain_host_us"),
+        # no TPU kernel: the matmul route's two attention branches and their
+        # sum, which XLA runs as einsums in the JAX package; plain_ms is the
+        # route's (the two matmul_attention calls and the sum K6 replaces),
+        # library_ms scaled_dot_product_attention's over both branches, host_us
+        # and route_host_us the enqueue time over a forward (64px batch 64
+        # and 1024px at 16 rows), route_err the largest error against the route
+        entry("two_branch_attention (self and text branches)", "K6", "cuda",
+              "ml_mdm_tpu_torch/csrc/flash_attention.cu", None, host_us="host_us",
+              route_host_us="route_host_us", route_err="route_err"),
         # one PyTorch call computes two of P1's variants (its 1-tap product
         # and its copy): library_ms sums those, library_kernel_ms is the
         # kernel's time on the same two; none computes a P2 variant. The

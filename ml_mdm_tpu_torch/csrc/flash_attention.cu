@@ -1,4 +1,7 @@
-// Blocked online-softmax attention for Hopper (kernel K4).
+// Blocked online-softmax attention for Hopper (kernel K4), and a 2-D
+// attention layer's self and text branches on the matmul route's definition
+// (kernel K6, after K4's kernel below: its own header is there). One library
+// holds both, so one nvcc builds them.
 //
 // Replaces ml_mdm_tpu/ops/attention.py::flash_attention (the Pallas kernel
 // inside it): for q (B, Lq, H, D) and k, v (B, Lk, H, D), per batch row and
@@ -113,6 +116,20 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -565,6 +582,494 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// -- K6: a 2-D attention layer's self and text branches in one launch -----------
+//
+// Replaces no TPU kernel: in the JAX package a SelfAttention's two branches
+// (ml_mdm_tpu/models/layers.py SelfAttention) are the matmul route's einsums
+// (ml_mdm_tpu/ops/attention.py _einsum_attention), which XLA runs. For q, k, v
+// (B, L, H, D), k_c, v_c (B, Lt, H, D) and a (B, Lt) key mask, per batch row
+// and head,
+//
+//   out = attn(q, k, v) + attn(q, k_c, v_c, mask) (+ add)
+//
+// on the matmul route's definition (ops/attention.py matmul_attention): q and
+// k each scaled by d^-1/4 and rounded to bf16 as the route scales them, each
+// branch's logits rounded to bf16 where round_s (ML_MDM_TPU_BF16_LOGITS), -inf
+// at masked keys, the softmax in f32 over the branch's whole key row, the
+// weights normalised and then rounded to bf16, both products summed in f32.
+// One departure that the definition leaves open: the branches (and `add`,
+// K4's output where K4 took the self branch) are summed in f32 and rounded
+// once. (Scaling the f32 product by d^-1/2 instead of q and k in bf16 would
+// save a pass over each tile, but moves the output by 1.3-1.4e-2 of its
+// largest value at the cells' shapes, next to the route's own tolerance of
+// 2^-6.)
+//
+// Normalising before rounding is what a one-pass online softmax (K4's) cannot
+// do: it rounds P before the row's sum is known. So a block keeps its 64 query
+// rows' logits for a branch's whole key row in shared memory, in bf16 (128 KB
+// at L = 1024; f32 where round_s is off, so half the length fits). Where that
+// store leaves an SM one block of one consumer warpgroup (at L = 1024), two
+// warpgroups take the same 64 rows and the self branch's key tiles in turns,
+// each with its half of the store; else one takes them all:
+//
+//   - pass 1: S = Q K^T a tile of keys at a time on wgmma (Q and K in the
+//     TMA's swizzled layout, as in K4, each tile scaled in place by its
+//     warpgroup before its product), rounded a pair of keys at a time,
+//     masked and stored, the rows' running maximum and sum of exponentials
+//     kept in registers; the next tile's product runs while this one is
+//     taken; the two warpgroups' maxima and sums are then combined through
+//     shared memory, warpgroup 0's first in both;
+//   - pass 2: each tile's weights exp(s - m) / l from the store, rounded to
+//     bf16 as the A fragments of O += P V (V through the transpose bit, as in
+//     K4); the next tile's weights are formed while this product runs;
+//     warpgroup 0 then takes the text branch alone, and adds warpgroup 1's O
+//     to its own before the output's one rounding;
+//   - a thread stores and reloads only its own accumulator entries, 16 bytes
+//     at a time with the warpgroup's threads side by side: no bank conflict,
+//     no barrier;
+//   - the self branch takes keys in tiles of 64, the text branch in tiles of
+//     32 (Lt up to 128), through one ring of stages that one producer thread
+//     keeps full by TMA in the order the consumers take them: Q once, then K
+//     tiles, then V tiles, the self branch before the text. The ring is as
+//     deep as the shared memory left beside the store allows without fewer
+//     blocks an SM (3 to K6_MAX_STAGES): at L = 1024, where a block of two
+//     warpgroups has an SM to itself, eight stages take 12-14% off three.
+//
+// What bounds it on the H100: at L = 1024, D = 64 the two products do
+// 4 L^2 D FLOPs a head against 8 L D bytes (512 a byte, above the card's
+// ~295). Inside a block the multi-function unit bounds it, not the products:
+// a 64 x 64 tile is ~123 tensor-core cycles, while each warp spends 8 cycles
+// on each of its two exponentials a logit (the sum in pass 1, the weight in
+// pass 2) and on each bf16 conversion (q, k and the logits rounded, the
+// weights packed). One warpgroup a block and one block an SM (the store at
+// L = 1024) left that unit idle on latencies: two warpgroups on the same
+// store give each scheduler two warps. Where the SM holds two blocks or more
+// of one warpgroup, those do it. No float atomics, every sum across
+// warpgroups in a fixed order, and the variant and the ring's depth fixed by
+// the shapes: two calls give the same bits.
+
+constexpr int K6_BM = 64;            // query rows a block: one consumer warpgroup
+constexpr int K6_BN = 64;            // keys a tile of the self branch
+constexpr int K6_TN = 32;            // keys a tile of the text branch
+constexpr int K6_MIN_STAGES = 3;     // K or V tiles in flight, at least
+constexpr int K6_MAX_STAGES = 8;     // and at most
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct K6Params {
+  __nv_bfloat16* o;            // (B, L, H, D) contiguous
+  const __nv_bfloat16* add;    // (B, L, H, D) contiguous, or null
+  const unsigned char* mask;   // (B, Lt) by m_sb, m_sl, 0 at a masked key; or null
+  long long m_sb, m_sl;
+  int L, Lt, H, n_q_tiles;
+  int n_kt, n_tt;              // key tiles of the self and the text branch (0: none)
+  float scale;                 // d^-1/4, on q and k
+  int round_s;                 // the logits rounded to bf16
+  int stages;                  // the ring's
+  int store_bytes;             // the logits' store
+};
+
+// S = Q K^T over one tile of N keys (issued, not waited for)
+template <int D, int N>
+__device__ __forceinline__ void k6_issue_qk(float (&sc)[N / 2], uint32_t qa, uint32_t ka) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 / T::CW, off = (ks * 16 % T::CW) * 2;
+    wgmma_ss<N>(sc, make_desc(qa + c * K6_BM * T::SW + off, 16, 8 * T::SW, T::LAYOUT),
+                make_desc(ka + c * N * T::SW + off, 16, 8 * T::SW, T::LAYOUT), ks > 0);
+  }
+}
+
+// O += P V over one tile of N keys (issued, not waited for)
+template <int D, int N>
+__device__ __forceinline__ void k6_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[N / 16][4],
+                                            uint32_t va) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_rs<D>(o, pa[kk], make_desc(va + kk * 16 * T::SW, N * T::SW, 8 * T::SW, T::LAYOUT));
+}
+
+// x <- bf16(x scale) over `bytes` bytes of bf16 in shared memory (a swizzled
+// tile: the order does not matter), 16 bytes a thread at a time; then the
+// writes made visible to wgmma, which reads through the async proxy, and the
+// `threads` threads met at named barrier `bar`
+__device__ __forceinline__ uint32_t k6_scale2(uint32_t w, float scale) {
+  return pack_bf16(__uint_as_float(w << 16) * scale, __uint_as_float(w & 0xffff0000u) * scale);
+}
+
+__device__ __forceinline__ void k6_scale(uint32_t addr, uint32_t bytes, float scale, int tid,
+                                         int threads, int bar) {
+  for (uint32_t off = tid * 16; off < bytes; off += threads * 16) {
+    uint32_t a, b, c, d;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a), "=r"(b), "=r"(c), "=r"(d)
+                 : "r"(addr + off));
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr + off),
+                 "r"(k6_scale2(a, scale)), "r"(k6_scale2(b, scale)), "r"(k6_scale2(c, scale)),
+                 "r"(k6_scale2(d, scale))
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(bar, threads);
+}
+
+// One tile's logits in place: -inf at keys past `valid` and at masked ones
+// (mrow: the mask at the tile's first key, or null), rounded to bf16 where
+// round_s, a pair of neighbouring keys at a time into `pk` (one conversion
+// a pair: the conversions, not the products, bound the tile), whose bf16
+// values go back to sc
+template <int N>
+__device__ __forceinline__ void k6_logits(float (&sc)[N / 2], uint32_t (&pk)[N / 4], int valid,
+                                          const unsigned char* mrow, long long m_sl, int round_s,
+                                          int quad) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int key = (i / 4) * 8 + 2 * quad;  // entries i and i + 1: keys key and key + 1
+    bool keep0 = key < valid, keep1 = key + 1 < valid;
+    if (mrow != nullptr) {
+      if (keep0) keep0 = mrow[key * m_sl] != 0;
+      if (keep1) keep1 = mrow[(key + 1) * m_sl] != 0;
+    }
+    sc[i] = keep0 ? sc[i] : -INFINITY;
+    sc[i + 1] = keep1 ? sc[i + 1] : -INFINITY;
+    if (round_s) {
+      pk[i / 2] = pack_bf16(sc[i], sc[i + 1]);
+      sc[i] = __uint_as_float(pk[i / 2] << 16);
+      sc[i + 1] = __uint_as_float(pk[i / 2] & 0xffff0000u);
+    }
+  }
+}
+
+// The rows' running maximum (log2 units) and sum of exponentials over one
+// more tile, as four independent chains a row (see softmax_tile). A row with
+// no key yet keeps its maximum at -inf and its sum at 0.
+template <int N>
+__device__ __forceinline__ void k6_online(const float (&sc)[N / 2], float (&m_run)[2],
+                                          float (&l_run)[2][4]) {
+  float mx[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mx[h][c] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], sc[i]);
+  float mu[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_run[h], m * LOG2E);
+    mu[h] = m_new == -INFINITY ? 0.f : m_new;
+    const float corr = ex2(m_run[h] - mu[h]);  // 0 while the row had no key
+    m_run[h] = m_new;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) l_run[h][c] *= corr;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    l_run[h][(i >> 2) & 3] += ex2(fmaf(sc[i], LOG2E, -mu[h]));
+  }
+}
+
+// A thread's logits of tile j into the store and back: the bf16 pairs where
+// round_s, else f32; 16 bytes a thread at a time, the warpgroup's 128
+// threads side by side
+template <int N>
+__device__ __forceinline__ void k6_stash(uint4* store, int j, const float (&sc)[N / 2],
+                                         const uint32_t (&pk)[N / 4], int t, int round_s) {
+  if (round_s) {
+#pragma unroll
+    for (int u = 0; u < N / 16; ++u)
+      store[(j * (N / 16) + u) * WG + t] =
+          make_uint4(pk[4 * u], pk[4 * u + 1], pk[4 * u + 2], pk[4 * u + 3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < N / 8; ++u)
+      store[(j * (N / 8) + u) * WG + t] =
+          make_uint4(__float_as_uint(sc[4 * u]), __float_as_uint(sc[4 * u + 1]),
+                     __float_as_uint(sc[4 * u + 2]), __float_as_uint(sc[4 * u + 3]));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void k6_unstash(float (&sc)[N / 2], const uint4* store, int j, int t,
+                                           int round_s) {
+  if (round_s) {
+#pragma unroll
+    for (int u = 0; u < N / 16; ++u) {
+      const uint4 w = store[(j * (N / 16) + u) * WG + t];
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        sc[8 * u + 2 * r] = __uint_as_float(ws[r] << 16);
+        sc[8 * u + 2 * r + 1] = __uint_as_float(ws[r] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < N / 8; ++u) {
+      const uint4 w = store[(j * (N / 8) + u) * WG + t];
+      sc[4 * u] = __uint_as_float(w.x);
+      sc[4 * u + 1] = __uint_as_float(w.y);
+      sc[4 * u + 2] = __uint_as_float(w.z);
+      sc[4 * u + 3] = __uint_as_float(w.w);
+    }
+  }
+}
+
+// The weights of tile j, exp(s - m) / l rounded once to bf16, as A fragments
+template <int N>
+__device__ __forceinline__ void k6_weights(uint32_t (&pa)[N / 16][4], const uint4* store, int j,
+                                           int t, int round_s, const float (&m_fin)[2],
+                                           const float (&inv)[2]) {
+  float sc[N / 2];
+  k6_unstash<N>(sc, store, j, t, round_s);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    sc[i] = ex2(fmaf(sc[i], LOG2E, -m_fin[h])) * inv[h];
+  }
+  pack_p<N>(pa, sc);
+}
+
+// One branch over n tiles of N keys (`valid` of them real), its P V added to
+// o. Warpgroup w of nwg takes tiles w, w + nwg, ...: K tile j is the ring's
+// tile g0 + j, V tile j its g0 + n + j. With two warpgroups the rows' maxima
+// and sums are combined through `xch` between the passes, in a fixed order.
+template <int D, int N>
+__device__ __forceinline__ void k6_branch(float (&o)[D / 2], uint32_t sq, uint32_t ring,
+                                          uint32_t bars, uint4* store, float4* xch, int g0, int n,
+                                          int nwg, int w, int valid, const unsigned char* mrow,
+                                          const K6Params& p, int t, int quad) {
+  constexpr uint32_t STAGE = K6_BN * D * 2;
+  auto stage = [&](int k) { return ring + (uint32_t)(k % p.stages) * STAGE; };
+  auto full = [&](int k) { return bars + 8 * (1 + k % p.stages); };
+  auto empty = [&](int k) { return bars + 8 * (1 + K6_MAX_STAGES + k % p.stages); };
+  auto parity = [&](int k) { return (uint32_t)((k / p.stages) & 1); };
+  const int mine = n > w ? (n - w + nwg - 1) / nwg : 0;  // this warpgroup's tiles
+
+  // pass 1: the logits, stored, and the rows' maxima and sums; tile i + 1's
+  // product runs while tile i is taken, and is copied in when both are done
+  // (no product is pending across the loop's back edge)
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2][4] = {};
+  float sa[N / 2], sb[N / 2];
+  auto issue = [&](float (&sc)[N / 2], int k) {
+    mbar_wait(full(k), parity(k));
+    k6_scale(stage(k), N * D * 2, p.scale, t, WG, 4 + w);
+    fence_regs(sc);
+    wgmma_fence();
+    k6_issue_qk<D, N>(sc, sq, stage(k));
+    wgmma_commit();
+  };
+  if (mine) {
+    issue(sa, g0 + w);
+    wgmma_wait<0>();
+    fence_regs(sa);
+  }
+#pragma unroll 1
+  for (int i = 0; i < mine; ++i) {
+    const int j = w + i * nwg;
+    if (i + 1 < mine) issue(sb, g0 + j + nwg);
+    if (t == 0) mbar_arrive(empty(g0 + j));
+    uint32_t pk[N / 4];
+    k6_logits<N>(sa, pk, valid - j * N,
+                 mrow == nullptr ? nullptr : mrow + (long long)j * N * p.m_sl, p.m_sl, p.round_s,
+                 quad);
+    k6_stash<N>(store, i, sa, pk, t, p.round_s);
+    k6_online<N>(sa, m_run, l_run);
+    if (i + 1 < mine) {
+      wgmma_wait<0>();
+      fence_regs(sb);
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) sa[e] = sb[e];
+    }
+  }
+
+  // the rows' maxima and sums over the branch's whole key row
+  float m_fin[2], inv[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = (l_run[h][0] + l_run[h][1]) + (l_run[h][2] + l_run[h][3]);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float4 part[2] = {make_float4(m_run[0], m_run[1], l[0], l[1]),
+                    make_float4(-INFINITY, -INFINITY, 0.f, 0.f)};
+  if (nwg == 2) {  // the same rows are thread t's in both warpgroups
+    xch[w * WG + t] = part[0];
+    named_sync(2, 2 * WG);
+    part[1] = xch[(1 - w) * WG + t];
+    if (w == 1) {  // warpgroup 0's part first in both
+      const float4 x = part[0];
+      part[0] = part[1];
+      part[1] = x;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m0 = h ? part[0].y : part[0].x, m1 = h ? part[1].y : part[1].x;
+    const float l0 = h ? part[0].w : part[0].z, l1 = h ? part[1].w : part[1].z;
+    const float m = fmaxf(m0, m1);
+    m_fin[h] = m == -INFINITY ? 0.f : m;
+    inv[h] = 1.f / (l0 * ex2(m0 - m_fin[h]) + l1 * ex2(m1 - m_fin[h]));
+  }
+
+  // pass 2: O += P V, tile i's product running while tile i + 1's weights form
+  uint32_t pa[N / 16][4], pb[N / 16][4];
+  auto pv = [&](uint32_t (&pp)[N / 16][4], int k) {
+    mbar_wait(full(k), parity(k));
+    fence_regs(o);
+    fence_regs(pp);
+    wgmma_fence();
+    k6_issue_pv<D, N>(o, pp, stage(k));
+    wgmma_commit();
+  };
+  auto done = [&](uint32_t (&pp)[N / 16][4], int k) {
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pp);
+    if (t == 0) mbar_arrive(empty(k));
+  };
+  auto vtile = [&](int i) { return g0 + n + w + i * nwg; };
+  if (mine) k6_weights<N>(pa, store, 0, t, p.round_s, m_fin, inv);
+  int i = 0;
+#pragma unroll 1
+  for (; i + 1 < mine; i += 2) {  // tile i's weights in pa
+    pv(pa, vtile(i));
+    k6_weights<N>(pb, store, i + 1, t, p.round_s, m_fin, inv);
+    done(pa, vtile(i));
+    pv(pb, vtile(i + 1));
+    if (i + 2 < mine) k6_weights<N>(pa, store, i + 2, t, p.round_s, m_fin, inv);
+    done(pb, vtile(i + 1));
+  }
+  if (i < mine) {
+    pv(pa, vtile(i));
+    done(pa, vtile(i));
+  }
+}
+
+// NWG consumer warpgroups (1 or 2) on the block's 64 rows, then one producer warp
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * WG + 32, 1)
+    two_branch_attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap kcmap,
+                                const __grid_constant__ CUtensorMap vcmap, const K6Params p) {
+  using T = Tile<D>;
+  constexpr uint32_t Q_BYTES = K6_BM * D * 2;
+  constexpr uint32_t STAGE = K6_BN * D * 2;  // a text tile uses the first half
+
+  // the swizzled regions want 1024-byte alignment; the launch adds the slack.
+  // Q, the ring, a store a consumer warpgroup, their exchange (two of them),
+  // the barriers
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t XCH = NWG == 2 ? NWG * WG * 16 : 0;
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  const uint32_t sq = smem_u32(smem_raw) + pad;
+  const uint32_t ring = sq + Q_BYTES;
+  const uint32_t store_off = pad + Q_BYTES + p.stages * STAGE;
+  float4* xch = reinterpret_cast<float4*>(smem_raw + store_off + NWG * p.store_bytes);
+  const uint32_t bars = ring + p.stages * STAGE + NWG * p.store_bytes + XCH;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + K6_MAX_STAGES + s); };
+
+  // the query tile fastest, so that the blocks at work share heads in L2
+  const int qt = blockIdx.x % p.n_q_tiles, bh = blockIdx.x / p.n_q_tiles;
+  const int head = bh % p.H, batch = bh / p.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);  // thread 0 of the warpgroup that took the tile arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * WG) {
+    // -- producer: one thread loads Q, then the ring's tiles in the consumers' order
+    if (threadIdx.x == NWG * WG) {
+      mbar_expect_tx(bars, Q_BYTES);
+      for (int c = 0; c < D / T::CW; ++c)
+        tma_load_4d(sq + c * K6_BM * T::SW, &qmap, bars, c * T::CW, head, qt * K6_BM, batch);
+      int g = 0;
+      auto load = [&](const CUtensorMap* map, int rows, int row0) {
+        const int s = g % p.stages;
+        mbar_wait(empty(s), ((g / p.stages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full(s), rows * D * 2);
+        for (int c = 0; c < D / T::CW; ++c)
+          tma_load_4d(ring + s * STAGE + c * rows * T::SW, map, full(s), c * T::CW, head, row0,
+                      batch);
+        ++g;
+      };
+      for (int j = 0; j < p.n_kt; ++j) load(&kmap, K6_BN, j * K6_BN);
+      for (int j = 0; j < p.n_kt; ++j) load(&vmap, K6_BN, j * K6_BN);
+      for (int j = 0; j < p.n_tt; ++j) load(&kcmap, K6_TN, j * K6_TN);
+      for (int j = 0; j < p.n_tt; ++j) load(&vcmap, K6_TN, j * K6_TN);
+    }
+    return;
+  }
+
+  // -- consumers: the warpgroups on the block's 64 query rows, the self
+  //    branch's key tiles taken in turns, the text branch by warpgroup 0 ----------
+  const int w = NWG == 1 ? 0 : __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  const int t = threadIdx.x % WG;
+  const int warp = t / 32, lane = t % 32, quad = lane % 4;
+  uint4* store = reinterpret_cast<uint4*>(smem_raw + store_off + w * p.store_bytes);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  mbar_wait(bars, 0);
+  k6_scale(sq, Q_BYTES, p.scale, threadIdx.x, NWG * WG, 1);
+  if (p.n_kt)
+    k6_branch<D, K6_BN>(o, sq, ring, bars, store, xch, 0, p.n_kt, NWG, w, p.L, nullptr, p, t,
+                        quad);
+  if (p.n_tt && w == 0)
+    k6_branch<D, K6_TN>(o, sq, ring, bars, store, xch, 2 * p.n_kt, p.n_tt, 1, 0, p.Lt,
+                        p.mask == nullptr ? nullptr : p.mask + batch * p.m_sb, p, t, quad);
+
+  // warpgroup 1 hands its O to warpgroup 0 through its own store, once all of
+  // its threads are done reading their logits there
+  if (NWG == 2) {
+    float* xo = reinterpret_cast<float*>(smem_raw + store_off + p.store_bytes);
+    if (w == 1) {
+      named_sync(6, WG);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) xo[i * WG + t] = o[i];
+      named_arrive(3, 2 * WG);
+      return;
+    }
+    named_sync(3, 2 * WG);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] += xo[i * WG + t];
+  }
+
+  // out = the branches' sum (+ add), rounded once to bf16, rows past L dropped
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qt * K6_BM + warp * 16 + h * 8 + lane / 4;
+    if (row >= p.L) continue;
+    const long long off = (((long long)batch * p.L + row) * p.H + head) * D + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      float a = o[4 * i + 2 * h], b = o[4 * i + 2 * h + 1];
+      if (p.add != nullptr) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p.add + off + 8 * i);
+        a += __low2float(x);
+        b += __high2float(x);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(p.o + off + 8 * i) = __floats2bfloat162_rn(a, b);
+    }
+  }
+}
+
 // -- host side -------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -654,6 +1159,112 @@ int launch(const Operands& a, const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+struct K6Operands {
+  const void *q, *k, *v, *kc, *vc;  // k, v null: no self branch; kc, vc null: no text
+  int B, L, Lt, H;
+  long long q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
+  long long kc_sb, kc_sl, kc_sh, vc_sb, vc_sl, vc_sh;
+};
+
+// A consumer warpgroup's store in 16-byte words a thread: its share of the
+// self branch's logits, the text branch's (warpgroup 0's), or, with two,
+// warpgroup 1's O in f32 on its way to warpgroup 0, the most of the three
+long long k6_store_u4(int D, int n_kt, int n_tt, int round_s, int nwg) {
+  const long long self_u4 = (long long)(n_kt + nwg - 1) / nwg * (K6_BN / 16) * (round_s ? 1 : 2);
+  const long long text_u4 = (long long)n_tt * (K6_TN / 16) * (round_s ? 1 : 2);
+  const long long u4 = self_u4 > text_u4 ? self_u4 : text_u4;
+  return nwg == 2 && u4 < D / 8 ? D / 8 : u4;
+}
+
+// K6's dynamic shared memory: the alignment slack, Q, the ring, a store a
+// consumer warpgroup (2048 bytes a word of the 128 threads), with two their
+// exchange of the rows' maxima and sums, and the barriers
+size_t k6_smem(int D, int n_kt, int n_tt, int round_s, int nwg, int stages) {
+  return 1024 + (size_t)(1 + stages) * K6_BM * D * 2 +
+         (size_t)nwg * k6_store_u4(D, n_kt, n_tt, round_s, nwg) * WG * 16 +
+         (nwg == 2 ? 2 * WG * 16 : 0) + 8 * (1 + 2 * K6_MAX_STAGES);
+}
+
+// blocks of `smem` bytes an SM holds: its 228 KB, 1 KB of each block reserved
+int k6_blocks_per_sm(size_t smem) { return (int)(233472 / (smem + 1024)); }
+
+// Registers a thread of each K6 instance, read once (an SM's blocks follow
+// them and the shared memory)
+template <int D, int NWG>
+int k6_configure(int dev) {
+  static std::atomic<unsigned long long> configured{0};
+  static std::atomic<int> regs{0};
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(configured.load() & bit)) {
+    cudaError_t err = cudaFuncSetAttribute(two_branch_attention_kernel<D, NWG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return -(int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, two_branch_attention_kernel<D, NWG>);
+    if (err != cudaSuccess) return -(int)err;
+    regs.store(attr.numRegs);
+    configured.fetch_or(bit);
+  }
+  return regs.load();
+}
+
+// blocks of NWG warpgroups and `smem` bytes an SM holds: its 65,536 registers
+// (8 a thread at a time) and 228 KB of shared memory, 1 KB of each block
+// reserved
+int k6_blocks_per_sm(int regs, int nwg, size_t smem) {
+  const int by_regs = 65536 / (((regs + 7) / 8 * 8) * (nwg * WG + 32));
+  const int by_smem = (int)(233472 / (smem + 1024));
+  return by_regs < by_smem ? by_regs : by_smem;
+}
+
+template <int D>
+int launch_k6(const K6Operands& a, K6Params p, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int regs1 = k6_configure<D, 1>(dev), regs2 = k6_configure<D, 2>(dev);
+  if (regs1 < 0) return -regs1;
+  if (regs2 < 0) return -regs2;
+  // one warpgroup where the SM holds two blocks or more of it, else two on
+  // the same store, so that each scheduler has two warps
+  const size_t one = k6_smem(D, p.n_kt, p.n_tt, p.round_s, 1, K6_MIN_STAGES);
+  const size_t two = k6_smem(D, p.n_kt, p.n_tt, p.round_s, 2, K6_MIN_STAGES);
+  if (one > 232448) return -2;
+  const int nwg = k6_blocks_per_sm(regs1, 1, one) < 2 && two <= 232448 ? 2 : 1;
+  const int regs = nwg == 1 ? regs1 : regs2;
+  // the least ring, then deeper while the SM still holds as many blocks
+  p.stages = K6_MIN_STAGES;
+  size_t smem = nwg == 1 ? one : two;
+  const int per_sm = k6_blocks_per_sm(regs, nwg, smem);
+  while (p.stages < K6_MAX_STAGES) {
+    const size_t deeper = k6_smem(D, p.n_kt, p.n_tt, p.round_s, nwg, p.stages + 1);
+    if (deeper > 232448 || k6_blocks_per_sm(regs, nwg, deeper) < per_sm) break;
+    ++p.stages;
+    smem = deeper;
+  }
+  p.store_bytes = (int)(k6_store_u4(D, p.n_kt, p.n_tt, p.round_s, nwg) * WG * 16);
+  // maps a branch does not use are never read; Q's stands in for them
+  CUtensorMap qm, km, vm, kcm, vcm;
+  if (!encode<D>(&qm, a.q, a.B, a.L, a.H, a.q_sb, a.q_sl, a.q_sh, K6_BM)) return -1;
+  km = vm = kcm = vcm = qm;
+  if (a.k != nullptr && (!encode<D>(&km, a.k, a.B, a.L, a.H, a.k_sb, a.k_sl, a.k_sh, K6_BN) ||
+                         !encode<D>(&vm, a.v, a.B, a.L, a.H, a.v_sb, a.v_sl, a.v_sh, K6_BN)))
+    return -1;
+  if (a.kc != nullptr &&
+      (!encode<D>(&kcm, a.kc, a.B, a.Lt, a.H, a.kc_sb, a.kc_sl, a.kc_sh, K6_TN) ||
+       !encode<D>(&vcm, a.vc, a.B, a.Lt, a.H, a.vc_sb, a.vc_sl, a.vc_sh, K6_TN)))
+    return -1;
+  const long long blocks = (long long)p.n_q_tiles * a.B * a.H;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (nwg == 1)
+    two_branch_attention_kernel<D, 1><<<(int)blocks, WG + 32, smem, stream>>>(qm, km, vm, kcm,
+                                                                             vcm, p);
+  else
+    two_branch_attention_kernel<D, 2><<<(int)blocks, 2 * WG + 32, smem, stream>>>(qm, km, vm,
+                                                                                 kcm, vcm, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -691,6 +1302,61 @@ int ml_mdm_flash_attention(const void* q, const void* k, const void* v, void* o,
     case 96: return launch<96>(a, p, s);
     case 112: return launch<112>(a, p, s);
     case 128: return launch<128>(a, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6: q, k, v (B, L, H, D), kc, vc (B, Lt, H, D), bf16, the last axis
+// contiguous, each given by its base pointer (16-byte aligned) and its batch,
+// position and head strides in elements (multiples of 8); k and v null for no
+// self branch, kc and vc null for no text branch (not both); mask (B, Lt)
+// bytes by m_sb, m_sl (0 at a masked key) or null; add (B, L, H, D) bf16
+// contiguous or null; o (B, L, H, D) bf16, contiguous. D a multiple of 16, at
+// most 128; Lt at most 128; q and k are scaled by `scale` (d^-1/4) and
+// rounded to bf16, the logits rounded to bf16 where round_s. Launches on `stream` and returns
+// cudaGetLastError(), -1 if a tensor map could not be encoded, or -2 if the
+// logits of one branch's key row do not fit a block's shared memory.
+int ml_mdm_two_branch_attention(const void* q, const void* k, const void* v, const void* kc,
+                                const void* vc, const void* mask, const void* add, void* o,
+                                int B, int L, int Lt, int H, int D, long long q_sb,
+                                long long q_sl, long long q_sh, long long k_sb, long long k_sl,
+                                long long k_sh, long long v_sb, long long v_sl, long long v_sh,
+                                long long kc_sb, long long kc_sl, long long kc_sh,
+                                long long vc_sb, long long vc_sl, long long vc_sh,
+                                long long m_sb, long long m_sl, float scale, int round_s,
+                                void* stream) {
+  const bool self = k != nullptr && v != nullptr, text = kc != nullptr && vc != nullptr;
+  if (B <= 0 || L <= 0 || H <= 0 || D < 16 || D > 128 || D % 16 != 0 || q == nullptr ||
+      o == nullptr || (!self && !text) || (text && (Lt <= 0 || Lt > 128)))
+    return (int)cudaErrorInvalidValue;
+  const K6Operands a{q,    self ? k : nullptr, v,    text ? kc : nullptr, vc,
+                     B,    L,    text ? Lt : 0, H,
+                     q_sb, q_sl, q_sh,  k_sb,  k_sl,  k_sh,  v_sb,  v_sl,  v_sh,
+                     kc_sb, kc_sl, kc_sh, vc_sb, vc_sl, vc_sh};
+  K6Params p;
+  p.o = (__nv_bfloat16*)o;
+  p.add = (const __nv_bfloat16*)add;
+  p.mask = text ? (const unsigned char*)mask : nullptr;
+  p.m_sb = m_sb;
+  p.m_sl = m_sl;
+  p.L = L;
+  p.Lt = a.Lt;
+  p.H = H;
+  p.n_q_tiles = (L + K6_BM - 1) / K6_BM;
+  p.n_kt = self ? (L + K6_BN - 1) / K6_BN : 0;
+  p.n_tt = text ? (Lt + K6_TN - 1) / K6_TN : 0;
+  p.scale = scale;
+  p.round_s = round_s != 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_k6<16>(a, p, s);
+    case 32: return launch_k6<32>(a, p, s);
+    case 48: return launch_k6<48>(a, p, s);
+    case 64: return launch_k6<64>(a, p, s);
+    case 80: return launch_k6<80>(a, p, s);
+    case 96: return launch_k6<96>(a, p, s);
+    case 112: return launch_k6<112>(a, p, s);
+    case 128: return launch_k6<128>(a, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,8 @@ True). With it, the ResNet block and every 4-D bf16 GroupNorm call the
 kernel wrappers, which launch the kernel on a CUDA tensor and run the
 plain version on a CPU tensor; the bf16 norms' coefficient math (the
 ResNet's, GroupNorm's, LayerNorm's) goes through K5 where no input needs
-a gradient (``k5_or_plain``: sampling), one launch a norm.
+a gradient (``k5_or_plain``: sampling), one launch a norm, and the 2-D
+attention's self and text branches go through K6 there (``SelfAttention``).
 ``UNet.use_kernels(False)`` makes them call the plain versions on any
 device, so the two paths can be compared on the card.
 
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ml_mdm_tpu_torch.config import ResNetConfig
-from ml_mdm_tpu_torch.ops import fused_resnet, gn_stats, norm_coeffs
+from ml_mdm_tpu_torch.ops import attention, fused_resnet, gn_stats, norm_coeffs
 from ml_mdm_tpu_torch.ops import space_to_depth as s2d
 from ml_mdm_tpu_torch.ops.norm_coeffs import gn_affine_from_moments
 from ml_mdm_tpu_torch.ops.attention import dot_product_attention
@@ -478,7 +479,11 @@ class SelfAttention(nn.Module):
     """2-D self-attention with the text cross-attention branch
     (``ml_mdm_tpu/models/layers.py`` ``SelfAttention``): the cross branch
     shares q and is added before the shared zero-init ``proj_out``; the
-    optional FFN is ``ffn.0-3`` (GroupNorm, 1x1 conv, GELU, 1x1 conv)."""
+    optional FFN is ``ffn.0-3`` (GroupNorm, 1x1 conv, GELU, 1x1 conv).
+    Where ``attention.k6_route`` holds (``kernels`` on, bf16 operands on the
+    card that need no gradient: sampling), both branches and their sum are
+    one launch of K6; elsewhere two ``dot_product_attention`` calls and the
+    sum."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -501,17 +506,16 @@ class SelfAttention(nn.Module):
                 GELU(),
                 nn.Conv2d(4 * channels, channels, 1),
             )
+        self.kernels = True
+
+    def _heads(self, t):
+        """(B, L, C) -> the (B, L, heads, C / heads) view."""
+        return t.reshape(t.shape[0], t.shape[1], self.heads, t.shape[2] // self.heads)
 
     def _attention(self, q, k, v, mask=None):
-        b, lq, c = q.shape
-        ch = c // self.heads
-        out = dot_product_attention(
-            q.reshape(b, lq, self.heads, ch),
-            k.reshape(b, -1, self.heads, ch),
-            v.reshape(b, -1, self.heads, ch),
-            mask=mask,
-        )
-        return out.reshape(b, lq, c)
+        """One branch on the matmul route (or K4): (B, L, C) -> (B, L, C)."""
+        out = dot_product_attention(self._heads(q), self._heads(k), self._heads(v), mask=mask)
+        return out.reshape(q.shape)
 
     def forward(self, x, cond=None, cond_mask=None):
         with span("unet: attention"):
@@ -519,11 +523,17 @@ class SelfAttention(nn.Module):
             dt = self.compute_dtype
             qkv = dense(self.norm(x), self.qkv, dt).reshape(b, h * w, 3 * c)
             q, k, v = qkv.chunk(3, dim=-1)
-            out = self._attention(q, k, v)
+            k_c = v_c = None
             if self.cond_dim:
                 kv = dense(self.norm_cond(cond), self.kv_cond, dt)
                 k_c, v_c = kv.chunk(2, dim=-1)
-                out = out + self._attention(q, k_c, v_c, mask=cond_mask)
+            if attention.k6_route(self.kernels, self._heads(q), k_c, v_c):
+                views = (self._heads(t) if t is not None else None for t in (q, k, v, k_c, v_c))
+                out = attention.self_and_text_attention(*views, cond_mask).reshape(b, h * w, c)
+            else:
+                out = self._attention(q, k, v)
+                if self.cond_dim:
+                    out = out + self._attention(q, k_c, v_c, mask=cond_mask)
             x = x + dense(out, self.proj_out, dt).reshape(b, h, w, c)
             if self.use_attention_ffn:
                 f = self.ffn

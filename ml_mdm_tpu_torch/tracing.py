@@ -21,7 +21,9 @@ rules keep the readings apart:
 The spans, and what reads them (``PERF.md`` §3): "unet: forward", "unet:
 down <side>", "unet: mid", "unet: up <side>" and "unet: attention"
 (``models/unet.py``, ``models/layers.py``); "K2" or "K2·<modes>", one a
-forward launch, and K3's backward ranges (``ops/fused_resnet.py``);
+forward launch, and K3's backward ranges (``ops/fused_resnet.py``); "K6",
+each launch of the 2-D attention's kernel, inside "unet: attention"
+(``ops/attention.py``);
 "remat: recompute <side>" (``models/layers.py``); "trainer: step",
 "trainer: readback", "trainer: Adam" and "trainer: EMA" (``trainer.py``);
 "text tower" (``language_models/factory.py``).
